@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -8,16 +8,20 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 Phases (any failure exits non-zero and prints no result):
   1. environment: the card's name and power limit (nvidia-smi), torch, CUDA
      and nvcc versions; exits 1 when torch sees no CUDA device;
-  2. build: compiles the three hand-written kernels from drba_tpu_torch/csrc;
+  2. build: compiles every hand-written kernel from drba_tpu_torch/csrc, one
+     nvcc per source, all in parallel;
   3. kernels: each kernel against its plain PyTorch version at the 1080p
-     shapes of the RIFE path, in f32 and bf16, with the tolerance stated
-     beside each check; times both with CUDA events;
-  4. slice: ``run_pipeline`` with a seed-0 random-weight RIFE (IFNet
-     4.26-heavy, full width) in bf16 on 10 synthetic 1088x1920 frames at
-     24 -> 60 fps; checks the output count against the plan, every frame
-     finite, and that each kernel was launched during the run;
-  5. window: one window on the kernel path against the plain path (f32 and
-     bf16), and the window's time both ways.
+     shapes of the RIFE and GMFSS paths, in f32 and bf16, with the tolerance
+     stated beside each check; times both with CUDA events;
+  4. slices: ``run_pipeline`` on synthetic 1088x1920 frames at 24 -> 60 fps in
+     bf16, with a seed-0 random-weight RIFE (IFNet 4.26-heavy, full width) and
+     then a seed-0 GMFSS (GMFlow, MetricNet, FeatureNet, GridNet, full width);
+     checks the output count against the plan, every frame finite, and that
+     each kernel of the path was launched during its run (launch counts are
+     reset just before each run and read just after);
+  5. windows: one window of each model on the kernel path against the plain
+     path (f32 and bf16), the window time both ways, and a profile of one
+     kernel-path window.
 
 The line before the last is one JSON object with a summary per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every
@@ -35,7 +39,19 @@ import time
 
 H, W = 1088, 1920          # 1080p padded to the network's multiple of 64
 SRC_FPS, DST_FPS = 24.0, 60.0
-N_FRAMES = 10
+N_FRAMES = {"rife": 10, "gmfss": 6}
+
+# the kernels each path must launch
+PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain"),
+                "gmfss": ("splat", "warp", "window_attention", "flash_attention",
+                          "transformer_layer")}
+# the TPU kernel(s) each kernel replaces (function reaching pl.pallas_call)
+REPLACES = {"splat": "drba_tpu/ops/splat_stencil.py:282",
+            "warp": "drba_tpu/ops/warp_mxu.py:265",
+            "conv_chain": "drba_tpu/ops/conv_chain.py:349",
+            "window_attention": "drba_tpu/ops/attn_mxu.py:63 and drba_tpu/ops/attn_mxu.py:281",
+            "flash_attention": "drba_tpu/ops/attn_mxu.py:150",
+            "transformer_layer": "drba_tpu/ops/attn_layer.py:176"}
 
 
 def fail(msg: str) -> None:
@@ -145,8 +161,7 @@ def phase_kernels(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
-    summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for n in ("splat", "warp", "conv_chain")}
+    summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for n in REPLACES}
 
     def record(name, err, fn_kernel, fn_plain, iters, dt):
         s = summary[name]
@@ -161,7 +176,7 @@ def phase_kernels(dev):
             s["plain_ms"] += tp
         print(f"    time: kernel {tk:.4f} ms   plain {tp:.4f} ms")
 
-    print("kernels vs plain PyTorch (1080p path shapes):")
+    print("kernels vs plain PyTorch (1080p RIFE and GMFSS path shapes):")
     # splat: flow inversion (S=2, [flow, 1] planes at full res) and the DRM
     # alignment (S=2T=6, [drm, 1] planes at half res); f32 accumulation on both
     # sides, so only the order of the atomic additions differs
@@ -212,26 +227,128 @@ def phase_kernels(dev):
                               conv3x3_cuda(x, st.w, st.b, st.beta), _step_plain(x, st), *tol)
             record("conv_chain", err, lambda: conv3x3_cuda(x, st.w, st.b, st.beta),
                    lambda: _step_plain(x, st), 10, dt)
+    attention_checks(dev, gen, record)
     return summary
 
 
-def phase_slice(dev):
-    """run_pipeline on the kernel path; returns the launch counts of that run."""
+def attention_checks(dev, gen, record):
+    """The GMFSS kernels at GMFlow's 1080p shapes (544x960 half resolution:
+    scale-0 features 68x120, scale-1 136x240, c = 128), and the (B, L, c)
+    window attention at the 720p scale-0 shape."""
+    import torch
+
+    from drba_tpu_torch.convert import from_jax_params
+    from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, shift_region_labels
+    from drba_tpu_torch.models.layers import init_from_spec
+    from drba_tpu_torch.ops.attention import (flash_attention, window_attention,
+                                              window_attention_nhwc)
+    from drba_tpu_torch.ops.attn_layer import layer_weights, transformer_layer
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def attn_tol(dt):
+        if dt == f32:
+            return 2e-5, 0.0, "f32 sums of 128-deep products and the softmax in another order"
+        return 2e-2, 2e-2, ("bf16 P in the tensor-core P.V (2^-9 relative per weight) and "
+                            "the output's bf16 rounding (2^-8)")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    # NHWC windows at scale 0: (2, 68, 120, 128), 2x2 windows of 34x60 (L = 2040)
+    lab0 = shift_region_labels(68, 120, 2)
+    for masked in (False, True):
+        for dt in (f32, bf16):
+            q, k, v = (randn(2, 68, 120, 128).to(dt) for _ in range(3))
+            kern = lambda: window_attention_nhwc(q, k, v, 2, lab0, masked, backend="cuda")
+            plain = lambda: window_attention_nhwc(q, k, v, 2, lab0, masked, backend="torch")
+            err = check_close(f"window nhwc (2,68,120,128) k=2 mask={masked} {dt}", kern(),
+                              plain(), *attn_tol(dt))
+            record("window_attention", err, kern, plain, 5, dt)
+
+    # (B, L, c) windows with region ids at the 720p scale-0 shape: 48x80
+    # features, 2x2 windows of 24x40 (L = 960), two images
+    rid = torch.as_tensor(shift_region_labels(48, 80, 2).reshape(4, 960),
+                          device=dev).repeat(2, 1)
+    for dt in (f32, bf16):
+        q, k, v = (randn(8, 960, 128).to(dt) for _ in range(3))
+        kern = lambda: window_attention(q, k, v, rid, True, backend="cuda")
+        plain = lambda: window_attention(q, k, v, rid, True, backend="torch")
+        err = check_close(f"window (8,960,128) region ids {dt}", kern(), plain(), *attn_tol(dt))
+        record("window_attention", err, kern, plain, 5, dt)
+
+    # flash: global correlation (value = the pixel grid, f32 out), one
+    # direction (B = 1) and both stacked (B = 2), L = 68 * 120 = 8160
+    gy, gx = torch.meshgrid(torch.arange(68.0, device=dev), torch.arange(120.0, device=dev),
+                            indexing="ij")
+    grid = torch.stack([gx, gy], dim=-1).reshape(1, 8160, 2)
+    for b in (1, 2):
+        for dt in (f32, bf16):
+            q, k = (randn(b, 8160, 128, scale=0.3).to(dt) for _ in range(2))
+            v = grid.expand(b, 8160, 2)
+            kern = lambda: flash_attention(q, k, v, out_dtype=f32, backend="cuda")
+            plain = lambda: flash_attention(q, k, v, out_dtype=f32, backend="torch")
+            err = check_close(f"flash ({b},8160,128)/({b},8160,2) {dt}", kern(), plain(), 2e-3,
+                              1e-5, "P.V in f32 on both sides: sums of 8160 weights of pixel "
+                              "coordinates <= 119 in another order")
+            record("flash_attention", err, kern, plain, 5, dt)
+
+    # transformer layers: scale 1 (4, 136, 240, 128) k = 8 (windows 17x30,
+    # L = 510) and scale 0 (2, 68, 120, 128) k = 2; a self layer (no FFN,
+    # unmasked) and a cross layer (FFN, shift mask, batch-half swap, target)
+    params = from_jax_params(init_from_spec(GMFLOW_SPEC, seed=0), GMFLOW_SPEC)
+    for (b, h, w, ks) in ((4, 136, 240, 8), (2, 68, 120, 2)):
+        lab = shift_region_labels(h, w, ks)
+        for cross in (False, True):
+            base = f"transformer.layers.1.{'cross_attn_ffn' if cross else 'self_attn'}"
+            for dt in (f32, bf16):
+                p = {kk: vv.to(dev, dt) for kk, vv in params.items()}
+                wqkv, wm, norm1, ffn = layer_weights(p, base, cross)
+                x, tgt = (randn(b, h, w, 128, scale=0.5).to(dt) for _ in range(2))
+                kw = dict(labels=lab, with_mask=cross, cross_swap=cross,
+                          target=tgt if cross else None, ffn=ffn)
+                kern = lambda: transformer_layer(x, wqkv, wm, norm1, ks, backend="cuda", **kw)
+                plain = lambda: transformer_layer(x, wqkv, wm, norm1, ks, backend="torch", **kw)
+                tol = (1e-4, 1e-4, "f32 sums in another order") if dt == f32 else \
+                    (6e-2, 6e-2, "the kernel keeps merge, norms and FFN sum in f32 where the "
+                     "plain ops round each to bf16, and rounds P: a few bf16 ulps at |out| ~4")
+                err = check_close(f"layer ({b},{h},{w},128) k={ks} "
+                                  f"{'cross+ffn masked' if cross else 'self'} {dt}",
+                                  kern(), plain(), *tol)
+                record("transformer_layer", err, kern, plain, 5, dt)
+
+
+def make_model(name, dev, **cfg):
+    """Seed-0 random-weight model ``name`` ('rife' | 'gmfss') in bf16 (or the
+    given config fields) on ``dev``."""
+    from drba_tpu_torch.config import DEFAULT
+
+    if name == "rife":
+        from drba_tpu_torch.models.rife import RIFE as cls
+    else:
+        from drba_tpu_torch.models.gmfss import GMFSS as cls
+    return cls(weights=None, scale=1.0, config=DEFAULT.replace(**cfg), device=dev)
+
+
+def phase_slice(name, dev):
+    """run_pipeline with model ``name`` on the kernel path; returns the
+    launch counts of that run."""
     import torch
 
     from drba_tpu_torch import _build
-    from drba_tpu_torch.config import DEFAULT
-    from drba_tpu_torch.models.rife import RIFE
     from drba_tpu_torch.pipeline import planned_outputs, run_pipeline
 
-    model = RIFE(weights=None, scale=1.0, config=DEFAULT, device=dev)
-    n_params = sum(v.numel() for v in model.params.values())
+    model = make_model(name, dev)
+    params = model.params.values() if isinstance(model.params, dict) else \
+        [v for p in model.params for v in p.values()]
+    n_params = sum(v.numel() for v in params)
+    n_frames = N_FRAMES[name]
     checked = {"frames": 0}
 
     def finite(frames):
         for f in frames:
             if tuple(f.shape) != (1, H, W, 3) or not bool(torch.isfinite(f).all()):
-                fail(f"window frame shape {tuple(f.shape)} or non-finite values")
+                fail(f"{name} window frame shape {tuple(f.shape)} or non-finite values")
         checked["frames"] += len(frames)
         return frames
 
@@ -239,7 +356,7 @@ def phase_slice(dev):
     model.inference_ts = lambda *a, **k: finite(ts_fn(*a, **k))
     model.inference_ts_drba = lambda *a, **k: (lambda r: (finite(r[0]), r[1]))(drba_fn(*a, **k))
 
-    io = _FrameIO(synthetic_frames(N_FRAMES))
+    io = _FrameIO(synthetic_frames(n_frames))
     _build.reset_counts()
     t0 = time.perf_counter()
     try:
@@ -250,62 +367,70 @@ def phase_slice(dev):
     wall = time.perf_counter() - t0
     counts = _build.counts()
 
-    plan = planned_outputs(N_FRAMES, SRC_FPS, DST_FPS)
-    print(f"slice: RIFE IFNet 4.26-heavy, {n_params} params (seed 0), bf16, {N_FRAMES} frames "
+    plan = planned_outputs(n_frames, SRC_FPS, DST_FPS)
+    what = {"rife": "RIFE IFNet 4.26-heavy",
+            "gmfss": "GMFSS (GMFlow, MetricNet, FeatureNet, GridNet)"}[name]
+    print(f"slice: {what}, {n_params} params (seed 0), bf16, {n_frames} frames "
           f"1080p {SRC_FPS:g}->{DST_FPS:g}: frames_out {stats.frames_out} (plan {plan}), "
           f"{stats.windows} windows, {checked['frames']} frames checked finite, "
           f"wall {wall:.2f} s (first run, includes warm-up)")
-    print(f"slice: kernel launches during the run: {counts}")
+    print(f"slice {name}: kernel launches during the run: {counts}")
     if stats.frames_out != plan or len(io.written) != plan:
-        fail(f"frames_out {stats.frames_out} / written {len(io.written)} != plan {plan}")
+        fail(f"{name}: frames_out {stats.frames_out} / written {len(io.written)} != plan {plan}")
     if checked["frames"] < plan - 2:  # the head's and the tail's source frames skip the model
-        fail("fewer model frames checked than planned")
+        fail(f"{name}: fewer model frames checked than planned")
     for f in io.written:
         if f.shape != (1080, 1920, 3) or str(f.dtype) != "uint8":
-            fail(f"written frame {f.shape} {f.dtype}")
-    for name, n in counts.items():
-        if n == 0:
-            fail(f"kernel {name} was not launched on the main path")
-    return model, counts
+            fail(f"{name}: written frame {f.shape} {f.dtype}")
+    for k in PATH_KERNELS[name]:
+        if counts[k] == 0:
+            fail(f"kernel {k} was not launched on the {name} path")
+    return counts
 
 
-def phase_window(model, dev, gpu_line):
-    """One window on the kernel path vs the plain path (bf16 and f32), the
-    window time both ways, and a profile of one kernel-path window."""
+def phase_window(name, dev, gpu_line):
+    """One window of model ``name`` on the kernel path vs the plain path (bf16
+    and f32), the window time both ways, and a profile of one kernel-path
+    window."""
     import torch
 
-    from drba_tpu_torch.config import F32
-    from drba_tpu_torch.models.rife import RIFE
     from drba_tpu_torch.pipeline import calc_ts
     from drba_tpu_torch.utils import TMapper, to_inp
 
     frames = synthetic_frames(3)
     tmap = TMapper(SRC_FPS, DST_FPS)
     ts2, ts3 = calc_ts(1, tmap, -1), calc_ts(0, tmap, -1)  # 24 -> 60 alternates T = 2, 3
-    plain_cfg = dict(splat_backend="torch", warp_backend="torch", conv_backend="torch")
+    plain_cfg = {"rife": dict(splat_backend="torch", warp_backend="torch", conv_backend="torch"),
+                 "gmfss": dict(splat_backend="torch", warp_backend="torch",
+                               attn_backend="torch")}[name]
+    # f32: the same arithmetic up to atomic/FMA/summation order; bf16:
+    # roundings at other places (the bf16 layer kernel keeps f32 intermediates
+    # that the plain ops round). Five random-weight IFNet stages, or GMFlow's
+    # 24 transformer layers and two correlation softmaxes, amplify both, and
+    # coverage thresholds (< 0.999) can flip pixels, so the gate is on the
+    # mean and on the share of values off by more than 1e-2: (mean, share)
+    gates = {"f32": (1e-4, 1e-3), "bf16": (1e-2, 5e-2)}
 
-    for name, m in (("bf16", model), ("f32", RIFE(weights=None, config=F32, device=dev))):
-        # same seed, same parameters; only the three backends differ
-        plain = RIFE(weights=None, config=m.config.replace(**plain_cfg), device=dev)
+    for dname in ("bf16", "f32"):
+        extra = {} if dname == "bf16" else {"compute_dtype": torch.float32}
+        # same seed, same parameters; only the backends differ
+        m = make_model(name, dev, **extra)
+        plain = make_model(name, dev, **extra, **plain_cfg)
         I0, I1, I2 = (to_inp(f, (H, W), m.config.compute_dtype, dev) for f in frames)
-        reuse = m._calc_flow(I1, I0)
+        reuse = m._calc_flow(I1, I0) if name == "rife" else m.reuse(I1, I0)
         out_k = torch.stack(m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)[0])
         out_p = torch.stack(plain.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)[0])
         if not torch.isfinite(out_k).all():
-            fail(f"window {name}: non-finite output")
+            fail(f"{name} window {dname}: non-finite output")
         d = (out_k.float() - out_p.float()).abs()
         mx, mean, share = float(d.max()), float(d.mean()), float((d > 1e-2).float().mean())
-        print(f"window {name} (T={len(ts3)}): kernel vs plain path max_abs {mx:.3e}  "
+        print(f"window {name} {dname} (T={len(ts3)}): kernel vs plain path max_abs {mx:.3e}  "
               f"mean_abs {mean:.3e}  share(>1e-2) {share:.3e}")
-        # f32: the same arithmetic up to atomic/FMA order; bf16: roundings at
-        # other places. Five random-weight stages amplify both, and coverage
-        # thresholds (< 0.999) can flip pixels, so the gate is on the mean and
-        # on the share of values off by more than 1e-2
-        mean_tol, share_tol = (1e-4, 1e-3) if name == "f32" else (1e-2, 5e-2)
+        mean_tol, share_tol = gates[dname]
         if mean > mean_tol or share > share_tol:
-            fail(f"{name} window kernel vs plain: mean {mean:.3e} (tol {mean_tol:g}), "
+            fail(f"{name} {dname} window kernel vs plain: mean {mean:.3e} (tol {mean_tol:g}), "
                  f"share(>1e-2) {share:.3e} (tol {share_tol:g})")
-        if name != "bf16":
+        if dname != "bf16":
             continue
         times = {}
         for label, mm in (("plain", plain), ("kernel", m), ("kernel", m), ("plain", plain)):
@@ -314,13 +439,15 @@ def phase_window(model, dev, gpu_line):
                 times.setdefault((label, len(ts)), []).append(t)
         for label in ("kernel", "plain"):
             t2, t3 = (sum(times[(label, n)]) / 2 for n in (2, 3))
-            print(f"window bf16 1080p {label} path (steady state, reuse chained): T=2 "
+            print(f"window {name} bf16 1080p {label} path (steady state, reuse chained): T=2 "
                   f"{t2:.2f} ms, T=3 {t3:.2f} ms, {5e3 / (t2 + t3):.2f} fps over a T=2+3 "
                   f"pair  [{gpu_line}]")
-        profile_window(lambda: m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True))
+        profile_window(name, lambda: m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True))
+        del m, plain
+        torch.cuda.empty_cache()
 
 
-def profile_window(fn):
+def profile_window(name, fn):
     """Device time by op for one call of ``fn`` (torch.profiler), and the
     device's busy share of that call's wall time."""
     import torch
@@ -337,9 +464,9 @@ def profile_window(fn):
     kernels = [e for e in prof.key_averages()
                if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profile kernel-path window T=3: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+    print(f"profile {name} kernel-path window T=3: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / wall:.1f}%), top device kernels:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
@@ -366,23 +493,23 @@ def main() -> None:
           f"nvcc: {cmd_line([_build.find_nvcc(), '--version'])}, "
           f"device {torch.cuda.get_device_name(0)}, no Triton kernel used")
 
+    secs = _build.build_all()
     for k in _build.KERNELS:
-        t0 = time.perf_counter()
-        k.load()
         regs = [ln.split(":", 1)[-1].strip() for ln in k.build_log.splitlines()
                 if "registers" in ln]
-        print(f"build {k.name}: {time.perf_counter() - t0:.1f} s ({k.source_path}) "
-              f"{'; '.join(regs)}")
+        print(f"build {k.name}: {k.source_path} built in {secs[k.source]:.1f} s "
+              f"(sources in parallel); {'; '.join(regs)}")
 
     summary = phase_kernels(dev)
-    model, counts = phase_slice(dev)
-    phase_window(model, dev, gpu_line)
+    launches = {k.name: 0 for k in _build.KERNELS}
+    for name in ("rife", "gmfss"):
+        for k, n in phase_slice(name, dev).items():
+            launches[k] += n
+    for name in ("rife", "gmfss"):
+        phase_window(name, dev, gpu_line)
 
-    replaces = {"splat": "drba_tpu/ops/splat_stencil.py:282",
-                "warp": "drba_tpu/ops/warp_mxu.py:265",
-                "conv_chain": "drba_tpu/ops/conv_chain.py:349"}
     kernels = [{"name": k.name, "route": "cuda", "source": k.source_path,
-                "replaces": replaces[k.name], "launches": counts[k.name],
+                "replaces": REPLACES[k.name], "launches": launches[k.name],
                 "max_abs_err": summary[k.name]["max_abs_err"],
                 "ms": summary[k.name]["ms"], "plain_ms": summary[k.name]["plain_ms"]}
                for k in _build.KERNELS]

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -91,19 +92,21 @@ def _source_hash(source: str) -> str:
 
 
 class Kernel:
-    """One ``csrc`` source: its C entry, lazy build and launch count.
+    """One kernel of a ``csrc`` source: its C entries, lazy build and launch count.
 
-    ``launches`` counts successful launches through :meth:`launch` only.
+    ``entries`` maps each C entry of the kernel to its ctypes argtypes; the
+    first is the default of :meth:`launch`. Several kernels may share a
+    source (one library). ``launches`` counts successful launches through
+    :meth:`launch` only, over all entries.
     """
 
-    def __init__(self, name: str, source: str, entry: str, argtypes: list):
+    def __init__(self, name: str, source: str, entries: dict):
         self.name = name
         self.source = source
-        self.entry = entry
-        self.argtypes = argtypes
+        self.entries = dict(entries)
         self.launches = 0
         self.build_log = ""
-        self._fn = None
+        self._fns: dict = {}
         self._lock = threading.Lock()
 
     @property
@@ -117,44 +120,80 @@ class Kernel:
     def build(self) -> Path:
         """Compile the source unless a library of the same hash exists."""
         out = self.library_path()
-        if out.exists():
+        with _BUILD_LOCKS.setdefault(self.source, threading.Lock()):
+            if out.exists():
+                return out
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / self.source)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _BUILD_LOGS[self.source] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed for {self.source} (rc {proc.returncode}):\n"
+                                   f"{_BUILD_LOGS[self.source]}")
+            os.replace(tmp, out)
             return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / self.source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {self.source} (rc {proc.returncode}):\n"
-                               f"{self.build_log}")
-        os.replace(tmp, out)
-        return out
 
-    def load(self):
-        """Build (if needed) and load the library; returns the C entry."""
+    def load(self) -> None:
+        """Build (if needed) and load the library and the C entries."""
         with self._lock:
-            if self._fn is None:
+            if not self._fns:
                 lib = ctypes.CDLL(str(self.build()))
-                fn = getattr(lib, self.entry)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
-                self._fn = fn
-        return self._fn
+                self.build_log = _BUILD_LOGS.get(self.source, "")
+                for entry, argtypes in self.entries.items():
+                    fn = getattr(lib, entry)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    self._fns[entry] = fn
 
-    def launch(self, *args) -> None:
-        """Call the C entry (which launches on the given stream) and count it."""
-        rc = self.load()(*args)
+    def launch(self, *args, entry: str | None = None) -> None:
+        """Call a C entry (which launches on the given stream) and count it."""
+        self.load()
+        rc = self._fns[entry or next(iter(self.entries))](*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {rc}")
         self.launches += 1
 
 
-SPLAT = Kernel("splat", "splat.cu", "drba_splat", [_P, _P, _P] + [_I] * 6 + [_P])
-WARP = Kernel("warp", "warp.cu", "drba_warp", [_P, _P, _P] + [_I] * 8 + [_P])
-CONV = Kernel("conv_chain", "conv_chain.cu", "drba_conv3x3",
-              [_P] * 5 + [_I] * 6 + [_P])
-KERNELS = (SPLAT, WARP, CONV)
+_BUILD_LOCKS: dict = {}
+_BUILD_LOGS: dict = {}
+
+SPLAT = Kernel("splat", "splat.cu", {"drba_splat": [_P, _P, _P] + [_I] * 6 + [_P]})
+WARP = Kernel("warp", "warp.cu", {"drba_warp": [_P, _P, _P] + [_I] * 8 + [_P]})
+CONV = Kernel("conv_chain", "conv_chain.cu", {"drba_conv3x3": [_P] * 5 + [_I] * 6 + [_P]})
+# q, k, v, out, labels; b, h, w, kk; 4 token strides; 2 label strides; half; dtype; stream
+WINDOW = Kernel("window_attention", "attention.cu",
+                {"drba_window_attention": [_P] * 5 + [_I] * 12 + [_P]})
+# q, k, v, out, labels; b, L; dtype; stream
+FLASH = Kernel("flash_attention", "attention.cu",
+               {"drba_flash_attention": [_P] * 5 + [_I] * 3 + [_P]})
+LAYER = Kernel("transformer_layer", "attn_layer.cu", {
+    # x, target, wqkv, qkv; tokens; dtype; stream
+    "drba_layer_proj": [_P] * 4 + [_L, _I, _P],
+    # x, av, wmerge, g1, b1, w0, w2, g2, b2, out; hidden, tokens, dtype; stream
+    "drba_layer_tail": [_P] * 10 + [_I, _L, _I, _P],
+})
+KERNELS = (SPLAT, WARP, CONV, WINDOW, FLASH, LAYER)
+
+
+def build_all() -> dict:
+    """Build every kernel's source at once, one ``nvcc`` per source in
+    parallel, then load each; returns seconds per source."""
+    import concurrent.futures
+    import time
+
+    def one(k):
+        t0 = time.perf_counter()
+        k.build()
+        return k.source, time.perf_counter() - t0
+
+    first = {k.source: k for k in KERNELS}
+    with concurrent.futures.ThreadPoolExecutor(len(first)) as ex:
+        secs = dict(ex.map(one, first.values()))
+    for k in KERNELS:
+        k.load()
+    return secs
 
 
 def reset_counts() -> None:

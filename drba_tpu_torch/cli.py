@@ -1,11 +1,11 @@
 """CLI driver of the port, flag-compatible with the reference (infer.py:18-36)
-for ``-m rife``.
+for ``-m rife`` and ``-m gmfss``.
 
 Usage:
-  python -m drba_tpu_torch.cli -m rife -i in.mp4 -o out.mp4 -fps 60 [-t N] \\
+  python -m drba_tpu_torch.cli -m rife|gmfss -i in.mp4 -o out.mp4 -fps 60 [-t N] \\
       [-hw] [-scale 1.0] [--fp32] [--exact-drm] [--device cuda]
 
-Scene detection (``-s``) and the GMFSS models are not ported yet and raise.
+Scene detection (``-s``) and ``-m gmfss_union`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from drba_tpu_torch.pipeline import run_pipeline
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Interpolate a video with DRBA (PyTorch/CUDA)")
     p.add_argument("-m", "--model_type", dest="model_type", default="rife",
-                   help="model network type; this port runs rife")
+                   help="model network type: rife or gmfss")
     p.add_argument("-i", "--input", dest="input", default="input.mp4",
                    help="path of the input video")
     p.add_argument("-o", "--output", dest="output", default="output.mp4",
@@ -53,10 +53,28 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+# model type -> (module, class, weights subdirectory), as infer.py:39-55
+_MODELS = {"rife": ("rife", "RIFE", "train_log_rife_426_heavy"),
+           "gmfss": ("gmfss", "GMFSS", "train_log_gmfss")}
+
+
+def load_model(model_type: str, weights_root: str, scale: float, config: Config, device):
+    """Build the model of ``model_type``; random seeded weights where its
+    weights directory is absent."""
+    import importlib
+
+    module, cls, sub = _MODELS[model_type]
+    wdir = os.path.join(weights_root, sub)
+    model_cls = getattr(importlib.import_module(f"drba_tpu_torch.models.{module}"), cls)
+    return model_cls(weights=wdir if os.path.isdir(wdir) else None, scale=scale, config=config,
+                     device=device)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.model_type != "rife":
-        raise NotImplementedError(f"model {args.model_type!r} is not ported yet; use -m rife")
+    if args.model_type not in _MODELS:
+        raise NotImplementedError(f"model {args.model_type!r} is not ported yet; "
+                                  f"use -m {' or -m '.join(_MODELS)}")
     if args.enable_scdet:
         raise NotImplementedError("scene detection (-s) is not ported yet")
     if not os.path.exists(args.input):
@@ -64,15 +82,12 @@ def main(argv=None):
 
     from tqdm import tqdm
 
-    from drba_tpu_torch.models.rife import RIFE
     from drba_tpu_torch.utils.video_io import VideoFI_IO
 
     config = Config(compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,
                     flow_scale=args.scale, scdet_threshold=args.scdet_threshold,
                     drm_splat_scale=1.0 if args.exact_drm else 0.5, strict_load=args.strict)
-    wdir = os.path.join(args.weights, "train_log_rife_426_heavy")
-    model = RIFE(weights=wdir if os.path.isdir(wdir) else None, scale=args.scale,
-                 config=config, device=args.device)
+    model = load_model(args.model_type, args.weights, args.scale, config, args.device)
     video_io = VideoFI_IO(args.input, args.output, dst_fps=args.dst_fps, times=args.times,
                           hwaccel=args.hwaccel)
     pbar = tqdm(total=video_io.total_frames_count)

@@ -1,7 +1,7 @@
 """Global configuration for the PyTorch/CUDA port (mirrors drba_tpu/config.py).
 
-Each of ``splat_backend``, ``warp_backend`` and ``conv_backend`` takes
-``auto | torch | cuda``:
+Each of ``splat_backend``, ``warp_backend``, ``conv_backend`` and
+``attn_backend`` takes ``auto | torch | cuda``:
 
   * ``auto``  launches the hand-written CUDA kernel for a CUDA tensor and the
     plain PyTorch version for a CPU tensor;
@@ -29,9 +29,11 @@ class Config:
       compute_dtype: dtype inside the networks; parameters are cast to it
         once when a model is built.
       flow_scale: optical-flow resolution scale (reference ``-scale``).
-      splat_backend / warp_backend / conv_backend: see the module docstring.
-      drm_splat_scale: resolution scale of the DRM alignment splats on the
-        RIFE path (drm._splat_avg_scaled): 0.5 by default, 1.0 is exact.
+      splat_backend / warp_backend / conv_backend / attn_backend: see the
+        module docstring (attn_backend selects GMFlow's attention kernels).
+      drm_splat_scale: resolution scale of the DRM alignment splats
+        (drm._splat_avg_scaled), for RIFE and GMFSS: 0.5 by default, 1.0 is
+        exact.
       scdet_threshold: SSIM threshold for scene-change detection.
       seed: seed of the random parameters used when no checkpoint is given.
       strict_load: fail on missing/extra checkpoint keys or absent files.
@@ -42,13 +44,14 @@ class Config:
     splat_backend: str = "auto"
     warp_backend: str = "auto"
     conv_backend: str = "auto"
+    attn_backend: str = "auto"
     drm_splat_scale: float = 0.5
     scdet_threshold: float = 0.3
     seed: int = 0
     strict_load: bool = False
 
     def __post_init__(self):
-        for name in ("splat_backend", "warp_backend", "conv_backend"):
+        for name in ("splat_backend", "warp_backend", "conv_backend", "attn_backend"):
             v = getattr(self, name)
             if v not in BACKENDS:
                 raise ValueError(f"{name}={v!r}; valid: {', '.join(BACKENDS)}")

@@ -8,14 +8,15 @@ Counterpart of drba_tpu/convert.py. Two sources:
       kind      JAX layout          port layout
       conv      (kh, kw, I, O)      (O, I, kh, kw)
       convT     (kh, kw, I, O)      (I, O, kh, kw)   (un-flipped in both)
-      linear    (I, O)              (O, I)
+      linear    (I, O)              (I, O)           (as the JAX package stores it)
       others    as is               as is            (bias/beta (C,), scalar ())
 
     Keys outside the spec, such as the TPU-only ``*.lastconv.fold4.*``, are
     dropped.
   * ``load_network``: the reference ``.pkl`` state dicts, which already hold
-    PyTorch tensors in these layouts; ``module.`` prefixes are stripped and
-    per-channel vectors (the ResConv ``beta``, stored (1, C, 1, 1)) flattened.
+    PyTorch tensors in these layouts, except ``nn.Linear``'s (O, I), which is
+    transposed; ``module.`` prefixes are stripped and per-channel vectors (the
+    ResConv ``beta``, stored (1, C, 1, 1)) flattened.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from drba_tpu_torch.utils.log import get_logger
 
 log = get_logger("drba_tpu_torch.convert")
 
-_FROM_JAX = {"conv": (3, 2, 0, 1), "convT": (2, 3, 0, 1), "linear": (1, 0)}
+_FROM_JAX = {"conv": (3, 2, 0, 1), "convT": (2, 3, 0, 1)}
 
 
 def from_jax_params(params: Mapping[str, np.ndarray], spec: Mapping[str, tuple]) -> dict:
@@ -64,6 +65,8 @@ def from_torch_state_dict(state: Mapping[str, object], spec: Mapping[str, tuple]
                 v = v.reshape(-1)
             elif desc[0] == "scalar":
                 v = v.reshape(())
+            elif desc[0] == "linear":
+                v = v.t()
             if tuple(v.shape) != tuple(params[key].shape):
                 raise ValueError(f"{key}: checkpoint shape {tuple(v.shape)} != "
                                  f"{tuple(params[key].shape)}")

@@ -1,4 +1,4 @@
-"""Distance Ratio Map (DRM), RIFE part (counterpart of drba_tpu/drm.py).
+"""Distance Ratio Map (DRM) for RIFE and GMFSS (counterpart of drba_tpu/drm.py).
 
   * ratio maps ``d10 / (d10 + d12)`` from bidirectional flow magnitudes;
   * linear retiming ``drm * t * 2`` (the driver always passes linear=True)
@@ -155,3 +155,42 @@ def calc_drm_rife(t, flow10: torch.Tensor, flow12: torch.Tensor, linear: bool = 
     )
     return DrmRife(drm_t1_t01=_hole_fill(w01, m01, drm_t1),
                    drm_t1_t12=_hole_fill(w12, m12, drm_t0))
+
+
+class DrmGmfss(NamedTuple):
+    drm0t_t01: torch.Tensor
+    drm1t_t01: torch.Tensor
+    drm1t_t12: torch.Tensor
+    drm2t_t12: torch.Tensor
+
+
+def calc_drm_gmfss(t, flow10: torch.Tensor, flow12: torch.Tensor,
+                   metric10: torch.Tensor | None, metric12: torch.Tensor | None,
+                   linear: bool = False, backend: str = "auto",
+                   splat_scale: float = 1.0) -> DrmGmfss:
+    """DRM timestep maps for the GMFSS (forward-warp) path (drm.py:209-258).
+
+    ``t``: a float, or a (T,) f32 tensor giving (T*N, H, W, 1) folded maps.
+    With both metrics the alignment splats are metric-weighted ('soft'),
+    otherwise plain averages.
+    """
+    drm10, drm12 = _ratio_maps(flow10, flow12, eps=0.0)
+    if _is_batched_t(t):
+        T = t.shape[0]
+        drm1t_t01 = _retime_batched(drm12, t, linear)
+        drm1t_t12 = _retime_batched(drm10, t, linear)
+        flow10 = _tile_t(flow10, T)
+        flow12 = _tile_t(flow12, T)
+        metric10 = None if metric10 is None else _tile_t(metric10, T)
+        metric12 = None if metric12 is None else _tile_t(metric12, T)
+    else:
+        drm1t_t01 = _retime(drm12, t, linear)
+        drm1t_t12 = _retime(drm10, t, linear)
+    drm0t_u = 1.0 - drm1t_t01
+    drm2t_u = 1.0 - drm1t_t12
+
+    mode = "soft" if (metric10 is not None and metric12 is not None) else "avg"
+    (w0, m0), (w2, m2) = _splat_avg_scaled2(drm0t_u, flow10, metric10, drm2t_u, flow12,
+                                            metric12, mode, backend, splat_scale)
+    return DrmGmfss(drm0t_t01=_hole_fill(w0, m0, drm0t_u), drm1t_t01=drm1t_t01,
+                    drm1t_t12=drm1t_t12, drm2t_t12=_hole_fill(w2, m2, drm2t_u))

@@ -1,0 +1,139 @@
+"""GMFSS model wrapper, the quality path (counterpart of drba_tpu/models/gmfss.py).
+
+The same duck-typed API as ``models/rife.RIFE``; as in the JAX package, the T
+timesteps of a window are folded into the batch axis (one GridNet call per
+window) and integer timesteps pass the source frames through. Inputs are
+single frames (N = 1). The reuse chain carries a ``Reuse`` (flows, metrics,
+feature pyramids) from window to window.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from drba_tpu_torch.config import DEFAULT, Config
+from drba_tpu_torch.convert import load_network
+from drba_tpu_torch.drm import calc_drm_gmfss
+from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC
+from drba_tpu_torch.models.gmfss_core import GmfssParams, Reuse, gmfss_inference, gmfss_reuse
+from drba_tpu_torch.models.gmfss_nets import FEATURENET_SPEC, GRIDNET_SPEC, METRICNET_SPEC
+
+
+def _select_reuse(left: torch.Tensor, a: Reuse, b: Reuse) -> Reuse:
+    """Per timestep, ``a``'s field where ``left`` else ``b``'s -> (T, ...) fields."""
+    def sel(x, y):
+        return torch.where(left, x, y)
+
+    return Reuse(sel(a.flow01, b.flow01), sel(a.flow10, b.flow10), sel(a.metric0, b.metric0),
+                 sel(a.metric1, b.metric1), tuple(map(sel, a.feat0, b.feat0)),
+                 tuple(map(sel, a.feat1, b.feat1)))
+
+
+def _select_integer_ts(out, ts, *frames):
+    """out (T,H,W,3): where ts == k, take frames[k] (gmfss.py:63-65)."""
+    tb = ts[:, None, None, None]
+    for k in range(len(frames) - 1, -1, -1):
+        out = torch.where(tb == k, frames[k], out)
+    return out
+
+
+def _drba_window(p: GmfssParams, I0, I1, I2, ts, reuse10: Reuse, reuse12: Reuse, linear,
+                 backend="auto", drm_splat_scale=1.0):
+    """All T timesteps of one window, T folded into the batch axis; returns
+    (T, 1, H, W, 3)."""
+    T = ts.shape[0]
+    tt = torch.where(ts < 1, 1 - ts, ts - 1)
+    drm = calc_drm_gmfss(tt, reuse10.flow01, reuse12.flow01, reuse10.metric0, reuse12.metric0,
+                         linear=linear, backend=backend, splat_scale=drm_splat_scale)
+    left = (ts < 1)[:, None, None, None]
+    imgB = torch.where(left, I0, I2)
+    I1b = I1.expand((T,) + tuple(I1.shape[1:]))
+    reuse = _select_reuse(left, reuse10, reuse12)
+    t0 = torch.where(left, drm.drm1t_t01, drm.drm1t_t12).to(I1.dtype)
+    t1 = torch.where(left, drm.drm0t_t01, drm.drm2t_t12).to(I1.dtype)
+    out = gmfss_inference(p, I1b, imgB, reuse, t0, t1, backend=backend)
+    return _select_integer_ts(out, ts, I0, I1, I2)[:, None]
+
+
+def _drba_window_fused(p: GmfssParams, I0, I1, I2, ts, reuse10: Reuse, scale, linear,
+                       backend="auto", warp_backend="auto", attn_backend="auto",
+                       drm_splat_scale=1.0):
+    """reuse(I1, I2) (reusing I1's features from ``reuse10``) plus the
+    window's timesteps. Returns (frames (T, 1, H, W, 3), reuse12)."""
+    reuse12 = gmfss_reuse(p, I1, I2, scale, feat0=reuse10.feat0, warp_backend=warp_backend,
+                          attn_backend=attn_backend)
+    out = _drba_window(p, I0, I1, I2, ts, reuse10, reuse12, linear, backend, drm_splat_scale)
+    return out, reuse12
+
+
+def _ts_batch(p: GmfssParams, I0, I1, ts, reuse: Reuse, backend="auto"):
+    """Plain interpolation at T timesteps, T folded into the batch axis."""
+    T = ts.shape[0]
+
+    def tile(x):
+        return x.expand((T,) + tuple(x.shape[1:]))
+
+    reuse_b = Reuse(tile(reuse.flow01), tile(reuse.flow10), tile(reuse.metric0),
+                    tile(reuse.metric1), tuple(map(tile, reuse.feat0)),
+                    tuple(map(tile, reuse.feat1)))
+    tcol = ts[:, None, None, None].to(I0.dtype)
+    out = gmfss_inference(p, tile(I0), tile(I1), reuse_b, tcol, 1 - tcol, backend=backend)
+    return _select_integer_ts(out, ts, I0, I1)[:, None]
+
+
+class GMFSS:
+    """Quality-path model (reference: models/gmfss.py:7-73) on ``device``.
+
+    Parameters are cast to ``config.compute_dtype`` once, on the device.
+    """
+
+    def __init__(self, weights: str | None = None, scale: float = 1.0,
+                 config: Config = DEFAULT, device: str | torch.device = "cpu"):
+        self.device = torch.device(device)
+        nets = []
+        for i, (fname, spec) in enumerate((("flownet.pkl", GMFLOW_SPEC),
+                                           ("metric.pkl", METRICNET_SPEC),
+                                           ("feat.pkl", FEATURENET_SPEC),
+                                           ("fusionnet.pkl", GRIDNET_SPEC))):
+            params = load_network(weights, fname, spec, seed=config.seed + i,
+                                  strict=config.strict_load)
+            nets.append({k: v.to(self.device, config.compute_dtype) for k, v in params.items()})
+        self.params = GmfssParams(*nets)
+        self.scale = scale
+        self.pad_size = 64
+        self.config = config
+
+    def _ts(self, ts) -> torch.Tensor:
+        return torch.as_tensor(list(ts), dtype=torch.float32).to(self.device)
+
+    def reuse(self, img0, img1, feat0=None) -> Reuse:
+        return gmfss_reuse(self.params, img0, img1, self.scale, feat0=feat0,
+                           warp_backend=self.config.warp_backend,
+                           attn_backend=self.config.attn_backend)
+
+    def inference_ts(self, I0, I1, ts: Sequence[float], reuse=None, return_reuse=False):
+        """Plain interpolation at timesteps in [0, 1]. ``reuse`` (an I0 -> I1
+        ``Reuse``) skips the GMFlow pass; ``return_reuse`` hands the pass back."""
+        if len(ts) == 0:
+            return ([], None) if return_reuse else []
+        if reuse is None:
+            reuse = self.reuse(I0, I1)
+        out = _ts_batch(self.params, I0, I1, self._ts(ts), reuse,
+                        backend=self.config.splat_backend)
+        frames = list(out.unbind(0))
+        return (frames, reuse) if return_reuse else frames
+
+    def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
+        """DRM-adjusted interpolation over a 3-frame window; ``ts`` in
+        [0.5, 1.5). Returns (frames, reuse) with the reuse of (I2, I1) for the
+        next window."""
+        reuse10 = self.reuse(I1, I0) if reuse is None else reuse
+        if len(ts) == 0:
+            return [], self.reuse(I1, I2, feat0=reuse10.feat0).swapped()
+        out, reuse12 = _drba_window_fused(
+            self.params, I0, I1, I2, self._ts(ts), reuse10, self.scale, linear,
+            self.config.splat_backend, self.config.warp_backend, self.config.attn_backend,
+            self.config.drm_splat_scale)
+        return list(out.unbind(0)), reuse12.swapped()

@@ -1,0 +1,120 @@
+"""GMFSS model core: reuse (flow, metric, features) and splat-and-fuse
+inference (counterpart of drba_tpu/models/gmfss_core.py, quality path).
+
+Both flow directions come from one bidirectional GMFlow pass; the three
+pyramid levels of both directions are forward-splatted by the exact splat
+(the hand-written kernel on a CUDA tensor), metric-weighted ('soft').
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from drba_tpu_torch.models.gmflow_net import gmflow_apply
+from drba_tpu_torch.models.gmfss_nets import featurenet_apply, gridnet_apply, metricnet_apply
+from drba_tpu_torch.ops import softsplat
+from drba_tpu_torch.ops.resize import resize_bilinear, scale_by
+
+
+class GmfssParams(NamedTuple):
+    flownet: dict
+    metricnet: dict
+    feat_ext: dict
+    fusionnet: dict
+
+
+class Reuse(NamedTuple):
+    """reuse() outputs (GMFSS.py:58-81): flows, metrics, feature pyramids."""
+
+    flow01: torch.Tensor
+    flow10: torch.Tensor
+    metric0: torch.Tensor
+    metric1: torch.Tensor
+    feat0: tuple
+    feat1: tuple
+
+    def swapped(self) -> "Reuse":
+        """The reverse direction, for chaining windows."""
+        return Reuse(self.flow10, self.flow01, self.metric1, self.metric0, self.feat1,
+                     self.feat0)
+
+
+def gmfss_reuse(p: GmfssParams, img0, img1, scale: float, feat0=None,
+                warp_backend: str = "auto", attn_backend: str = "auto") -> Reuse:
+    """Flows, metrics and feature pyramids of a frame pair (GMFSS.py:58-81).
+
+    ``feat0`` may pass img0's feature pyramid from the previous window's
+    chained reuse, which saves one FeatureNet pass. ``scale`` < 1 runs GMFlow
+    on a downscaled half-resolution pair and rescales its flows.
+    """
+    if feat0 is None:
+        feat0 = featurenet_apply(p.feat_ext, img0)
+    feat1 = featurenet_apply(p.feat_ext, img1)
+    img0h, img1h = scale_by(img0, 0.5), scale_by(img1, 0.5)
+    if scale != 1.0:
+        imgf0, imgf1 = scale_by(img0h, scale), scale_by(img1h, scale)
+    else:
+        imgf0, imgf1 = img0h, img1h
+
+    flows = gmflow_apply(p.flownet, imgf0, imgf1, pred_bidir=True, attn_backend=attn_backend,
+                         warp_backend=warp_backend)
+    b = imgf0.shape[0]
+    flow01, flow10 = flows[:b], flows[b:]
+    if scale != 1.0:
+        size = (img0h.shape[1], img0h.shape[2])
+        flow01 = resize_bilinear(flow01, size) / scale
+        flow10 = resize_bilinear(flow10, size) / scale
+    metric0, metric1 = metricnet_apply(p.metricnet, img0h, img1h, flow01, flow10,
+                                       warp_backend=warp_backend)
+    return Reuse(flow01, flow10, metric0, metric1, feat0, feat1)
+
+
+def _warp_pyramid2(img0h, img1h, feats0, feats1, Ft0, Ft1, Zt0, Zt1, backend="auto"):
+    """Soft-splat both directions' half-resolution image and 3-level feature
+    pyramid along the scaled flows (GMFSS.py:95-115). The image and level-1
+    features share (Ft, Zt) and splat in one call, both directions stacked on
+    the batch axis: one splat per level. The flow and metric are resized
+    (and the flow rescaled) to each level.
+
+    Returns ((I1t, feats1w, cov0), (I2t, feats2w, cov1)).
+    """
+    n = img0h.shape[0]
+    c_img = img0h.shape[-1]
+    both = torch.cat([torch.cat([img0h, feats0[0]], dim=-1),
+                      torch.cat([img1h, feats1[0]], dim=-1)], dim=0)
+    Ft = torch.cat([Ft0, Ft1], dim=0)
+    Zt = torch.cat([Zt0, Zt1], dim=0)
+    w1, cov = softsplat(both, Ft, Zt, "soft", backend=backend, return_coverage=True)
+
+    levels = [w1[..., c_img:]]
+    for lvl, fscale in ((1, 0.5), (2, 0.25)):
+        size = (feats0[lvl].shape[1], feats0[lvl].shape[2])
+        levels.append(softsplat(torch.cat([feats0[lvl], feats1[lvl]], dim=0),
+                                resize_bilinear(Ft, size) * fscale, resize_bilinear(Zt, size),
+                                "soft", backend=backend))
+
+    def unpack(d):
+        sl = slice(d * n, (d + 1) * n)
+        return w1[sl, ..., :c_img], tuple(f[sl] for f in levels), cov[sl]
+
+    return unpack(0), unpack(1)
+
+
+def gmfss_inference(p: GmfssParams, img0, img1, reuse: Reuse, timestep0, timestep1,
+                    backend: str = "auto"):
+    """Model.inference (model_gmfss/GMFSS.py:83-190): splat both frames'
+    images and features to the timestep, fuse with GridNet. ``timestep0`` /
+    ``timestep1`` are per-pixel maps (N, H/2, W/2, 1) or broadcastable."""
+    F1t = timestep0 * reuse.flow01
+    F2t = timestep1 * reuse.flow10
+    Z1t = timestep0 * reuse.metric0
+    Z2t = timestep1 * reuse.metric1
+    img0h, img1h = scale_by(img0, 0.5), scale_by(img1, 0.5)
+    (I1t, f1, _), (I2t, f2, _) = _warp_pyramid2(img0h, img1h, reuse.feat0, reuse.feat1,
+                                                F1t, F2t, Z1t, Z2t, backend=backend)
+    out = gridnet_apply(p.fusionnet, torch.cat([img0h, I1t, I2t, img1h], dim=-1),
+                        torch.cat([f1[0], f2[0]], dim=-1), torch.cat([f1[1], f2[1]], dim=-1),
+                        torch.cat([f1[2], f2[2]], dim=-1))
+    return out.clamp(0.0, 1.0)

@@ -35,8 +35,58 @@ def conv_transpose2d(p: Params, name: str, x: torch.Tensor, stride: int = 2,
                   padding=padding)
 
 
+def linear(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W (+ b)`` with W stored (in, out), as in the JAX package: the
+    product accumulates in f32 and is cast back to x's dtype, then the bias is
+    added in that dtype."""
+    out = torch.matmul(x.float(), p[f"{name}.weight"].to(x.dtype).float()).to(x.dtype)
+    b = p.get(f"{name}.bias")
+    return out if b is None else out + b.to(out.dtype)
+
+
+def layer_norm(p: Params, name: str, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the channel axis with f32 statistics, cast back."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p[f"{name}.weight"].float() + p[f"{name}.bias"].float()).to(x.dtype)
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``nn.InstanceNorm2d`` default (no affine): per (N, C) over H, W in f32."""
+    xf = x.float()
+    mu = xf.mean(dim=(1, 2), keepdim=True)
+    var = (xf - mu).square().mean(dim=(1, 2), keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, slope)
+
+
+def prelu(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """``nn.PReLU()`` with one shared slope."""
+    a = p[f"{name}.weight"].to(x.dtype).reshape(())
+    return torch.where(x >= 0, x, x * a)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x, 0)
+
+
+# sqrt(1/2) in each dtype, as jax.nn.gelu casts it before use
+_SQRT_HALF = {dt: torch.tensor(math.sqrt(0.5), dtype=torch.float32).to(dt)
+              for dt in (torch.float32, torch.bfloat16)}
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU ``0.5 * x * erfc(-x * sqrt(1/2))`` with jax.nn.gelu's
+    rounding points: the argument and 0.5 * x in x's dtype, erfc in f32 and
+    rounded to x's dtype, their product in x's dtype."""
+    arg = -x * _SQRT_HALF[x.dtype].to(x.device)
+    e = torch.special.erfc(arg.float()).to(x.dtype)
+    return (0.5 * x) * e
 
 
 def init_from_spec(spec: Mapping[str, tuple], seed: int = 0) -> dict:

@@ -2,8 +2,10 @@
 
 Counterpart of drba_tpu/ops/conv_chain.py, for the epilogues the RIFE path
 uses: bias, and the IFNet ResConv ``leaky_relu(conv(x) * beta + x, 0.2)``.
-The TPU kernel's pre-PReLU, plain-residual and final-residual epilogues are
-used only by GMFSS and are not ported yet.
+The TPU kernel's pre-PReLU, plain-residual and final-residual epilogues serve
+the GMFSS nets only under the JAX package's ``conv_backend='pallas'`` (its
+default runs those convs on XLA, as the port runs them on cuDNN), and are not
+ported.
 
 ``conv_chain(x, steps)`` runs one hand-written kernel launch per step
 (csrc/conv_chain.cu) for CUDA tensors, and chained ``F.conv2d`` calls with the

@@ -31,3 +31,9 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
 def resize_to(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """align_corners=False resize (reference ``resize``)."""
     return resize_bilinear(x, size, align_corners=False)
+
+
+def scale_by(x: torch.Tensor, factor: float, align_corners: bool = False) -> torch.Tensor:
+    """Resize by ``factor`` with PyTorch's floor rule for the output size."""
+    h, w = x.shape[-3], x.shape[-2]
+    return resize_bilinear(x, (int(h * factor), int(w * factor)), align_corners)

@@ -1,0 +1,69 @@
+"""The port's frame loop driving GMFSS, against drba_tpu's, on the CPU.
+
+Both run seed-0 random-weight GMFSS in float32 on the same uint8 frames
+(120x180, which the pipeline pads to the network's 128x192 and crops back),
+24 -> 60 fps. The JAX package takes its exact CPU paths.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from drba_tpu.config import F32 as JAX_F32
+from drba_tpu.models.gmfss import GMFSS as JaxGMFSS
+from drba_tpu_torch.config import F32
+from drba_tpu_torch.models.gmfss import GMFSS
+
+# at most this share of output values may differ by more than one uint8
+# level: a coverage within rounding of the DRM's 0.999 threshold can flip
+FLIP_SHARE = 5e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several pytest workers per machine; keep this file's
+    small PyTorch CPU ops on one thread instead of oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class _FakeIO:
+    src_fps, dst_fps = 24.0, 60.0
+    total_frames_count = 0
+
+    def __init__(self, frames):
+        self._frames = list(frames)
+        self.written = []
+
+    def read_frame(self):
+        return self._frames.pop(0) if self._frames else None
+
+    def write_frame(self, frame):
+        self.written.append(frame)
+
+    def finish_writing(self):
+        return True
+
+
+def _u8_frames(n, h=120, w=180, step=3):
+    base = np.random.default_rng(0).uniform(0, 255, (h, w + step * n, 3)).astype(np.uint8)
+    return [np.ascontiguousarray(base[:, step * i:step * i + w]) for i in range(n)]
+
+
+def test_run_pipeline_gmfss_matches_jax():
+    from drba_tpu.pipeline import run_pipeline as jax_run
+    from drba_tpu_torch.pipeline import planned_outputs, run_pipeline
+
+    jio, tio = _FakeIO(_u8_frames(5)), _FakeIO(_u8_frames(5))
+    jstats = jax_run(JaxGMFSS(weights=None, config=JAX_F32), jio)
+    stats = run_pipeline(GMFSS(config=F32), tio)
+    assert stats.frames_out == jstats.frames_out == planned_outputs(5, 24.0, 60.0) == 13
+    assert (stats.frames_in, stats.windows) == (jstats.frames_in, jstats.windows)
+    for g, w in zip(tio.written, jio.written):
+        assert g.shape == w.shape == (120, 180, 3) and g.dtype == np.uint8
+        d = np.abs(g.astype(np.int16) - w.astype(np.int16))
+        # uint8 truncation: a value a few 1e-5 from a level boundary can land on
+        # either side, so one level is allowed everywhere, more only on flips
+        assert d.max() <= 1 or (d > 1).mean() <= FLIP_SHARE, d.max()

@@ -97,7 +97,7 @@ def test_conv_chain_kernel_matches_plain(dev, dtype, cin, cout, beta):
 
 def test_rife_1080p_window_kernel_path_matches_plain(dev):
     """The 1080p window on the kernel path against the plain path, in f32 and
-    bf16, with the same seed-0 model; every kernel launches."""
+    bf16, with the same seed-0 model; every kernel of the RIFE path launches."""
     from drba_tpu_torch.config import DEFAULT, F32
     from drba_tpu_torch.models.rife import RIFE
 
@@ -111,7 +111,8 @@ def test_rife_1080p_window_kernel_path_matches_plain(dev):
         frames = [f.to(cfg.compute_dtype) for f in fr]
         before = _build.counts()
         got, _ = m.inference_ts_drba(*frames, [0.7, 1.1], None, linear=True)
-        assert all(n > before[k] for k, n in _build.counts().items())
+        after = _build.counts()
+        assert all(after[k] > before[k] for k in ("splat", "warp", "conv_chain"))
         want, _ = plain.inference_ts_drba(*frames, [0.7, 1.1], None, linear=True)
         for g, w in zip(got, want):
             assert tuple(g.shape) == (1, 1088, 1920, 3) and bool(torch.isfinite(g).all())
@@ -120,3 +121,125 @@ def test_rife_1080p_window_kernel_path_matches_plain(dev):
             d = (g.float() - w.float()).abs()
             assert float(d.mean()) <= mean_tol
             assert float((d > 1e-2).float().mean()) <= 5e-3
+
+
+# ------------------------------------------------------------------------------ attention kernels
+
+
+def _qkv(gen, shape, dev, dtype, scale=1.0):
+    return [(torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype) for _ in range(3)]
+
+
+# bf16: the scores are exact bf16 products summed in f32 on both sides; the
+# kernel rounds P to bf16 for the tensor-core P.V (relative 2^-9 per weight)
+# and both round the output to bf16 (2^-8)
+_ATTN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-2, 2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_kernel_matches_plain(dev, dtype, masked):
+    """(B, L, c) windows with region ids; L spans several key tiles and is
+    not a tile multiple."""
+    from drba_tpu_torch.ops.attention import window_attention
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = _qkv(gen, (3, 300, 128), dev, dtype)
+    rid = torch.randint(0, 4, (3, 300), generator=gen, device=dev) if masked else None
+    n0 = _build.WINDOW.launches
+    got = window_attention(q, k, v, rid, masked, backend="cuda")
+    want = window_attention(q, k, v, rid, masked, backend="torch")
+    assert _build.WINDOW.launches == n0 + 1
+    atol, rtol = _ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_nhwc_kernel_matches_plain(dev, dtype, masked):
+    from drba_tpu_torch.models.gmflow_net import shift_region_labels
+    from drba_tpu_torch.ops.attention import window_attention_nhwc
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = _qkv(gen, (2, 24, 40, 128), dev, dtype)
+    lab = shift_region_labels(24, 40, 2)
+    got = window_attention_nhwc(q, k, v, 2, lab, masked, backend="cuda")
+    want = window_attention_nhwc(q, k, v, 2, lab, masked, backend="torch")
+    atol, rtol = _ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_attention_kernel_matches_plain(dev, dtype, masked):
+    """A 2-wide f32 value of pixel coordinates, as in the global correlation:
+    one grid broadcast over the batch (a non-contiguous view)."""
+    from drba_tpu_torch.ops.attention import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, _ = _qkv(gen, (2, 1100, 128), dev, dtype, scale=0.3)
+    v = (torch.rand(1, 1100, 2, generator=gen, device=dev) * 240).expand(2, 1100, 2)
+    rid = torch.randint(0, 3, (2, 1100), generator=gen, device=dev) if masked else None
+    n0 = _build.FLASH.launches
+    got = flash_attention(q, k, v, rid, masked, out_dtype=torch.float32, backend="cuda")
+    want = flash_attention(q, k, v, rid, masked, out_dtype=torch.float32, backend="torch")
+    assert _build.FLASH.launches == n0 + 1
+    # P.V in f32 on both sides; sums of 1100 terms in another order, at values <= 240
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cross", [False, True])
+def test_transformer_layer_kernel_matches_plain(dev, dtype, cross):
+    """A self layer (no FFN, unmasked) and a cross layer (FFN, shift mask,
+    batch-half swap, a separate target) at a scale-1-like geometry."""
+    from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, shift_region_labels
+    from drba_tpu_torch.convert import from_jax_params
+    from drba_tpu_torch.models.layers import init_from_spec
+    from drba_tpu_torch.ops.attn_layer import layer_weights, transformer_layer
+
+    p = {k: v.to(dev, dtype) for k, v in
+         from_jax_params(init_from_spec(GMFLOW_SPEC, seed=7), GMFLOW_SPEC).items()}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, tgt, _ = _qkv(gen, (4, 32, 48, 128), dev, dtype, scale=0.5)
+    base = f"transformer.layers.1.{'cross_attn_ffn' if cross else 'self_attn'}"
+    wqkv, wm, norm1, ffn = layer_weights(p, base, cross)
+    kw = dict(labels=shift_region_labels(32, 48, 8), with_mask=cross, cross_swap=cross,
+              target=tgt if cross else None, ffn=ffn)
+    n0 = _build.LAYER.launches
+    got = transformer_layer(x, wqkv, wm, norm1, 8, backend="cuda", **kw)
+    want = transformer_layer(x, wqkv, wm, norm1, 8, backend="torch", **kw)
+    assert _build.LAYER.launches == n0 + 2
+    # f32: sums in another order; bf16: the kernel keeps the merge, the norms
+    # and the FFN sum in f32 where the plain ops round each to bf16, and
+    # rounds P, so outputs of size ~4 may differ by a few bf16 ulps (2^-6)
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_gmfss_window_kernel_path_matches_plain(dev):
+    """A small GMFSS window on the kernel path against the plain path, f32
+    and bf16; every kernel of the path launches."""
+    from drba_tpu_torch.config import DEFAULT, F32
+    from drba_tpu_torch.models.gmfss import GMFSS
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    base = torch.rand(1, 256, 384 + 12, 3, generator=gen, device=dev)
+    fr = [base[:, :, 6 * i:6 * i + 384].contiguous() for i in range(3)]
+    for cfg, mean_tol in ((F32, 1e-4), (DEFAULT, 1e-2)):
+        m = GMFSS(config=cfg, device=dev)
+        plain = GMFSS(config=cfg.replace(splat_backend="torch", warp_backend="torch",
+                                         attn_backend="torch"), device=dev)
+        frames = [f.to(cfg.compute_dtype) for f in fr]
+        before = _build.counts()
+        got, _ = m.inference_ts_drba(*frames, [0.7, 1.1], None, linear=True)
+        after = _build.counts()
+        for name in ("splat", "warp", "window_attention", "flash_attention",
+                     "transformer_layer"):
+            assert after[name] > before[name], name
+        want, _ = plain.inference_ts_drba(*frames, [0.7, 1.1], None, linear=True)
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == (1, 256, 384, 3) and bool(torch.isfinite(g).all())
+            d = (g.float() - w.float()).abs()
+            assert float(d.mean()) <= mean_tol
+            assert float((d > 1e-2).float().mean()) <= 5e-2

@@ -165,9 +165,12 @@ CONV = Kernel("conv_chain", "conv_chain.cu", {"drba_conv3x3": [_P] * 5 + [_I] * 
 # q, k, v, out, labels; b, h, w, kk; 4 token strides; 2 label strides; half; dtype; stream
 WINDOW = Kernel("window_attention", "attention.cu",
                 {"drba_window_attention": [_P] * 5 + [_I] * 12 + [_P]})
-# q, k, v, out, labels; b, L; dtype; stream
-FLASH = Kernel("flash_attention", "attention.cu",
-               {"drba_flash_attention": [_P] * 5 + [_I] * 3 + [_P]})
+FLASH = Kernel("flash_attention", "attention.cu", {
+    # q, k, v, out, labels; b, L; dtype; partials, key splits; stream
+    "drba_flash_attention": [_P] * 5 + [_I] * 3 + [_P, _I, _P],
+    # partials, out; rows, key splits; stream
+    "drba_flash_combine": [_P, _P, _I, _I, _P],
+})
 LAYER = Kernel("transformer_layer", "attn_layer.cu", {
     # x, target, wqkv, qkv; tokens; dtype; stream
     "drba_layer_proj": [_P] * 4 + [_L, _I, _P],

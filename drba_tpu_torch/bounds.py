@@ -1,0 +1,151 @@
+"""The least time an NVIDIA H100 could take for each kernel's work (roofline bounds).
+
+A bound is the larger of two times: the bytes the function must move (each
+input read once, each output written once, intermediates not at all) over the
+memory rate, and its operations over the peak rate of their type. Where the
+work depends on the data (masked attention, the pixels a warp samples), the
+caller passes what this run's data needs. Rates are NVIDIA's H100 SXM data
+sheet (dense, at the full 700 W power limit): 3.35 TB/s, 989 TFLOP/s in bf16
+on the tensor cores, 67 TFLOP/s in f32 on the FMA pipes. Operations on
+different units may overlap, so the operation time is the largest of the
+per-type times. Softmax exponentials, norms and other elementwise work are
+not counted (their units' rates are not in the data sheet).
+
+Every function is pure in its arguments; ``chip_smoke.py`` sums them over the
+path shapes it times.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+MEM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+C = 128  # the attention kernels' head width
+
+
+@dataclass(frozen=True)
+class Work:
+    """Bytes moved and operations by type ("bf16" tensor-core, "f32" FMA)."""
+
+    bytes: float
+    ops: dict = field(default_factory=dict)
+
+    def __add__(self, other: "Work") -> "Work":
+        ops = dict(self.ops)
+        for k, n in other.ops.items():
+            ops[k] = ops.get(k, 0.0) + n
+        return Work(self.bytes + other.bytes, ops)
+
+
+def bound_ms(w: Work) -> tuple[float, str]:
+    """(least ms, "bytes" | "operations": which of the two sets it)."""
+    t_mem = w.bytes / MEM_BYTES_PER_S
+    t_ops = max((n / PEAK_OPS_PER_S[k] for k, n in w.ops.items()), default=0.0)
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def _pipe(itemsize: int) -> str:
+    return "bf16" if itemsize == 2 else "f32"
+
+
+def live_pairs(labels) -> int:
+    """Sum over windows of the (query, key) pairs with equal region ids:
+    labels (windows, L) int."""
+    lab = np.asarray(labels).reshape(len(labels), -1)
+    total = 0
+    for row in lab:
+        _, n = np.unique(row, return_counts=True)
+        total += int((n.astype(np.int64) ** 2).sum())
+    return total
+
+
+def attention_work(n_windows: int, L: int, itemsize: int, value_width: int = C,
+                   pairs: int | None = None, labels: int = 0,
+                   qkv_bytes: float | None = None) -> Work:
+    """``softmax(q k^T / sqrt(128)) v`` over ``n_windows`` windows of L tokens.
+
+    q, k and out are 128 wide in ``itemsize`` bytes; the value is 128 wide
+    in the same type, or (``value_width`` 2, flash) f32 in and out, with
+    P v on the FMA pipes. ``pairs``: live (query, key) pairs (default every
+    pair); each costs 2 * 128 operations for q k^T and 2 * value_width for
+    P v. ``labels``: the int32 region ids read. ``qkv_bytes`` replaces the
+    q, k, v bytes where they are read from a wider map.
+    """
+    tokens = n_windows * L
+    pairs = n_windows * L * L if pairs is None else pairs
+    if value_width == C:
+        v_bytes = out_bytes = tokens * C * itemsize
+        ops = {_pipe(itemsize): 2.0 * pairs * (C + C)}
+    else:
+        v_bytes = out_bytes = tokens * value_width * 4
+        ops = {_pipe(itemsize): 2.0 * pairs * C}
+        ops["f32"] = ops.get("f32", 0.0) + 2.0 * pairs * value_width
+    if qkv_bytes is None:
+        qkv_bytes = 2 * tokens * C * itemsize + v_bytes
+    return Work(qkv_bytes + out_bytes + 4 * labels, ops)
+
+
+def layer_work(b: int, h: int, w: int, k_splits: int, itemsize: int, hidden: int = 0,
+               cross: bool = False, pairs: int | None = None, labels: int = 0) -> Work:
+    """One transformer layer over (b, h, w, 128): reads x (and the cross
+    target), the weights (q|k|v 128 x 384, merge 128 x 128, with the FFN
+    256 x hidden and hidden x 128), the norms' f32 parameters and
+    ``labels`` int32 region ids; writes the output. Products: the
+    projection, attention (``pairs`` live pairs), the merge and the FFN."""
+    tokens = b * h * w
+    L = (h // k_splits) * (w // k_splits)
+    pairs = b * k_splits ** 2 * L * L if pairs is None else pairs
+    weights = (C * 3 * C + C * C + (2 * C * hidden + hidden * C)) * itemsize
+    norms = (2 + (2 if hidden else 0)) * C * 4
+    moved = tokens * C * itemsize * (3 if cross else 2) + weights + norms
+    macs = tokens * (C * 3 * C + C * C + 2 * C * hidden + hidden * C) + pairs * 2 * C
+    return Work(moved + 4 * labels, {_pipe(itemsize): 2.0 * macs})
+
+
+def warp_work(n: int, h: int, w: int, c: int, k: int, itemsize: int,
+              touched: int | None = None) -> Work:
+    """Bilinear backward warp of (n, h, w, c) by an (n, h, w, 2) flow of
+    the same type; k = 1 samples every pixel, an even k the 2 x 2 taps of
+    each k x k cell (4 n h w / k^2 samples, flow read at the taps) and
+    averages them. ``touched``: the distinct image pixels the samples read
+    (default: all, or 4 per sample if fewer). 4 corners x c multiply-adds
+    per sample, in f32."""
+    samples = n * h * w if k == 1 else 4 * n * (h // k) * (w // k)
+    touched = min(n * h * w, 4 * samples) if touched is None else touched
+    out = n * (h // k) * (w // k) * c * itemsize
+    return Work(touched * c * itemsize + samples * 2 * itemsize + out,
+                {"f32": 2.0 * 4 * c * samples})
+
+
+def warp_touched(px, py, h: int, w: int) -> int:
+    """Distinct pixels of an (n, h, w) image that bilinear samples at pixel
+    coordinates px/py (n, ...) read with border clamping (numpy or torch
+    arrays)."""
+    px, py = torch.as_tensor(px).float(), torch.as_tensor(py).float()
+    x0 = torch.floor(px).long()
+    y0 = torch.floor(py).long()
+    batch = torch.arange(px.shape[0], device=px.device).reshape(-1, *[1] * (px.dim() - 1))
+    ids = [((batch * h + (y0 + dy).clamp(0, h - 1)) * w + (x0 + dx).clamp(0, w - 1)).reshape(-1)
+           for dy in (0, 1) for dx in (0, 1)]
+    return int(torch.unique(torch.cat(ids)).numel())
+
+
+def conv3x3_work(n: int, h: int, w: int, cin: int, cout: int, itemsize: int,
+                 beta: bool = True) -> Work:
+    """One 3x3 / pad-1 conv step (n, h, w, cin) -> (n, h, w, cout) with bias
+    (and the ResConv epilogue's beta), all in one type."""
+    params = (cout * cin * 9 + cout * (2 if beta else 1)) * itemsize
+    moved = n * h * w * (cin + cout) * itemsize + params
+    return Work(moved, {_pipe(itemsize): 2.0 * 9 * cin * cout * n * h * w})
+
+
+def splat_work(n: int, h: int, w: int, c: int, itemsize: int) -> Work:
+    """Forward splat of (n, h, w, c) by an (n, h, w, 2) flow of the same
+    type into an f32 (n, h, w, c) sum: 4 corners x c multiply-adds per
+    source pixel, in f32."""
+    pixels = n * h * w
+    return Work(pixels * (c * itemsize + 2 * itemsize + c * 4), {"f32": 2.0 * 4 * c * pixels})

@@ -4,40 +4,67 @@
 //  * window_attention_mxu (:63, body _kernel :37) and window_attention_nhwc
 //    (:281, body _nhwc_kernel :253): softmax(q k^T / sqrt(c), masked by
 //    region id) v per window. The TPU kernels hold a whole (rows, Lpad) f32
-//    score chunk in VMEM; a block here has 227 KB of shared memory, so one
-//    block takes one (window, 64-query tile) and walks the window's keys in
-//    64-key tiles with an online softmax (running max, sum and accumulator
-//    in f32). Windows are addressed by token strides, so the same kernel
-//    reads an NHWC map in place (no split/merge copies), the (B, L, c)
-//    layout, and the q|k|v columns of the transformer layer's projection;
-//    keys and values may come from another image of the batch (the
-//    cross-attention batch-half swap).
+//    score chunk in VMEM; here one block takes one (window, 128-query tile)
+//    and walks the window's keys in 64-key tiles with an online softmax
+//    (running max, sum and accumulator in f32). Windows are addressed by
+//    token strides, so the same kernel reads an NHWC map in place (no
+//    split/merge copies), the (B, L, c) layout, and the q|k|v columns of the
+//    transformer layer's projection; keys and values may come from another
+//    image of the batch (the cross-attention batch-half swap).
 //  * flash_attention_mxu (:150, body _flash_kernel :110): the same key-tile
 //    loop with a value of width 2 (pixel coordinates or flow), for GMFlow's
 //    global correlation and flow propagation at L = 8160. The (B, L, L)
-//    scores never leave shared memory.
+//    scores never leave the registers.
 //
 // A key is dead where it lies past L or, with labels, where its region id
 // differs from the query's; dead keys get weight exactly 0 (the TPU
 // kernels' -1e9 fill).
 //
-// bf16 (the main path): q k^T on tensor cores through WMMA (16x16x16 bf16,
-// f32 accumulation). For the 128-wide value, P is rounded to bf16 and P v
-// runs on tensor cores too; the f32 accumulator lives in shared memory so
-// that each tile can rescale its rows (WMMA fragments have no documented
-// element layout). For the 2-wide value, P v stays in f32 on the FMA pipes:
-// the values are pixel coordinates up to a few hundred, where a bf16 P
-// would cost about a pixel. f32: every product on the FMA pipes.
+// Bound on this card at the GMFSS 1080p path shapes (989 TFLOP/s bf16 on
+// tensor cores, 3.35 TB/s; softmax attention over L keys costs 4 L^2 c):
+//  * scale 0, (2,68,120,128) k=2, L = 2040: 17.0 GFLOP -> 17.2 us; q, k, v
+//    and out 16.7 MB -> 5 us: bound by the tensor cores;
+//  * scale 1 inside the layer, (4,136,240,128) k=8, L = 510: 34.1 GFLOP ->
+//    34.5 us; q|k|v and out 134 MB -> 40 us: bound by memory;
+//  * flash (1,8160): q k^T 2 L^2 c = 17.0 GFLOP -> 17.2 us, and 66.6 M
+//    exponentials on the SFUs (~16 us): tensor cores and SFUs together.
 //
-// Bound on this card: per key tile a block does 2 x 64 x 64 x 128 MACs on
-// tensor cores but also a 64 x 64 softmax with warp shuffles and exp, and
-// (bf16, 128-wide value) a round trip of the 64 x 128 f32 accumulator
-// through shared memory, so the kernel is bound by shared-memory traffic and
-// the softmax, far below the tensor cores' peak. wgmma/TMA, register-held
-// accumulators (mma.sync with a known layout) and larger query tiles are
-// later steps.
-
-#include <mma.h>
+// What bounds a WMMA design of this loop, and what this one does about it.
+// bf16 (the main path), one block = two consumer warpgroups of 64 query rows
+// (128 rows) sharing each key/value tile:
+//  * S = Q K^T is wgmma.m64n64k16 with Q and K in shared memory in the
+//    128-byte-swizzled K-major layout and S in registers (32 f32 a thread),
+//    not a WMMA fragment stored to shared memory and read back.
+//  * The online softmax works on those registers. Each row of S lives in
+//    one quad of four threads, so the row maximum takes two shfl_xor steps
+//    per row and tile (was ten per row); the row sums stay per thread and
+//    meet once, at the end. Scores are prescaled by log2(e)/sqrt(c) and
+//    exponentiated with exp2f; full tiles without labels skip the masking.
+//  * 128-wide value: P goes to bf16 in registers (the S accumulator layout
+//    is the A-fragment layout) and O += P V is wgmma.m64n128k16 with A from
+//    registers and V in shared memory as an MN-major B. O stays in registers
+//    (64 f32 a thread) and is rescaled there; WMMA fragments have no
+//    documented layout, so a WMMA kernel keeps O in shared memory and moves
+//    it through every tile.
+//  * 2-wide f32 value (flash): P V stays in f32 on the FMA pipes (the values
+//    are pixel coordinates up to a few hundred, where a bf16 P would cost
+//    about a pixel); each thread folds its own S elements against V[key]
+//    from shared memory into per-row partial sums, reduced over the quad
+//    once, at the end.
+//  * K, V and the key labels stream through a 2-stage ring in shared memory
+//    with cp.async (per-row addresses, so every layout and the ragged last
+//    tile are covered; rows past L are zero-filled): tile j+1 arrives while
+//    tile j is computed, instead of a load between two barriers. Token
+//    addresses divide by the window width through a reciprocal.
+//  * Enough work in flight: 128 registers a thread and 98 KB of shared
+//    memory (flash: 96 and 67 KB) let two blocks, four warpgroups, share an
+//    SM. The windows give 128 (scale 0) and 1024 (scale 1) blocks; flash
+//    at B = 1 has only 64 query blocks, so the wrapper splits the keys over
+//    up to 8 blocks each (flash-decoding): each writes its partial
+//    (m, l, acc) to scratch and a second launch combines them.
+// f32: every product on the FMA pipes, one warp per 16 query rows, the
+// scores and probabilities through shared memory (TF32 would break the f32
+// parity with the plain version).
 
 #include <type_traits>
 
@@ -50,12 +77,14 @@ using drba::bf16;
 constexpr int kC = 128;       // head width
 constexpr int kQT = 64;       // queries per block
 constexpr int kKT = 64;       // keys per tile
-constexpr int kThreads = 128; // 4 warps, 16 query rows each
-constexpr int kLdh = kC + 8;  // bf16 row stride of q/k/v tiles
-constexpr int kLdf = kC + 4;  // f32 row stride of q/k/v tiles and the accumulator
-constexpr int kLds = kKT + 4; // f32 row stride of the score tile
-constexpr int kLdp = kKT + 8; // bf16 row stride of the probability tile
+constexpr int kThreads = 128; // f32 kernel: 4 warps of 16 query rows
+constexpr int kWG = 2;        // bf16 kernel: consumer warpgroups per block, 64 query rows each
+constexpr int kWgThreadsAll = 128 * kWG;
+constexpr int kRowsWG = kQT * kWG;  // bf16 kernel: query rows per block
+constexpr int kLdf = kC + 4;  // f32 row stride of q/k/v tiles and the accumulator (f32)
+constexpr int kLds = kKT + 4; // f32 row stride of the score tile (f32)
 constexpr float kNegInit = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Geom {
   const void* q;
@@ -68,6 +97,15 @@ struct Geom {
   int lab_win_stride, lab_b_stride;
   int half;  // keys/values of image i come from image (i + half) % b
   float scale;
+  float inv_ww;  // 1 / ww
+};
+
+// Key split of the bf16 kernel: block z walks key tiles [z * tiles, (z + 1) *
+// tiles); with part set it writes its partial (m, l, acc0, acc1) per query
+// row to part[z][row] instead of the output.
+struct Split {
+  float4* part;
+  int tiles;
 };
 
 struct Window {
@@ -89,26 +127,408 @@ __device__ __forceinline__ Window window_of(const Geom& g) {
   return win;
 }
 
-// global token index of window token i of image bb
+// global token index of window token i of image bb; i / ww through the
+// reciprocal, exact for i < 2^21 (the host checks L)
 __device__ __forceinline__ long long token(const Geom& g, const Window& win, int bb, int i) {
-  const int ly = i / g.ww, lx = i - ly * g.ww;
+  const int ly = __float2int_rz((static_cast<float>(i) + 0.5f) * g.inv_ww);
+  const int lx = i - ly * g.ww;
   return (static_cast<long long>(bb) * g.h + win.wy * g.wh + ly) * g.w + win.wx * g.ww + lx;
 }
 
-// rows [i0, i0 + 64) of a window (128 channels of T each) into shared memory
-// with row stride ld; rows past L are zero
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int stride,
+// --------------------------------------------------------------- bf16: wgmma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `bytes` (4, 8 or 16); with !valid the destination is zero-filled
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool valid) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(kBytes), "r"(valid ? kBytes : 0));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// make this thread's shared-memory writes visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator accesses across wgmma
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// A 64 x 128 bf16 tile is two 64 x 64 halves of 8 KB (channels [0, 64) and
+// [64, 128)); each row of a half is 128 bytes whose 16-byte chunks are
+// XOR-swizzled by (row % 8), the layout wgmma reads with 128-byte swizzle.
+// Byte offset of 16-byte chunk cc (0..15) of row r:
+__device__ __forceinline__ uint32_t sw128(int r, int cc) {
+  return (cc >> 3) * 8192 + r * 128 + (((cc & 7) ^ (r & 7)) << 4);
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; lbo/sbo in bytes
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+// K-major operand (Q as A, K as B): 8-row groups 1024 B apart; k-step kk of
+// 16 channels starts 32 B further into the swizzle atom, or in the next half
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return gmma_desc(tile + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
+}
+// MN-major B (V, keys x channels with channels contiguous): 8-key groups
+// 1024 B apart (SBO), the two 64-channel halves 8192 B apart (LBO); k-step t
+// covers keys [16 t, 16 t + 16)
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int t) {
+  return gmma_desc(tile + t * 2048, 8192, 1024);
+}
+
+// S (64 x 64, f32) (+)= Q K^T for one 16-channel step; Q and K from shared memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// O (64 x 128, f32) += P V for one 16-key step; P from registers (bf16 A
+// fragment), V from shared memory as an MN-major (transposed) B
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Shared memory of the bf16 kernel (offsets from a 1024-byte aligned base):
+// Q (kWG tiles), K[2], V[2], key labels[2], query labels
+template <int VW>
+struct WgSmem {
+  static constexpr int kTile = kQT * kC * 2;                // one swizzled bf16 tile
+  static constexpr int kV = VW == kC ? kTile : kKT * 2 * 4;  // one value tile
+  static constexpr int kQ = 0;                               // + warpgroup * kTile
+  static constexpr int kK = kWG * kTile;                     // + stage * kTile
+  static constexpr int kVal = kK + 2 * kTile;                // + stage * kV
+  static constexpr int kKLab = kVal + 2 * kV;                // + stage * 256
+  static constexpr int kQLab = kKLab + 2 * kKT * 4;
+  static constexpr int kBytes = 1024 + kQLab + kRowsWG * 4;  // 1024: alignment slack
+};
+
+// rows [i0, i0 + 64 * tiles) of a window (128 bf16 channels each) into
+// consecutive swizzled tiles by cp.async; rows past L are zero. Keys and
+// values share their rows, so a second source (v, or nullptr) is loaded with
+// the same token indices.
+__device__ __forceinline__ void load_rows_async(uint32_t dst, const bf16* src, int stride,
+                                                uint32_t dst2, const bf16* src2, int stride2,
+                                                int tiles, const Geom& g, const Window& win,
+                                                int bb, int i0) {
+  const int cc = threadIdx.x & 15;
+  for (int r = threadIdx.x >> 4; r < kQT * tiles; r += kWgThreadsAll / 16) {
+    const bool ok = i0 + r < g.L;
+    const long long t = ok ? token(g, win, bb, i0 + r) : 0;
+    const uint32_t off = (r >> 6) * (kQT * kC * 2) + sw128(r & 63, cc);
+    cp_async<16>(dst + off, src + t * stride + cc * 8, ok);
+    if (src2 != nullptr) cp_async<16>(dst2 + off, src2 + t * stride2 + cc * 8, ok);
+  }
+}
+
+// keys, values and key labels of the tile at key k0 into ring stage st
+template <int VW>
+__device__ __forceinline__ void load_kv_async(const Geom& g, const Window& win, uint32_t base,
+                                              int st, int k0) {
+  using SM = WgSmem<VW>;
+  const bool wide = VW == kC;
+  load_rows_async(base + SM::kK + st * SM::kTile, static_cast<const bf16*>(g.k), g.k_stride,
+                  base + SM::kVal + st * SM::kV, wide ? static_cast<const bf16*>(g.v) : nullptr,
+                  g.v_stride, 1, g, win, win.bkv, k0);
+  const int t = threadIdx.x;
+  if (!wide && t < kKT) {
+    const float* v = static_cast<const float*>(g.v);
+    const bool ok = k0 + t < g.L;
+    cp_async<8>(base + SM::kVal + st * SM::kV + t * 8,
+                v + (ok ? token(g, win, win.bkv, k0 + t) * g.v_stride : 0), ok);
+  }
+  if (g.labels != nullptr && t >= kWgThreadsAll - kKT) {
+    const int j = t - (kWgThreadsAll - kKT);
+    const bool ok = k0 + j < g.L;
+    cp_async<4>(base + SM::kKLab + st * kKT * 4 + j * 4, win.lab + (ok ? k0 + j : 0), ok);
+  }
+}
+
+// Online-softmax update of one 64-key tile on the S registers (log2 domain):
+// rescale factors into corr, P into s, row maxima into m, per-thread row
+// sums into l. kMasked: the tile is ragged or the keys carry labels.
+template <bool kMasked>
+__device__ __forceinline__ void softmax_regs(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], float sl2, int lim, int col,
+                                             const int* klab, int ql0, int ql1) {
+  float mx[2] = {kNegInit, kNegInit};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    if constexpr (kMasked) {
+      const int j = 8 * (i >> 2) + col + (i & 1);
+      const bool live = j < lim && (klab == nullptr || klab[j] == (h ? ql1 : ql0));
+      s[i] = live ? s[i] * sl2 : kNegInit;
+    }
+    mx[h] = fmaxf(mx[h], s[i]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    // unmasked: the raw maximum, scaled once (sl2 > 0)
+    const float m_new = fmaxf(m[h], kMasked ? mx[h] : mx[h] * sl2);
+    corr[h] = exp2f(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= corr[h];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    if constexpr (kMasked)
+      s[i] = s[i] == kNegInit ? 0.f : exp2f(s[i] - m[h]);  // dead keys: exactly 0
+    else
+      s[i] = exp2f(fmaf(s[i], sl2, -m[h]));
+    l[h] += s[i];
+  }
+}
+
+// One block: kWG consumer warpgroups, warpgroup w owning query rows
+// [q0 + 64 w, q0 + 64 w + 64) of window blockIdx.x, q0 = blockIdx.y * 64 kWG,
+// against key tiles [z * tiles, (z + 1) * tiles) of that window, z =
+// blockIdx.z; the K/V ring is shared. Thread layout (wgmma accumulators):
+// warp w of its warpgroup, lane = 4 * g4 + t4 holds rows r0 = 16 w + g4 and
+// r1 = r0 + 8 of the warpgroup's tile; element i of an accumulator lies in
+// column 8 (i / 4) + 2 t4 + (i % 2), row r1 if (i & 2) else r0.
+template <int VW>
+__global__ void __launch_bounds__(kWgThreadsAll) attn_wgmma_kernel(Geom g, Split sp) {
+  using SM = WgSmem<VW>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t base = smem_u32(smem);
+  const int* qlab = reinterpret_cast<const int*>(smem + SM::kQLab);
+
+  const Window win = window_of(g);
+  const int q0 = blockIdx.y * kRowsWG;
+  const int nkt = (g.L + kKT - 1) / kKT;
+  const int kt0 = blockIdx.z * sp.tiles, kt1 = min(nkt, kt0 + sp.tiles);
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int r0 = wg * kQT + ((tid >> 5) & 3) * 16 + (lane >> 2), col = 2 * (lane & 3);
+  const uint32_t sQ = base + SM::kQ + wg * SM::kTile;
+
+  load_rows_async(base + SM::kQ, static_cast<const bf16*>(g.q), g.q_stride, 0, nullptr, 0, kWG,
+                  g, win, win.bq, q0);
+  if (g.labels != nullptr && tid < kRowsWG) {
+    const bool ok = q0 + tid < g.L;
+    cp_async<4>(base + SM::kQLab + tid * 4, win.lab + (ok ? q0 + tid : 0), ok);
+  }
+  if (kt0 < kt1) load_kv_async<VW>(g, win, base, 0, kt0 * kKT);
+  cp_async_commit();
+
+  constexpr int kAcc = VW == kC ? 64 : 4;  // O, or the 2-wide sums of rows r0 and r1
+  float o[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
+  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f};
+  const float sl2 = g.scale * kLog2e;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    if (kt + 1 < kt1) load_kv_async<VW>(g, win, base, st ^ 1, (kt + 1) * kKT);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt (and Q) have landed
+    fence_async_smem();
+    __syncthreads();
+
+    float s[32];
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kC / 16; ++kk)
+      wgmma_qk(s, desc_kmajor(sQ, kk), desc_kmajor(base + SM::kK + st * SM::kTile, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    const int lim = g.L - kt * kKT;
+    float corr[2];
+    if (g.labels == nullptr && lim >= kKT) {
+      softmax_regs<false>(s, m, l, corr, sl2, lim, col, nullptr, 0, 0);
+    } else {
+      const int* klab = g.labels == nullptr
+                            ? nullptr
+                            : reinterpret_cast<const int*>(smem + SM::kKLab + st * kKT * 4);
+      softmax_regs<true>(s, m, l, corr, sl2, lim, col, klab, klab ? qlab[r0] : 0,
+                         klab ? qlab[r0 + 8] : 0);
+    }
+
+    if constexpr (VW == kC) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
+      uint32_t a[16];  // P in bf16, the A fragments of the four 16-key steps
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < kKT / 16; ++t)
+        wgmma_pv(o, a[4 * t], a[4 * t + 1], a[4 * t + 2], a[4 * t + 3],
+                 desc_mnmajor(base + SM::kVal + st * SM::kV, t));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+    } else {
+      const float2* v2 = reinterpret_cast<const float2*>(smem + SM::kVal + st * SM::kV);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[i] *= corr[i >> 1];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const float2 vv = v2[8 * (i >> 2) + col + (i & 1)];
+        o[2 * h] = fmaf(s[i], vv.x, o[2 * h]);
+        o[2 * h + 1] = fmaf(s[i], vv.y, o[2 * h + 1]);
+      }
+    }
+    __syncthreads();  // stage st is free for the load of tile kt + 2
+  }
+  cp_async_wait<0>();
+
+  // row sums (and for the narrow value the row's P v) over the quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  if constexpr (VW == kC) {
+    // stage the bf16 output rows in the (now free) K/V ring, then store
+    // 16-byte row chunks
+    constexpr int kLdo = kC + 8;
+    static_assert(kRowsWG * kLdo * 2 <= 4 * WgSmem<VW>::kTile, "output staging");
+    bf16* so = reinterpret_cast<bf16*>(smem + SM::kK);
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int h = (i >> 1) & 1;
+      *reinterpret_cast<uint32_t*>(so + (r0 + 8 * h) * kLdo + 8 * (i >> 2) + col) =
+          pack_bf16(o[i] * inv[h], o[i + 1] * inv[h]);
+    }
+    __syncthreads();
+    bf16* out = static_cast<bf16*>(g.out);
+    for (int r = tid >> 4; r < kRowsWG; r += kWgThreadsAll / 16) {
+      const int cc = tid & 15;
+      if (q0 + r < g.L)
+        *reinterpret_cast<uint4*>(out + token(g, win, win.bq, q0 + r) * g.o_stride + cc * 8) =
+            *reinterpret_cast<const uint4*>(so + r * kLdo + cc * 8);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o[i] += __shfl_xor_sync(0xffffffffu, o[i], 1);
+      o[i] += __shfl_xor_sync(0xffffffffu, o[i], 2);
+    }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = q0 + r0 + 8 * h;
+        if (i >= g.L) continue;
+        const long long t = token(g, win, win.bq, i);
+        if (sp.part != nullptr) {
+          const long long rows = static_cast<long long>(g.b) * g.h * g.w;
+          sp.part[blockIdx.z * rows + t] = make_float4(m[h], l[h], o[2 * h], o[2 * h + 1]);
+        } else {
+          float* out = static_cast<float*>(g.out) + t * g.o_stride;
+          out[0] = o[2 * h] / l[h];
+          out[1] = o[2 * h + 1] / l[h];
+        }
+      }
+    }
+  }
+}
+
+// out[row] = the softmax-weighted 2-wide value from the n key splits'
+// partials (m, l, acc0, acc1) of that row
+__global__ void flash_combine_kernel(const float4* part, float* out, int rows, int n) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= rows) return;
+  float mx = kNegInit;
+  for (int z = 0; z < n; ++z) mx = fmaxf(mx, part[static_cast<long long>(z) * rows + t].x);
+  float l = 0.f, a0 = 0.f, a1 = 0.f;
+  for (int z = 0; z < n; ++z) {
+    const float4 p = part[static_cast<long long>(z) * rows + t];
+    const float w = exp2f(p.x - mx);
+    l = fmaf(p.y, w, l);
+    a0 = fmaf(p.z, w, a0);
+    a1 = fmaf(p.w, w, a1);
+  }
+  out[2 * t] = a0 / l;
+  out[2 * t + 1] = a1 / l;
+}
+
+// --------------------------------------------------------------------- f32: FMA
+
+// rows [i0, i0 + 64) of a window (128 channels of f32 each) into shared
+// memory with row stride ld; rows past L are zero
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int stride,
                                           const Geom& g, const Window& win, int bb, int i0) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte vector
-  constexpr int kPerRow = kC / kVec;
+  constexpr int kPerRow = kC / 4;
   for (int e = threadIdx.x; e < 64 * kPerRow; e += kThreads) {
-    const int r = e / kPerRow, c = (e % kPerRow) * kVec;
+    const int r = e / kPerRow, c = (e % kPerRow) * 4;
     const int i = i0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (i < g.L)
-      val = *reinterpret_cast<const uint4*>(src + token(g, win, bb, i) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < g.L) val = *reinterpret_cast<const float4*>(src + token(g, win, bb, i) * stride + c);
+    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
   }
 }
 
@@ -124,28 +544,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared memory of one block, carved from the dynamic allocation. TQ is the
-// q/k element type; VW the value width (128 or 2).
-template <typename TQ, int VW>
+// Shared memory of one block of the f32 kernel; VW the value width (128 or 2).
+template <int VW>
 struct Smem {
-  static constexpr bool kBF = sizeof(TQ) == 2;
-  static constexpr int kLd = kBF ? kLdh : kLdf;
-  static constexpr int kTile = 64 * kLd * static_cast<int>(sizeof(TQ));
+  static constexpr int kTile = 64 * kLdf * 4;
   static constexpr int kV = VW == kC ? kTile : 64 * 2 * 4;
   static constexpr int kS = kQT * kLds * 4;
-  static constexpr int kP = (kBF && VW == kC) ? kQT * kLdp * 2 : 0;
-  static constexpr int kO = (kBF && VW == kC) ? kQT * kLdf * 4 : 0;
-  static constexpr int kBytes = 2 * kTile + kV + kS + kP + kO + 2 * 64 * 4;
+  static constexpr int kBytes = 2 * kTile + kV + kS + 2 * 64 * 4;
 };
 
 // Per-row online-softmax update over one key tile, for the 16 rows of this
 // warp. Reads the raw scores of the tile from s (row stride kLds), returns
 // the row maxima and sums in m/l (identical in every lane), and
-//  * VW == 128: writes P into p (bf16, stride kLdp) or back into s (f32),
-//    and the rescale factors into corr;
+//  * VW == 128: writes P back into s and the rescale factors into corr;
 //  * VW == 2: folds P v into acc (identical in every lane).
-template <int VW, typename TP>
-__device__ __forceinline__ void softmax_tile(const Geom& g, float* s, TP* p, const int* qlab,
+template <int VW>
+__device__ __forceinline__ void softmax_tile(const Geom& g, float* s, const int* qlab,
                                              const int* klab, const float* v2, int k0,
                                              float (&m)[16], float (&l)[16], float (&corr)[16],
                                              float (&acc)[16][2]) {
@@ -169,13 +583,8 @@ __device__ __forceinline__ void softmax_tile(const Geom& g, float* s, TP* p, con
     m[rr] = m_new;
     l[rr] = l[rr] * corr[rr] + warp_sum(p0 + p1);
     if constexpr (VW == kC) {
-      if constexpr (sizeof(TP) == 2) {
-        p[r * kLdp + lane] = drba::from_f32<bf16>(p0);
-        p[r * kLdp + lane + 32] = drba::from_f32<bf16>(p1);
-      } else {
-        s[r * kLds + lane] = p0;
-        s[r * kLds + lane + 32] = p1;
-      }
+      s[r * kLds + lane] = p0;
+      s[r * kLds + lane + 32] = p1;
     } else {
       const float a0 = warp_sum(p0 * v2[2 * lane] + p1 * v2[2 * (lane + 32)]);
       const float a1 = warp_sum(p0 * v2[2 * lane + 1] + p1 * v2[2 * (lane + 32) + 1]);
@@ -185,31 +594,13 @@ __device__ __forceinline__ void softmax_tile(const Geom& g, float* s, TP* p, con
   }
 }
 
-// write the 2-wide result of this warp's 16 rows (lane rr writes row rr)
-__device__ __forceinline__ void store_narrow(const Geom& g, const Window& win, int q0,
-                                             const float (&l)[16], const float (&acc)[16][2]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* out = static_cast<float*>(g.out);
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    const int i = q0 + warp * 16 + rr;
-    if (lane == rr && i < g.L) {
-      const long long t = token(g, win, win.bq, i) * g.o_stride;
-      out[t] = acc[rr][0] / l[rr];
-      out[t + 1] = acc[rr][1] / l[rr];
-    }
-  }
-}
-
 // keys, values and key labels of tile k0 into shared memory
-template <typename TQ, typename TV, int VW>
-__device__ __forceinline__ void load_kv(const Geom& g, const Window& win, TQ* sK, TV* sV,
+template <int VW>
+__device__ __forceinline__ void load_kv(const Geom& g, const Window& win, float* sK, float* sV,
                                         int* klab, int k0) {
-  load_rows<TQ>(sK, Smem<TQ, VW>::kLd, static_cast<const TQ*>(g.k), g.k_stride, g, win,
-                win.bkv, k0);
+  load_rows(sK, kLdf, static_cast<const float*>(g.k), g.k_stride, g, win, win.bkv, k0);
   if constexpr (VW == kC) {
-    load_rows<TV>(sV, Smem<TQ, VW>::kLd, static_cast<const TV*>(g.v), g.v_stride, g, win,
-                  win.bkv, k0);
+    load_rows(sV, kLdf, static_cast<const float*>(g.v), g.v_stride, g, win, win.bkv, k0);
   } else {
     const float* v = static_cast<const float*>(g.v);
     for (int e = threadIdx.x; e < 64 * 2; e += kThreads) {
@@ -221,128 +612,9 @@ __device__ __forceinline__ void load_kv(const Geom& g, const Window& win, TQ* sK
     klab[threadIdx.x] = k0 + threadIdx.x < g.L ? win.lab[k0 + threadIdx.x] : -1;
 }
 
-// ------------------------------------------------------------------- bf16: WMMA
-
-template <int VW>
-__global__ void __launch_bounds__(kThreads) attn_wmma_kernel(Geom g) {
-  using namespace nvcuda;
-  using SM = Smem<bf16, VW>;
-  using TV = typename std::conditional<VW == kC, bf16, float>::type;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + SM::kTile);
-  TV* sV = reinterpret_cast<TV*>(smem + 2 * SM::kTile);
-  float* sS = reinterpret_cast<float*>(smem + 2 * SM::kTile + SM::kV);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 2 * SM::kTile + SM::kV + SM::kS);
-  float* sO = reinterpret_cast<float*>(smem + 2 * SM::kTile + SM::kV + SM::kS + SM::kP);
-  int* qlab = reinterpret_cast<int*>(smem + 2 * SM::kTile + SM::kV + SM::kS + SM::kP + SM::kO);
-  int* klab = qlab + 64;
-
-  const Window win = window_of(g);
-  const int q0 = blockIdx.y * kQT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  load_rows<bf16>(sQ, kLdh, static_cast<const bf16*>(g.q), g.q_stride, g, win, win.bq, q0);
-  if (g.labels != nullptr && threadIdx.x < kQT)
-    qlab[threadIdx.x] = q0 + threadIdx.x < g.L ? win.lab[q0 + threadIdx.x] : -2;
-  if constexpr (VW == kC)
-    for (int e = threadIdx.x; e < kQT * kLdf; e += kThreads) sO[e] = 0.f;
-
-  float m[16], l[16], corr[16], acc[16][2];
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    m[rr] = kNegInit;
-    l[rr] = 0.f;
-    acc[rr][0] = acc[rr][1] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < g.L; k0 += kKT) {
-    __syncthreads();  // the previous tile's keys and values are no longer read
-    load_kv<bf16, TV, VW>(g, win, sK, sV, klab, k0);
-    __syncthreads();
-
-    // raw scores of this warp's 16 rows: S = Q K^T (K read as a col-major B)
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.f);
-#pragma unroll
-      for (int c = 0; c < kC; c += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sQ + warp * 16 * kLdh + c, kLdh);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, sK + j * 16 * kLdh + c, kLdh);
-          wmma::mma_sync(s[j], a, bk, s[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(sS + warp * 16 * kLds + j * 16, s[j], kLds, wmma::mem_row_major);
-    }
-    __syncwarp();
-    softmax_tile<VW, bf16>(g, sS, sP, qlab, klab, reinterpret_cast<const float*>(sV), k0, m, l,
-                           corr, acc);
-    if constexpr (VW == kC) {
-      // rescale this warp's accumulator rows, then O += P V on tensor cores
-#pragma unroll
-      for (int rr = 0; rr < 16; ++rr) {
-        float4* o = reinterpret_cast<float4*>(sO + (warp * 16 + rr) * kLdf) + lane;
-        float4 t = *o;
-        t.x *= corr[rr];
-        t.y *= corr[rr];
-        t.z *= corr[rr];
-        t.w *= corr[rr];
-        *o = t;
-      }
-      __syncwarp();
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wmma::load_matrix_sync(a[kk], sP + warp * 16 * kLdp + kk * 16, kLdp);
-#pragma unroll
-      for (int j = 0; j < kC / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-        float* optr = sO + warp * 16 * kLdf + j * 16;
-        wmma::load_matrix_sync(o, optr, kLdf, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-          wmma::load_matrix_sync(bv, reinterpret_cast<const bf16*>(sV) + kk * 16 * kLdh + j * 16,
-                                 kLdh);
-          wmma::mma_sync(o, a[kk], bv, o);
-        }
-        wmma::store_matrix_sync(optr, o, kLdf, wmma::mem_row_major);
-      }
-      __syncwarp();
-    }
-  }
-
-  if constexpr (VW == kC) {
-    bf16* out = static_cast<bf16*>(g.out);
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int i = q0 + warp * 16 + rr;
-      if (i >= g.L) continue;
-      const float4 t = reinterpret_cast<const float4*>(sO + (warp * 16 + rr) * kLdf)[lane];
-      const float inv = 1.f / l[rr];
-      bf16* dst = out + token(g, win, win.bq, i) * g.o_stride + 4 * lane;
-      dst[0] = drba::from_f32<bf16>(t.x * inv);
-      dst[1] = drba::from_f32<bf16>(t.y * inv);
-      dst[2] = drba::from_f32<bf16>(t.z * inv);
-      dst[3] = drba::from_f32<bf16>(t.w * inv);
-    }
-  } else {
-    store_narrow(g, win, q0, l, acc);
-  }
-}
-
-// --------------------------------------------------------------------- f32: FMA
-
 template <int VW>
 __global__ void __launch_bounds__(kThreads) attn_fma_kernel(Geom g) {
-  using SM = Smem<float, VW>;
+  using SM = Smem<VW>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
   float* sK = reinterpret_cast<float*>(smem + SM::kTile);
@@ -356,7 +628,7 @@ __global__ void __launch_bounds__(kThreads) attn_fma_kernel(Geom g) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rs = lane >> 1, half = lane & 1;  // score phase: row rs, columns half + 2i
 
-  load_rows<float>(sQ, kLdf, static_cast<const float*>(g.q), g.q_stride, g, win, win.bq, q0);
+  load_rows(sQ, kLdf, static_cast<const float*>(g.q), g.q_stride, g, win, win.bq, q0);
   if (g.labels != nullptr && threadIdx.x < kQT)
     qlab[threadIdx.x] = q0 + threadIdx.x < g.L ? win.lab[q0 + threadIdx.x] : -2;
 
@@ -373,7 +645,7 @@ __global__ void __launch_bounds__(kThreads) attn_fma_kernel(Geom g) {
 
   for (int k0 = 0; k0 < g.L; k0 += kKT) {
     __syncthreads();
-    load_kv<float, float, VW>(g, win, sK, sV, klab, k0);
+    load_kv<VW>(g, win, sK, sV, klab, k0);
     __syncthreads();
 
     {
@@ -396,7 +668,7 @@ __global__ void __launch_bounds__(kThreads) attn_fma_kernel(Geom g) {
       for (int i = 0; i < 32; ++i) sS[(warp * 16 + rs) * kLds + half + 2 * i] = s[i];
     }
     __syncwarp();
-    softmax_tile<VW, float>(g, sS, sS, qlab, klab, sV, k0, m, l, corr, acc);
+    softmax_tile<VW>(g, sS, qlab, klab, sV, k0, m, l, corr, acc);
     if constexpr (VW == kC) {
       __syncwarp();
 #pragma unroll
@@ -432,18 +704,31 @@ __global__ void __launch_bounds__(kThreads) attn_fma_kernel(Geom g) {
           make_float4(o[rr].x * inv, o[rr].y * inv, o[rr].z * inv, o[rr].w * inv);
     }
   } else {
-    store_narrow(g, win, q0, l, acc);
+    // lane rr writes row rr of this warp's 16
+    float* out = static_cast<float*>(g.out);
+#pragma unroll
+    for (int rr = 0; rr < 16; ++rr) {
+      const int i = q0 + warp * 16 + rr;
+      if (lane == rr && i < g.L) {
+        const long long t = token(g, win, win.bq, i) * g.o_stride;
+        out[t] = acc[rr][0] / l[rr];
+        out[t + 1] = acc[rr][1] / l[rr];
+      }
+    }
   }
 }
 
-template <typename K>
-int launch(K kernel, int bytes, const Geom& g, cudaStream_t s) {
-  // above 48 KB only as opted-in dynamic shared memory; set once per kernel
+// Launch over (windows, query tiles of `rows`, key splits); shared memory
+// above 48 KB only as opted-in dynamic shared memory.
+template <typename K, typename... Args>
+int launch(K kernel, int threads, int rows, int bytes, int splits, const Geom& g,
+           cudaStream_t s, Args... args) {
+  if (g.L >= (1 << 21)) return static_cast<int>(cudaErrorInvalidValue);  // see token()
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(g.b * g.kk * g.kk, drba::cdiv(g.L, kQT));
-  kernel<<<grid, kThreads, bytes, s>>>(g);
+  const dim3 grid(g.b * g.kk * g.kk, drba::cdiv(g.L, rows), splits);
+  kernel<<<grid, threads, bytes, s>>>(g, args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -464,23 +749,49 @@ extern "C" int drba_window_attention(const void* q, const void* k, const void* v
   if (b == 0 || h == 0 || w == 0) return 0;
   const Geom g{q, k, v, out, labels, b, h, w, kk, h / kk, w / kk, (h / kk) * (w / kk),
                q_stride, k_stride, v_stride, o_stride, lab_win_stride, lab_b_stride, half,
-               1.f / sqrtf(static_cast<float>(kC))};
+               1.f / sqrtf(static_cast<float>(kC)), 1.f / static_cast<float>(w / kk)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == drba::kBF16) return launch(attn_wmma_kernel<kC>, Smem<bf16, kC>::kBytes, g, s);
-  if (dtype == drba::kF32) return launch(attn_fma_kernel<kC>, Smem<float, kC>::kBytes, g, s);
+  if (dtype == drba::kBF16)
+    return launch(attn_wgmma_kernel<kC>, kWgThreadsAll, kRowsWG, WgSmem<kC>::kBytes, 1, g, s,
+                  Split{nullptr, static_cast<int>(drba::cdiv(g.L, kKT))});
+  if (dtype == drba::kF32)
+    return launch(attn_fma_kernel<kC>, kThreads, kQT, Smem<kC>::kBytes, 1, g, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Flash attention with a 2-wide f32 value: q/k (b, L, 128) contiguous in one
-// dtype (f32|bf16), v (b, L, 2) f32, out (b, L, 2) f32; labels (b, L) int32
-// or NULL. Returns cudaGetLastError().
+// dtype (f32|bf16), v (b, L, 2) f32 (8-byte aligned), out (b, L, 2) f32;
+// labels (b, L) int32 or NULL. bf16 with n_split > 1 splits the keys into
+// n_split runs of cdiv(cdiv(L, 64), n_split) tiles and writes the partials
+// to part (n_split * b * L float4, 16-byte aligned) for drba_flash_combine;
+// f32 takes n_split = 1. Returns cudaGetLastError().
 extern "C" int drba_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                    const int* labels, int b, int L, int dtype, void* stream) {
+                                    const int* labels, int b, int L, int dtype, void* part,
+                                    int n_split, void* stream) {
   if (b == 0 || L == 0) return 0;
+  if (n_split < 1 || (n_split > 1 && (part == nullptr || dtype != drba::kBF16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // every split gets at least one key tile
+  const int tiles = static_cast<int>(drba::cdiv(drba::cdiv(L, kKT), n_split));
+  if (static_cast<int>(drba::cdiv(drba::cdiv(L, kKT), tiles)) != n_split)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{q, k, v, out, labels, b, 1, L, 1, 1, L, L, kC, kC, 2, 2, 0, L, 0,
-               1.f / sqrtf(static_cast<float>(kC))};
+               1.f / sqrtf(static_cast<float>(kC)), 1.f / static_cast<float>(L)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == drba::kBF16) return launch(attn_wmma_kernel<2>, Smem<bf16, 2>::kBytes, g, s);
-  if (dtype == drba::kF32) return launch(attn_fma_kernel<2>, Smem<float, 2>::kBytes, g, s);
+  if (dtype == drba::kBF16)
+    return launch(attn_wgmma_kernel<2>, kWgThreadsAll, kRowsWG, WgSmem<2>::kBytes, n_split, g,
+                  s, Split{n_split > 1 ? static_cast<float4*>(part) : nullptr, tiles});
+  if (dtype == drba::kF32)
+    return launch(attn_fma_kernel<2>, kThreads, kQT, Smem<2>::kBytes, 1, g, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The second launch of a split flash attention: out (rows, 2) f32 from the
+// partials part (n_split, rows) float4 that drba_flash_attention wrote.
+extern "C" int drba_flash_combine(const void* part, void* out, int rows, int n_split,
+                                  void* stream) {
+  if (rows == 0) return 0;
+  flash_combine_kernel<<<drba::cdiv(rows, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(part), static_cast<float*>(out), rows, n_split);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -23,6 +23,11 @@ below any tolerance used here.
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/attention.cu`` (c = 128, float32 or bfloat16); on a CPU tensor they run
 the plain version. ``backend`` is ``auto | torch | cuda`` as elsewhere.
+
+In bf16, flash attention with few query tiles splits the keys over several
+blocks (``flash_split_plan``) and combines their partial softmax states in a
+second launch; ``flash_partials`` and ``flash_combine`` are those two
+launches in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ import torch
 from drba_tpu_torch._build import FLASH, WINDOW, check_cuda_input, dtype_code, stream_of, use_kernel
 
 HEAD_DIM = 128  # the kernels' head width (GMFlow's feature channels)
+TILE = 64  # the kernels' key tile (csrc/attention.cu kKT)
+ROWS = 128  # query rows per block of the bf16 kernel (kRowsWG: two warpgroups of 64)
+MAX_SPLITS = 8
+LOG2E = 1.4426950408889634
 
 
 # ------------------------------------------------------------------------------ plain versions
@@ -82,7 +91,59 @@ def _window_nhwc_plain(q, k, v, k_splits, labels, with_mask):
     return merge_windows(out.reshape(b * kk * kk, wh, ww, c), kk)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def flash_split_plan(b: int, L: int, sms: int) -> tuple[int, int]:
+    """(key splits, key tiles per split) of the bf16 flash kernel.
+
+    A block takes 128 queries. Where the ``b * cdiv(L, 128)`` query blocks
+    are fewer than four per SM of the card, each one's keys are split over
+    up to 8 blocks, every split holding at least one 64-key tile.
+    """
+    k_tiles = _cdiv(L, TILE)
+    n = max(1, min(MAX_SPLITS, k_tiles, _cdiv(4 * sms, b * _cdiv(L, ROWS))))
+    per = _cdiv(k_tiles, n)
+    return _cdiv(k_tiles, per), per
+
+
+def flash_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   dead: torch.Tensor | None, n_split: int, tiles: int) -> torch.Tensor:
+    """The split flash kernel's first launch: for each key split z (key
+    tiles [z * tiles, (z + 1) * tiles)) and query row, the online-softmax
+    state (m, l, acc) over that split's live keys, in the log2 domain and
+    f32. q/k (B, L, c), v (B, L, cv), dead (B or 1, L, L) bool or None ->
+    (n_split, B, L, 2 + cv); m is -1e30 where a split has no live key."""
+    L = q.shape[1]
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * (LOG2E / math.sqrt(q.shape[-1]))
+    if dead is not None:
+        s = s.masked_fill(dead, -math.inf)
+    parts = []
+    for z in range(n_split):
+        keys = slice(z * tiles * TILE, min(L, (z + 1) * tiles * TILE))
+        sz = s[:, :, keys]
+        m = sz.amax(-1, keepdim=True).clamp_min(-1e30)
+        p = torch.exp2(sz - m)  # dead keys: exp2(-inf) = 0
+        parts.append(torch.cat([m, p.sum(-1, keepdim=True),
+                                torch.matmul(p, v[:, keys].float())], dim=-1))
+    return torch.stack(parts)
+
+
+def flash_combine(part: torch.Tensor) -> torch.Tensor:
+    """The split flash kernel's second launch: (n_split, B, L, 2 + cv)
+    partials -> (B, L, cv) f32."""
+    m = part[..., :1]
+    w = torch.exp2(m - m.amax(0))
+    return (part[..., 2:] * w).sum(0) / (part[..., 1:2] * w).sum(0)
+
+
 # ------------------------------------------------------------------------------------ kernels
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=64)
@@ -174,9 +235,21 @@ def _flash_cuda(q, k, v, rid, with_mask):
             raise ValueError(f"rid {tuple(rid.shape)} does not match (B, L) = {(b, L)}")
     for name, t in (("q", q), ("k", k)):
         _check_aligned(name, t, HEAD_DIM)
+    if v.data_ptr() % 8:
+        raise ValueError("v: the flash kernel needs an 8-byte aligned value")
     out = torch.empty((b, L, 2), dtype=torch.float32, device=q.device)
+    n_split = 1
+    if q.dtype == torch.bfloat16:
+        n_split, _ = flash_split_plan(b, L, _sm_count(q.device))
+    part = torch.empty((n_split, b, L, 4), dtype=torch.float32, device=q.device) \
+        if n_split > 1 else None
+    stream = stream_of(q)
     FLASH.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if lab is None else lab.data_ptr(), b, L, dtype_code(q), stream_of(q))
+                 None if lab is None else lab.data_ptr(), b, L, dtype_code(q),
+                 None if part is None else part.data_ptr(), n_split, stream)
+    if part is not None:
+        FLASH.launch(part.data_ptr(), out.data_ptr(), b * L, n_split, stream,
+                     entry="drba_flash_combine")
     return out
 
 

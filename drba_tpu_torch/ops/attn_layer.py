@@ -61,6 +61,25 @@ def _weight(name: str, t: torch.Tensor, like: torch.Tensor, dtype=None) -> torch
     return t
 
 
+def layer_window_attention(qkv: torch.Tensor, k_splits: int, labels=None,
+                           with_mask: bool = False, cross_swap: bool = False) -> torch.Tensor:
+    """The layer's middle launch: window attention straight off the
+    (B, H, W, 3C) q|k|v projection (tokens 3C apart), keys and values from
+    the other batch half with ``cross_swap``. CUDA tensors only; returns
+    (B, H, W, C)."""
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    wh, ww = h // k_splits, w // k_splits
+    lab = None
+    if with_mask:
+        lab = device_labels(np.asarray(labels, np.int32).reshape(k_splits ** 2, wh * ww),
+                            qkv.device)
+    av = torch.empty((b, h, w, c), dtype=qkv.dtype, device=qkv.device)
+    launch_window(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], av, b, h, w, k_splits,
+                  (3 * c, 3 * c, 3 * c, c), lab, (wh * ww, 0), b // 2 if cross_swap else 0)
+    return av
+
+
 def _layer_cuda(x, wqkv, wmerge, norm1, k_splits, labels, with_mask, cross_swap, target, ffn):
     check_cuda_input("x", x, ndim=4)
     b, h, w, c = x.shape
@@ -85,14 +104,7 @@ def _layer_cuda(x, wqkv, wmerge, norm1, k_splits, labels, with_mask, cross_swap,
     LAYER.launch(x.data_ptr(), tgt.data_ptr(), wqkv.data_ptr(), qkv.data_ptr(), m,
                  dtype_code(x), stream, entry="drba_layer_proj")
 
-    wh, ww = h // k_splits, w // k_splits
-    lab = None
-    if with_mask:
-        lab = device_labels(np.asarray(labels, np.int32).reshape(k_splits ** 2, wh * ww),
-                            x.device)
-    av = torch.empty_like(x)
-    launch_window(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], av, b, h, w, k_splits,
-                  (3 * c, 3 * c, 3 * c, c), lab, (wh * ww, 0), b // 2 if cross_swap else 0)
+    av = layer_window_attention(qkv, k_splits, labels, with_mask, cross_swap)
 
     w0 = w2 = g2 = b2 = None
     hidden = 0

@@ -51,11 +51,21 @@ def _sample_pixels(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     return out.to(img.dtype)
 
 
-def _grid(flow: torch.Tensor):
-    h, w = flow.shape[1], flow.shape[2]
-    gx = torch.arange(w, dtype=torch.float32, device=flow.device)[None, None, :]
-    gy = torch.arange(h, dtype=torch.float32, device=flow.device)[None, :, None]
-    return gx, gy
+def sample_positions(flow: torch.Tensor, k: int = 1):
+    """Pixel coordinates (px, py), f32 (N, Ho, Wo), at which a warp by
+    ``flow`` (N, H, W, 2) samples: every pixel for k == 1; for an even k the
+    2x2 taps ``{k*i + k/2 - 1, k*i + k/2}`` per axis of each k x k cell,
+    with the flow read at the taps."""
+    _, h, w, _ = flow.shape
+    ty = torch.arange(h, device=flow.device)
+    tx = torch.arange(w, device=flow.device)
+    if k > 1:
+        ty = ty.reshape(h // k, k)[:, k // 2 - 1:k // 2 + 1].reshape(-1)
+        tx = tx.reshape(w // k, k)[:, k // 2 - 1:k // 2 + 1].reshape(-1)
+        flow = flow[:, ty][:, :, tx]
+    px = tx.float()[None, None, :] + flow[..., 0].float()
+    py = ty.float()[None, :, None] + flow[..., 1].float()
+    return px, py
 
 
 def backwarp(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border",
@@ -68,10 +78,7 @@ def backwarp(img: torch.Tensor, flow: torch.Tensor, padding_mode: str = "border"
         from drba_tpu_torch.ops.warp_cuda import warp_cuda
 
         return warp_cuda(img.contiguous(), flow.contiguous(), 1, padding_mode)
-    gx, gy = _grid(flow)
-    px = gx + flow[..., 0].float()
-    py = gy + flow[..., 1].float()
-    return _sample_pixels(img, px, py, padding_mode)
+    return _sample_pixels(img, *sample_positions(flow), padding_mode)
 
 
 def warp_downsample(img: torch.Tensor, flow: torch.Tensor, k: int,
@@ -92,11 +99,6 @@ def warp_downsample(img: torch.Tensor, flow: torch.Tensor, k: int,
         from drba_tpu_torch.ops.warp_cuda import warp_cuda
 
         return warp_cuda(img.contiguous(), flow.contiguous(), k, padding_mode)
-    ty = torch.arange(h, device=img.device).reshape(h // k, k)[:, k // 2 - 1:k // 2 + 1].reshape(-1)
-    tx = torch.arange(w, device=img.device).reshape(w // k, k)[:, k // 2 - 1:k // 2 + 1].reshape(-1)
-    flow_t = flow[:, ty][:, :, tx]
-    px = tx.float()[None, None, :] + flow_t[..., 0].float()
-    py = ty.float()[None, :, None] + flow_t[..., 1].float()
-    taps = _sample_pixels(img, px, py, padding_mode)
+    taps = _sample_pixels(img, *sample_positions(flow, k), padding_mode)
     v = taps.reshape(n, h // k, 2, w // k, 2, c).float()
     return v.mean(dim=(2, 4)).to(img.dtype)

@@ -171,21 +171,52 @@ def test_window_attention_nhwc_kernel_matches_plain(dev, dtype, masked):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masked", [False, True])
-def test_flash_attention_kernel_matches_plain(dev, dtype, masked):
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_attention_kernel_matches_plain(dev, dtype, masked, b):
     """A 2-wide f32 value of pixel coordinates, as in the global correlation:
-    one grid broadcast over the batch (a non-contiguous view)."""
-    from drba_tpu_torch.ops.attention import flash_attention
+    one grid broadcast over the batch (a non-contiguous view). In bf16 the
+    keys split over several blocks at both batch sizes (L = 1100 gives few
+    query tiles), with the second, combining launch."""
+    from drba_tpu_torch.ops.attention import flash_attention, flash_split_plan
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    q, k, _ = _qkv(gen, (2, 1100, 128), dev, dtype, scale=0.3)
-    v = (torch.rand(1, 1100, 2, generator=gen, device=dev) * 240).expand(2, 1100, 2)
-    rid = torch.randint(0, 3, (2, 1100), generator=gen, device=dev) if masked else None
+    q, k, _ = _qkv(gen, (b, 1100, 128), dev, dtype, scale=0.3)
+    v = (torch.rand(1, 1100, 2, generator=gen, device=dev) * 240).expand(b, 1100, 2)
+    rid = torch.randint(0, 3, (b, 1100), generator=gen, device=dev) if masked else None
+    n_split = 1
+    if dtype == torch.bfloat16:
+        n_split, _ = flash_split_plan(b, 1100, torch.cuda.get_device_properties(dev)
+                                      .multi_processor_count)
+        assert n_split > 1
     n0 = _build.FLASH.launches
     got = flash_attention(q, k, v, rid, masked, out_dtype=torch.float32, backend="cuda")
     want = flash_attention(q, k, v, rid, masked, out_dtype=torch.float32, backend="torch")
-    assert _build.FLASH.launches == n0 + 1
+    assert _build.FLASH.launches == n0 + (2 if n_split > 1 else 1)
     # P.V in f32 on both sides; sums of 1100 terms in another order, at values <= 240
     torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_in_layer_geometry_matches_plain(dev, dtype):
+    """The transformer layer's middle launch at scale 1, (4, 136, 240) k = 8
+    (L = 510, ragged against the 64-key tile): q|k|v interleaved in one
+    (B, H, W, 384) map (token strides 3c, 3c, 3c and c for the output),
+    keys and values from the other batch half (half = 2), shift labels."""
+    from drba_tpu_torch.models.gmflow_net import shift_region_labels
+    from drba_tpu_torch.ops.attention import window_attention_nhwc
+    from drba_tpu_torch.ops.attn_layer import layer_window_attention
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    qkv = torch.randn(4, 136, 240, 384, generator=gen, device=dev).to(dtype)
+    lab = shift_region_labels(136, 240, 8)
+    n0 = _build.WINDOW.launches
+    got = layer_window_attention(qkv, 8, lab, with_mask=True, cross_swap=True)
+    assert _build.WINDOW.launches == n0 + 1
+    q, k, v = qkv.split(128, dim=-1)
+    swap = lambda t: torch.cat([t[2:], t[:2]])
+    want = window_attention_nhwc(q, swap(k), swap(v), 8, lab, True, backend="torch")
+    atol, rtol = _ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -48,7 +48,7 @@ PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain"),
                 "gmfss": ("splat", "warp", "window_attention", "flash_attention",
                           "transformer_layer")}
 # the __global__ functions of drba_tpu_torch/csrc (by name prefix)
-DEVICE_KERNELS = ("splat_kernel", "warp_kernel", "conv3x3_", "attn_wgmma_kernel",
+DEVICE_KERNELS = ("splat_kernel", "warp_", "conv3x3_", "attn_wgmma_kernel",
                   "attn_fma_kernel", "flash_combine_kernel", "layer_proj_kernel",
                   "layer_tail_kernel")
 # the TPU kernel(s) each kernel replaces (function reaching pl.pallas_call)
@@ -62,8 +62,9 @@ REPLACES = {"splat": "drba_tpu/ops/splat_stencil.py:282",
 # why there is none
 LIBRARY = {"splat": "none: no single call scatters with bilinear weights (index_add_ takes "
                     "precomputed indices and weighted values, one call per corner)",
-           "warp": "F.grid_sample on a precomputed normalised grid, at the k = 1 shapes only "
-                   "(full-res C=19 and merge C=3); the tap-averaged k = 2/4/8 warps have none",
+           "warp": "F.grid_sample on a precomputed normalised grid, both directions' images "
+                   "stacked beforehand, at the k = 1 launches only (stage 4 C=19 and the merge "
+                   "C=3); the tap-averaged k = 2/4/8 warps have none",
            "conv_chain": "F.conv2d with bias (cuDNN), without the ResConv epilogue",
            "window_attention": "F.scaled_dot_product_attention on the windows split "
                                "beforehand, boolean mask where masked; fastest backend",
@@ -202,10 +203,10 @@ def phase_kernels(dev):
     import torch.nn.functional as F
 
     from drba_tpu_torch import bounds
-    from drba_tpu_torch.ops.conv_chain import ChainStep, _step_plain, conv3x3_cuda
+    from drba_tpu_torch.ops.conv_chain import _step_plain, chain_step, conv3x3_cuda
     from drba_tpu_torch.ops.softsplat import _splat_plain
     from drba_tpu_torch.ops.splat_cuda import splat_cuda
-    from drba_tpu_torch.ops.warp import backwarp, sample_positions, warp_downsample
+    from drba_tpu_torch.ops.warp import backwarp, backwarp2, sample_positions
     from drba_tpu_torch.ops.warp_cuda import warp_cuda
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -213,10 +214,11 @@ def phase_kernels(dev):
     summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "work": bounds.Work(0.0),
                    "library_ms": None, "library_call": LIBRARY[n]} for n in REPLACES}
 
-    def record(name, err, fn_kernel, fn_plain, iters, dt, work, library=None):
+    def record(name, err, fn_kernel, fn_plain, iters, dt, work, library=None, summed=True):
         """Time kernel and plain version in turns; ``work``: the bounds.Work
         of this call; ``library``: (fn, label) of one PyTorch call computing
-        the same function, or None."""
+        the same function, or None; ``summed``: add the bf16 times to the
+        kernel's summary."""
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         # plain, kernel, kernel, plain: each side timed twice, in turns
@@ -232,7 +234,7 @@ def phase_kernels(dev):
             tl = timed(library[0], iters)
             line += f"   library {tl:.4f} ms ({library[1]}; kernel/library {tk / tl:.2f})"
         print(line)
-        if dt == bf16:  # the summary sums the main path's dtype
+        if dt == bf16 and summed:  # the summary sums the main path's dtype
             s["ms"] += tk
             s["plain_ms"] += tp
             s["work"] = s["work"] + work
@@ -254,55 +256,74 @@ def phase_kernels(dev):
             record("splat", err, lambda: splat_cuda(ten, flow), lambda: _splat_plain(ten, flow),
                    10, dt, bounds.splat_work(s, h, w, c, ten.element_size()))
 
-    # warp: stage-4 full-res warp of image + features (C=19, B=T=3), the
-    # tap-grid warps of stages 1-3 (both directions, B=2T=6), the final merge (C=3)
-    for label, (b, c, k) in {"full-res C=19": (3, 19, 1), "tap k=2 C=19": (6, 19, 2),
-                             "tap k=4 C=19": (6, 19, 4), "tap k=8 C=19": (6, 19, 8),
-                             "merge C=3": (3, 3, 1)}.items():
+    # warp, summed into the kernel's summary: the RIFE path's five launches
+    # of a T=3 window, each warping both directions of the 4-channel flow,
+    # read in place (backwarp2, B = 2T = 6 images): the tap-grid warps of
+    # stages 1-3 (k = 2/4/8, image + features C=19), stage 4 at full
+    # resolution (C=19) and the merge (C=3);
+    # checked and timed, not summed: one direction at the two k = 1 shapes
+    # (backwarp, B = T = 3) and GMFSS's zeros-padded warps (MetricNet C=5 at
+    # 544x960, GMFlow C=128 at 136x240)
+    for label, (b, c, k, two, mode, h, w, summed) in {
+            "tap k=2 C=19": (3, 19, 2, True, "border", H, W, True),
+            "tap k=4 C=19": (3, 19, 4, True, "border", H, W, True),
+            "tap k=8 C=19": (3, 19, 8, True, "border", H, W, True),
+            "stage 4 C=19": (3, 19, 1, True, "border", H, W, True),
+            "merge C=3": (3, 3, 1, True, "border", H, W, True),
+            "one direction C=19": (3, 19, 1, False, "border", H, W, False),
+            "one direction C=3": (3, 3, 1, False, "border", H, W, False),
+            "metricnet zeros C=5": (2, 5, 1, False, "zeros", H // 2, W // 2, False),
+            "gmflow zeros C=128": (2, 128, 1, False, "zeros", H // 8, W // 8, False)}.items():
         for dt in (f32, bf16):
-            img = torch.rand(b, H, W, c, generator=gen, device=dev).to(dt)
-            flow = smooth_flow(gen, b, H, W, 16.0, dev, dt)
-            if k == 1:
-                want = backwarp(img, flow, backend="torch")
+            img = torch.rand(b, h, w, c, generator=gen, device=dev).to(dt)
+            flow = smooth_flow(gen, b, h, w, 16.0, dev, dt)
+            if two:
+                img1 = torch.rand(b, h, w, c, generator=gen, device=dev).to(dt)
+                flow = torch.cat([flow, smooth_flow(gen, b, h, w, 16.0, dev, dt)], dim=-1)
+                kern = lambda: backwarp2(img, img1, flow, k, mode, backend="cuda")
+                plain = lambda: backwarp2(img, img1, flow, k, mode, backend="torch")
+                flows = torch.cat([flow[..., 0:2], flow[..., 2:4]])
             else:
-                want = warp_downsample(img, flow, k, backend="torch")
+                kern = lambda: warp_cuda(img, flow, k, mode)
+                plain = lambda: backwarp(img, flow, mode, backend="torch")
+                flows = flow
             tol = (1e-5, "same f32 arithmetic, FMA contraction") if dt == f32 else \
                 (1e-2, "one bf16 ulp (2^-7) at values <= 1 from the output rounding")
-            err = check_close(f"warp {label} {tuple(img.shape)} {dt}",
-                              warp_cuda(img, flow, k), want, tol[0], 0.0, tol[1])
-            plain = (lambda: backwarp(img, flow, backend="torch")) if k == 1 else \
-                (lambda: warp_downsample(img, flow, k, backend="torch"))
-            px, py = sample_positions(flow, k)
-            work = bounds.warp_work(b, H, W, c, k, img.element_size(),
-                                    bounds.warp_touched(px, py, H, W))
+            err = check_close(f"warp {label} ({flows.shape[0]},{h},{w},{c}) {dt}", kern(),
+                              plain(), tol[0], 0.0, tol[1])
+            px, py = sample_positions(flows, k)
+            work = bounds.warp_work(flows.shape[0], h, w, c, k, img.element_size(),
+                                    bounds.warp_touched(px, py, h, w))
             library = None
             if k == 1:  # grid_sample on the normalised grid of the same positions
-                grid = torch.stack([px * (2 / (W - 1)) - 1, py * (2 / (H - 1)) - 1], -1).to(dt)
-                nchw = img.permute(0, 3, 1, 2)  # the NHWC data, channels_last
-                library = (lambda: F.grid_sample(nchw, grid, mode="bilinear",
-                                                 padding_mode="border", align_corners=True),
-                           "F.grid_sample")
-            record("warp", err, lambda: warp_cuda(img, flow, k), plain, 10, dt, work, library)
+                grid = torch.stack([px * (2 / (w - 1)) - 1, py * (2 / (h - 1)) - 1], -1).to(dt)
+                src = torch.cat([img, img1]) if two else img  # stacked outside the timing
+                nchw = src.permute(0, 3, 1, 2)  # the NHWC data, channels_last
+                library = (lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode=mode,
+                                                 align_corners=True), "F.grid_sample")
+            record("warp", err, kern, plain, 10, dt, work, library, summed)
 
     # conv chain: one ResConv step of each IFNet block at 1080p, N=T=3
-    for c, h, w in ((192, 17, 30), (128, 34, 60), (96, 68, 120), (64, 136, 240),
-                    (32, 272, 480)):
+    # (summed), and block 0 at N=1 as the flow pass of _calc_flow runs it;
+    # weights packed once, as the model packs them
+    for n, c, h, w in ((3, 192, 17, 30), (3, 128, 34, 60), (3, 96, 68, 120),
+                       (3, 64, 136, 240), (3, 32, 272, 480), (1, 192, 17, 30)):
         for dt in (f32, bf16):
             bound = 1.0 / (9 * c) ** 0.5
-            x = (torch.rand(3, h, w, c, generator=gen, device=dev) * 2 - 1).to(dt)
-            st = ChainStep(
-                w=((torch.rand(c, c, 3, 3, generator=gen, device=dev) * 2 - 1) * bound).to(dt),
-                b=((torch.rand(c, generator=gen, device=dev) * 2 - 1) * 0.05).to(dt),
-                beta=(1 + 0.2 * torch.randn(c, generator=gen, device=dev)).to(dt))
+            x = (torch.rand(n, h, w, c, generator=gen, device=dev) * 2 - 1).to(dt)
+            st = chain_step(
+                ((torch.rand(c, c, 3, 3, generator=gen, device=dev) * 2 - 1) * bound).to(dt),
+                ((torch.rand(c, generator=gen, device=dev) * 2 - 1) * 0.05).to(dt),
+                (1 + 0.2 * torch.randn(c, generator=gen, device=dev)).to(dt))
             tol = (1e-4, 0.0, "f32 sums of 9*C terms in another order") if dt == f32 else \
                 (2e-2, 2e-2, "bf16 rounding of conv output and of 3 epilogue ops")
-            err = check_close(f"conv_chain step {tuple(x.shape)} {dt}",
-                              conv3x3_cuda(x, st.w, st.b, st.beta), _step_plain(x, st), *tol)
+            kern = lambda: conv3x3_cuda(x, st.w, st.b, st.beta, st.wp)
+            err = check_close(f"conv_chain step {tuple(x.shape)} {dt}", kern(),
+                              _step_plain(x, st), *tol)
             nchw = x.permute(0, 3, 1, 2)  # the NHWC data, channels_last
-            record("conv_chain", err, lambda: conv3x3_cuda(x, st.w, st.b, st.beta),
-                   lambda: _step_plain(x, st), 10, dt,
-                   bounds.conv3x3_work(3, h, w, c, c, x.element_size()),
-                   (lambda: F.conv2d(nchw, st.w, st.b, padding=1), "F.conv2d (cuDNN)"))
+            record("conv_chain", err, kern, lambda: _step_plain(x, st), 10, dt,
+                   bounds.conv3x3_work(n, h, w, c, c, x.element_size()),
+                   (lambda: F.conv2d(nchw, st.w, st.b, padding=1), "F.conv2d (cuDNN)"), n == 3)
     attention_checks(dev, gen, record)
     return summary
 
@@ -489,9 +510,10 @@ def phase_slice(name, dev):
     from drba_tpu_torch.pipeline import planned_outputs, run_pipeline
 
     model = make_model(name, dev)
-    params = model.params.values() if isinstance(model.params, dict) else \
-        [v for p in model.params for v in p.values()]
-    n_params = sum(v.numel() for v in params)
+    params = model.params.items() if isinstance(model.params, dict) else \
+        [kv for p in model.params for kv in p.items()]
+    # RIFE's packed copies of its ResConv weights are no parameters of their own
+    n_params = sum(v.numel() for k, v in params if not k.endswith(".wp"))
     n_frames = N_FRAMES[name]
     checked = {"frames": 0}
 

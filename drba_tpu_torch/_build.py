@@ -160,8 +160,10 @@ _BUILD_LOCKS: dict = {}
 _BUILD_LOGS: dict = {}
 
 SPLAT = Kernel("splat", "splat.cu", {"drba_splat": [_P, _P, _P] + [_I] * 6 + [_P]})
-WARP = Kernel("warp", "warp.cu", {"drba_warp": [_P, _P, _P] + [_I] * 8 + [_P]})
-CONV = Kernel("conv_chain", "conv_chain.cu", {"drba_conv3x3": [_P] * 5 + [_I] * 6 + [_P]})
+# img0, img1, flow, out; n, h, w, c, k, zeros, flow stride, flow offset 1; 2 dtypes; stream
+WARP = Kernel("warp", "warp.cu", {"drba_warp": [_P] * 4 + [_I] * 10 + [_P]})
+# x, w (OIHW), packed w, bias, beta, out; n, h, w, cin, cout, dtype; stream
+CONV = Kernel("conv_chain", "conv_chain.cu", {"drba_conv3x3": [_P] * 6 + [_I] * 6 + [_P]})
 # q, k, v, out, labels; b, h, w, kk; 4 token strides; 2 label strides; half; dtype; stream
 WINDOW = Kernel("window_attention", "attention.cu",
                 {"drba_window_attention": [_P] * 5 + [_I] * 12 + [_P]})

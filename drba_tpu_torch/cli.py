@@ -3,9 +3,11 @@ for ``-m rife`` and ``-m gmfss``.
 
 Usage:
   python -m drba_tpu_torch.cli -m rife|gmfss -i in.mp4 -o out.mp4 -fps 60 [-t N] \\
-      [-hw] [-scale 1.0] [--fp32] [--exact-drm] [--device cuda]
+      [-hw] [-scale 1.0] [--fp32] [--exact-drm] [--device cuda|cpu]
 
-Scene detection (``-s``) and ``-m gmfss_union`` are not ported yet and raise.
+The models run on the CUDA card; without one the CLI raises unless it is
+given ``--device cpu``. Scene detection (``-s``) and ``-m gmfss_union`` are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import os
 
 import torch
 
-from drba_tpu_torch.config import Config
+from drba_tpu_torch.config import Config, model_device
 from drba_tpu_torch.pipeline import run_pipeline
 
 
@@ -47,9 +49,8 @@ def parse_args(argv=None):
                    help="DRM alignment splats at full resolution (default: half)")
     p.add_argument("--strict", dest="strict", action="store_true",
                    help="fail when a weight file is absent or its keys do not match")
-    p.add_argument("--device", dest="device",
-                   default="cuda" if torch.cuda.is_available() else "cpu",
-                   help="torch device (default: cuda when available)")
+    p.add_argument("--device", dest="device", default="cuda",
+                   help="torch device (default: cuda; raises without a CUDA device)")
     return p.parse_args(argv)
 
 
@@ -77,6 +78,7 @@ def main(argv=None):
                                   f"use -m {' or -m '.join(_MODELS)}")
     if args.enable_scdet:
         raise NotImplementedError("scene detection (-s) is not ported yet")
+    device = model_device(args.device)
     if not os.path.exists(args.input):
         raise FileNotFoundError(f"can't find the video file {args.input}")
 
@@ -87,7 +89,7 @@ def main(argv=None):
     config = Config(compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,
                     flow_scale=args.scale, scdet_threshold=args.scdet_threshold,
                     drm_splat_scale=1.0 if args.exact_drm else 0.5, strict_load=args.strict)
-    model = load_model(args.model_type, args.weights, args.scale, config, args.device)
+    model = load_model(args.model_type, args.weights, args.scale, config, device)
     video_io = VideoFI_IO(args.input, args.output, dst_fps=args.dst_fps, times=args.times,
                           hwaccel=args.hwaccel)
     pbar = tqdm(total=video_io.total_frames_count)

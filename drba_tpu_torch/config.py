@@ -62,3 +62,14 @@ class Config:
 
 F32 = Config(compute_dtype=torch.float32)
 DEFAULT = Config()
+
+
+def model_device(device: str | torch.device) -> torch.device:
+    """The device a model runs on. The models and the CLI default to CUDA;
+    asking for CUDA where PyTorch sees none raises instead of falling back
+    to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available (torch.cuda.is_available() is False); "
+                           "pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    return dev

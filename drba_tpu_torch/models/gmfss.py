@@ -13,7 +13,7 @@ from typing import Sequence
 
 import torch
 
-from drba_tpu_torch.config import DEFAULT, Config
+from drba_tpu_torch.config import DEFAULT, Config, model_device
 from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_gmfss
 from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC
@@ -84,14 +84,15 @@ def _ts_batch(p: GmfssParams, I0, I1, ts, reuse: Reuse, backend="auto"):
 
 
 class GMFSS:
-    """Quality-path model (reference: models/gmfss.py:7-73) on ``device``.
+    """Quality-path model (reference: models/gmfss.py:7-73) on ``device``
+    (CUDA unless the caller asks for another; raises when there is none).
 
     Parameters are cast to ``config.compute_dtype`` once, on the device.
     """
 
     def __init__(self, weights: str | None = None, scale: float = 1.0,
-                 config: Config = DEFAULT, device: str | torch.device = "cpu"):
-        self.device = torch.device(device)
+                 config: Config = DEFAULT, device: str | torch.device = "cuda"):
+        self.device = model_device(device)
         nets = []
         for i, (fname, spec) in enumerate((("flownet.pkl", GMFLOW_SPEC),
                                            ("metric.pkl", METRICNET_SPEC),

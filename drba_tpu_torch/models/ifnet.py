@@ -6,12 +6,14 @@ takes on the CPU (its exact path):
   * ``Head`` encoder: 3 convs + transposed conv, 16 channels;
   * 5 coarse-to-fine IFBlocks (c = 192/128/96/64/32): two stride-2 convs,
     8 ResConvs ``leaky(conv(x) * beta + x)`` run through ``conv_chain``
-    (the hand-written kernel on CUDA, in every block), then the lastconv
-    in its reference form, ConvTranspose2d(4, s2) + PixelShuffle(2);
+    (the hand-written kernel on CUDA, in every block, on weights packed once
+    per model by ``pack_resconv_weights``), then the lastconv in its reference
+    form, ConvTranspose2d(4, s2) + PixelShuffle(2);
   * per stage the images and encoder features of both directions are
-    backward-warped; at an even integer pyramid scale k the warp is
-    evaluated only at the k-fold downsample's tap grid (``warp_downsample``),
-    which equals warping at full resolution and then downsampling;
+    backward-warped in one call (``backwarp2``, one kernel launch); at an
+    even integer pyramid scale k the warp is evaluated only at the k-fold
+    downsample's tap grid, which equals warping at full resolution and then
+    downsampling;
   * a sigmoid-mask merge of the two final warps.
 """
 
@@ -20,10 +22,10 @@ from __future__ import annotations
 import torch
 
 from drba_tpu_torch.models.layers import Params, conv2d, conv_transpose2d, leaky_relu
-from drba_tpu_torch.ops.conv_chain import ChainStep, conv_chain
+from drba_tpu_torch.ops.conv_chain import ChainStep, conv_chain, pack_weights
 from drba_tpu_torch.ops.resize import resize_bilinear
 from drba_tpu_torch.ops.shuffle import pixel_shuffle
-from drba_tpu_torch.ops.warp import backwarp, warp_downsample
+from drba_tpu_torch.ops.warp import backwarp2
 
 BLOCK_CHANNELS = (192, 128, 96, 64, 32)
 BLOCK_IN = (7 + 32, 8 + 4 + 8 + 32, 8 + 4 + 8 + 32, 8 + 4 + 8 + 32, 8 + 4 + 8 + 32)
@@ -67,13 +69,27 @@ def ifnet_encode(p: Params, img: torch.Tensor) -> torch.Tensor:
     return conv_transpose2d(p, "encode.cnn3", leaky_relu(x), stride=2, padding=1)
 
 
-def _resconv_chain(p: Params, b: str, feat: torch.Tensor, conv_backend: str) -> torch.Tensor:
-    """8x ResConv ``leaky(conv(x) * beta + x)`` (IFNet_HDv3.py:12-20,71)."""
-    steps = [ChainStep(w=p[f"{b}.convblock.{j}.conv.weight"].to(feat.dtype),
-                       b=p[f"{b}.convblock.{j}.conv.bias"].to(feat.dtype),
-                       beta=p[f"{b}.convblock.{j}.beta"].to(feat.dtype))
-             for j in range(8)]
-    return conv_chain(feat, steps, backend=conv_backend)
+def pack_resconv_weights(p: Params) -> Params:
+    """``p`` plus every ResConv weight packed for the bf16 conv kernel
+    (ops/conv_chain.pack_weights) under ``{b}.convblock.{j}.conv.wp``: built
+    once, where a model builds its parameters."""
+    out = dict(p)
+    for i in range(len(BLOCK_CHANNELS)):
+        for j in range(8):
+            name = f"block{i}.convblock.{j}.conv"
+            out[f"{name}.wp"] = pack_weights(p[f"{name}.weight"])
+    return out
+
+
+def _resconv_steps(p: Params, b: str, dtype: torch.dtype) -> tuple[ChainStep, ...]:
+    """The 8 ResConvs ``leaky(conv(x) * beta + x)`` of block ``b``
+    (IFNet_HDv3.py:12-20,71) as ChainSteps in ``dtype``, on the weights
+    ``pack_resconv_weights`` packed."""
+    return tuple(ChainStep(w=p[f"{b}.convblock.{j}.conv.weight"].to(dtype),
+                           b=p[f"{b}.convblock.{j}.conv.bias"].to(dtype),
+                           beta=p[f"{b}.convblock.{j}.beta"].to(dtype),
+                           wp=p[f"{b}.convblock.{j}.conv.wp"].to(dtype))
+                 for j in range(8))
 
 
 def ifnet_block(p: Params, idx: int, x: torch.Tensor, flow: torch.Tensor | None,
@@ -83,6 +99,7 @@ def ifnet_block(p: Params, idx: int, x: torch.Tensor, flow: torch.Tensor | None,
 
     ``x_at_scale=True`` means ``x`` is already at the block's working
     resolution; ``out_size`` then gives the full resolution to return to.
+    ``p`` holds the packed ResConv weights (``pack_resconv_weights``).
     Returns (flow (N,H,W,4), mask (N,H,W,1), feat (N,H,W,8)).
     """
     b = f"block{idx}"
@@ -99,7 +116,7 @@ def ifnet_block(p: Params, idx: int, x: torch.Tensor, flow: torch.Tensor | None,
 
     feat = leaky_relu(conv2d(p, f"{b}.conv0.0.0", x, stride=2, padding=1))
     feat = leaky_relu(conv2d(p, f"{b}.conv0.1.0", feat, stride=2, padding=1))
-    feat = _resconv_chain(p, b, feat, conv_backend)
+    feat = conv_chain(feat, _resconv_steps(p, b, feat.dtype), backend=conv_backend)
     tmp = conv_transpose2d(p, f"{b}.lastconv.0", feat, stride=2, padding=1)
     tmp = resize_bilinear(pixel_shuffle(tmp, 2), (h, w))
     return tmp[..., :4] * scale, tmp[..., 4:5], tmp[..., 5:]
@@ -117,7 +134,8 @@ def ifnet_apply(p: Params, img0: torch.Tensor, img1: torch.Tensor, timestep: tor
                 conv_backend: str = "auto"):
     """Full 5-stage inference (IFNet_HDv3.py:126-177).
 
-    ``timestep`` is an (N,H,W,1) map. Returns (merged_frame, flow_list).
+    ``timestep`` is an (N,H,W,1) map; ``p`` holds the packed ResConv weights
+    (``pack_resconv_weights``). Returns (merged_frame, flow_list).
     """
     if f0 is None:
         f0 = ifnet_encode(p, img0[..., :3])
@@ -125,8 +143,12 @@ def ifnet_apply(p: Params, img0: torch.Tensor, img1: torch.Tensor, timestep: tor
         f1 = ifnet_encode(p, img1[..., :3])
 
     h, w = img0.shape[1], img0.shape[2]
+    n = img0.shape[0]
     flow = mask = feat = None
     flow_list = []
+    # image + encoder features of each direction, warped at every stage
+    a = torch.cat([img0[..., :3], f0], dim=-1)
+    bimg = torch.cat([img1[..., :3], f1], dim=-1)
     for i in range(5):
         sc = scale_list[i]
         if flow is None:
@@ -134,30 +156,25 @@ def ifnet_apply(p: Params, img0: torch.Tensor, img1: torch.Tensor, timestep: tor
             flow, mask, feat = ifnet_block(p, i, x, None, sc, conv_backend=conv_backend)
             flow_list.append(flow)
             continue
-        a = torch.cat([img0[..., :3], f0], dim=-1)
-        bimg = torch.cat([img1[..., :3], f1], dim=-1)
         k = _integer_scale(sc, h, w)
         if k is not None and k % 2 == 0:
             # both directions through one tap-grid warp at the block resolution
-            n = img0.shape[0]
-            both = warp_downsample(torch.cat([a, bimg], dim=0),
-                                   torch.cat([flow[..., 0:2], flow[..., 2:4]], dim=0),
-                                   k, backend=warp_backend)
+            both = backwarp2(a, bimg, flow, k, backend=warp_backend)
             w0, w1 = both[:n], both[n:]
             rest = resize_bilinear(torch.cat([timestep, mask, feat], dim=-1), (h // k, w // k))
             x = torch.cat([w0[..., :3], w1[..., :3], w0[..., 3:], w1[..., 3:], rest], dim=-1)
             fd, mask, feat = ifnet_block(p, i, x, flow, sc, x_at_scale=True, out_size=(h, w),
                                          conv_backend=conv_backend)
         else:
-            wf0 = backwarp(a, flow[..., 0:2], backend=warp_backend)
-            wf1 = backwarp(bimg, flow[..., 2:4], backend=warp_backend)
+            both = backwarp2(a, bimg, flow, backend=warp_backend)
+            wf0, wf1 = both[:n], both[n:]
             x = torch.cat([wf0[..., :3], wf1[..., :3], wf0[..., 3:], wf1[..., 3:], timestep,
                            mask, feat], dim=-1)
             fd, mask, feat = ifnet_block(p, i, x, flow, sc, conv_backend=conv_backend)
         flow = flow + fd
         flow_list.append(flow)
 
-    warped0 = backwarp(img0, flow[..., 0:2], backend=warp_backend)
-    warped1 = backwarp(img1, flow[..., 2:4], backend=warp_backend)
+    both = backwarp2(img0, img1, flow, backend=warp_backend)
+    warped0, warped1 = both[:n], both[n:]
     m = torch.sigmoid(mask.float()).to(img0.dtype)
     return warped0 * m + warped1 * (1 - m), flow_list

@@ -18,10 +18,11 @@ from typing import Sequence
 
 import torch
 
-from drba_tpu_torch.config import DEFAULT, Config
+from drba_tpu_torch.config import DEFAULT, Config, model_device
 from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_rife
-from drba_tpu_torch.models.ifnet import IFNET_SPEC, ifnet_apply, ifnet_block, ifnet_encode
+from drba_tpu_torch.models.ifnet import (IFNET_SPEC, ifnet_apply, ifnet_block, ifnet_encode,
+                                         pack_resconv_weights)
 from drba_tpu_torch.ops import softsplat
 
 
@@ -111,17 +112,20 @@ def _ts_batch(params, I0, I1, ts, scale_list, warp_backend="auto", conv_backend=
 
 
 class RIFE:
-    """Speed-path model (reference: models/rife.py:15-109) on ``device``.
+    """Speed-path model (reference: models/rife.py:15-109) on ``device``
+    (CUDA unless the caller asks for another; raises when there is none).
 
-    Parameters are cast to ``config.compute_dtype`` once, on the device.
+    Parameters are cast to ``config.compute_dtype`` once, on the device; the
+    ResConv chains' weights are packed for the conv kernel once, here.
     """
 
     def __init__(self, weights: str | None = None, scale: float = 1.0,
-                 config: Config = DEFAULT, device: str | torch.device = "cpu"):
-        self.device = torch.device(device)
+                 config: Config = DEFAULT, device: str | torch.device = "cuda"):
+        self.device = model_device(device)
         params = load_network(weights, "flownet.pkl", IFNET_SPEC, seed=config.seed,
                               strict=config.strict_load)
-        self.params = {k: v.to(self.device, config.compute_dtype) for k, v in params.items()}
+        self.params = pack_resconv_weights(
+            {k: v.to(self.device, config.compute_dtype) for k, v in params.items()})
         self.scale = scale
         self.scale_list = tuple(s / scale for s in (16.0, 8.0, 4.0, 2.0, 1.0))
         self.pad_size = 64

@@ -9,7 +9,7 @@ from drba_tpu_torch.ops.distance import flow_distance
 from drba_tpu_torch.ops.resize import resize_bilinear, resize_to
 from drba_tpu_torch.ops.shuffle import conv_transpose2d, pixel_shuffle
 from drba_tpu_torch.ops.softsplat import softsplat, splat
-from drba_tpu_torch.ops.warp import backwarp, warp_downsample
+from drba_tpu_torch.ops.warp import backwarp, backwarp2, warp_downsample
 
 __all__ = [
     "ChainStep",
@@ -22,5 +22,6 @@ __all__ = [
     "softsplat",
     "splat",
     "backwarp",
+    "backwarp2",
     "warp_downsample",
 ]

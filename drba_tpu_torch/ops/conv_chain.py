@@ -9,7 +9,9 @@ ported.
 
 ``conv_chain(x, steps)`` runs one hand-written kernel launch per step
 (csrc/conv_chain.cu) for CUDA tensors, and chained ``F.conv2d`` calls with the
-same epilogues for CPU tensors (or ``backend='torch'``).
+same epilogues for CPU tensors (or ``backend='torch'``). The bf16 kernel reads
+its weights packed by ``pack_weights``, once, where a model builds its
+parameters (models/ifnet.pack_resconv_weights; ``chain_step`` elsewhere).
 """
 
 from __future__ import annotations
@@ -26,12 +28,57 @@ class ChainStep(NamedTuple):
     """One conv of the chain: ``y = conv3x3(x) + b``, then with ``beta`` the
     ResConv epilogue ``y = leaky_relu(y * beta + x, 0.2)``.
 
-    w: (Cout, Cin, 3, 3) PyTorch layout; b, beta: (Cout,).
+    w: (Cout, Cin, 3, 3) PyTorch layout; b, beta: (Cout,); wp: ``w`` packed
+    for the bf16 kernel (``pack_weights``), which needs it.
     """
 
     w: torch.Tensor
     b: torch.Tensor
     beta: torch.Tensor | None = None
+    wp: torch.Tensor | None = None
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> (ceil(Cin/16), 9, Cout, 16), zero past Cin.
+
+    The bf16 kernel's B layout: K chunk g holds input channels [16 g,
+    16 g + 16) of every (tap, output channel) as one contiguous 32-byte row,
+    taps in raster order (ky, kx).
+    """
+    cout, cin = w.shape[:2]
+    cin_pad = -(-cin // 16) * 16
+    wp = w.new_zeros((cout, cin_pad, 3, 3))
+    wp[:, :cin] = w
+    return wp.reshape(cout, cin_pad // 16, 16, 9).permute(1, 3, 0, 2).contiguous()
+
+
+def unpack_weights(wp: torch.Tensor, cin: int) -> torch.Tensor:
+    """The inverse of ``pack_weights``: (ceil(Cin/16), 9, Cout, 16) -> (Cout, Cin, 3, 3)."""
+    chunks, _, cout, _ = wp.shape
+    return wp.permute(2, 0, 3, 1).reshape(cout, chunks * 16, 3, 3)[:, :cin].contiguous()
+
+
+def conv3x3_packed_plain(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """conv3x3(x) + b (NHWC, pad 1) computed from the packed weights as the
+    kernel's implicit GEMM does: per K chunk and tap, the shifted input window
+    times that chunk's (Cout, 16) slice, summed in f32."""
+    n, h, w, cin = x.shape
+    chunks = wp.shape[0]
+    xp = torch.zeros((n, h + 2, w + 2, chunks * 16), dtype=torch.float32, device=x.device)
+    xp[:, 1:h + 1, 1:w + 1, :cin] = x.float()
+    acc = torch.zeros((n, h, w, wp.shape[2]), dtype=torch.float32, device=x.device)
+    for g in range(chunks):
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            win = xp[:, dy:dy + h, dx:dx + w, 16 * g:16 * g + 16]
+            acc = acc + win @ wp[g, tap].float().t()
+    return (acc + b.float()).to(x.dtype)
+
+
+def chain_step(w: torch.Tensor, b: torch.Tensor,
+               beta: torch.Tensor | None = None) -> ChainStep:
+    """A ChainStep with its weights packed once for the bf16 kernel."""
+    return ChainStep(w=w, b=b, beta=beta, wp=pack_weights(w))
 
 
 def _step_plain(x: torch.Tensor, s: ChainStep) -> torch.Tensor:
@@ -42,13 +89,19 @@ def _step_plain(x: torch.Tensor, s: ChainStep) -> torch.Tensor:
 
 
 def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 beta: torch.Tensor | None = None) -> torch.Tensor:
-    """One chain step on the kernel: x (N,H,W,Cin) -> (N,H,W,Cout), all one dtype."""
+                 beta: torch.Tensor | None = None,
+                 wp: torch.Tensor | None = None) -> torch.Tensor:
+    """One chain step on the kernel: x (N,H,W,Cin) -> (N,H,W,Cout), all one
+    dtype. bf16 reads ``wp`` (``pack_weights(w)``), f32 reads ``w``."""
     check_cuda_input("x", x, ndim=4)
     n, h, wd, cin = x.shape
     cout = w.shape[0]
+    if x.dtype == torch.bfloat16 and wp is None:
+        raise ValueError("the bf16 conv kernel reads packed weights: pass wp=pack_weights(w) "
+                         "(ChainSteps from chain_step hold them)")
+    packed = (-(-cin // 16), 9, cout, 16)
     for name, t, shape in (("w", w, (cout, cin, 3, 3)), ("b", b, (cout,)),
-                           ("beta", beta, (cout,))):
+                           ("beta", beta, (cout,)), ("wp", wp, packed)):
         if t is None:
             continue
         check_cuda_input(name, t, dtypes=(x.dtype,))
@@ -58,7 +111,7 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if beta is not None and cin != cout:
         raise ValueError(f"the ResConv epilogue needs Cin == Cout, got {cin} -> {cout}")
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    CONV.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+    CONV.launch(x.data_ptr(), w.data_ptr(), None if wp is None else wp.data_ptr(), b.data_ptr(),
                 None if beta is None else beta.data_ptr(), out.data_ptr(),
                 n, h, wd, cin, cout, dtype_code(x), stream_of(x))
     return out
@@ -71,7 +124,8 @@ def conv_chain(x: torch.Tensor, steps: Sequence[ChainStep],
         x = x.contiguous()
         for s in steps:
             x = conv3x3_cuda(x, s.w.contiguous(), s.b.contiguous(),
-                             None if s.beta is None else s.beta.contiguous())
+                             None if s.beta is None else s.beta.contiguous(),
+                             None if s.wp is None else s.wp.contiguous())
         return x
     for s in steps:
         x = _step_plain(x, s)

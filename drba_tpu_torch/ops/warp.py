@@ -6,9 +6,9 @@ differently). Bilinear corners are summed in f32 in the order (0,0), (0,1),
 (1,0), (1,1); 'border' clamps corner indices, 'zeros' zeroes the weights of
 out-of-frame corners.
 
-``backwarp`` and ``warp_downsample`` dispatch between the plain PyTorch
-version here and the hand-written kernel (ops/warp_cuda.py) by ``backend``
-(``auto | torch | cuda``, see drba_tpu_torch/config.py).
+``backwarp``, ``warp_downsample`` and ``backwarp2`` dispatch between the
+plain PyTorch version here and the hand-written kernel (ops/warp_cuda.py) by
+``backend`` (``auto | torch | cuda``, see drba_tpu_torch/config.py).
 """
 
 from __future__ import annotations
@@ -102,3 +102,27 @@ def warp_downsample(img: torch.Tensor, flow: torch.Tensor, k: int,
     taps = _sample_pixels(img, *sample_positions(flow, k), padding_mode)
     v = taps.reshape(n, h // k, 2, w // k, 2, c).float()
     return v.mean(dim=(2, 4)).to(img.dtype)
+
+
+def backwarp2(a: torch.Tensor, b: torch.Tensor, flow4: torch.Tensor, k: int = 1,
+              padding_mode: str = "border", backend: str = "auto") -> torch.Tensor:
+    """Both directions of IFNet's warp in one call: ``a`` by ``flow4[..., 0:2]``
+    and ``b`` by ``flow4[..., 2:4]`` (``backwarp`` for k == 1, else
+    ``warp_downsample`` by k), stacked as (2N, H/k, W/k, C), ``a``'s first.
+
+    The kernel reads ``a``, ``b`` and the (N, H, W, 4) flow where they lie,
+    in one launch, without concatenating them (the JAX package stacks the
+    two directions into one launch: drba_tpu/models/ifnet.py:163-176).
+    """
+    if use_kernel(backend, a):
+        from drba_tpu_torch.ops.warp_cuda import warp_cuda
+
+        return warp_cuda(a.contiguous(), flow4.contiguous(), k, padding_mode,
+                         img1=b.contiguous())
+    if k == 1:
+        halves = [backwarp(img, f, padding_mode, "torch")
+                  for img, f in ((a, flow4[..., 0:2]), (b, flow4[..., 2:4]))]
+    else:
+        halves = [warp_downsample(img, f, k, padding_mode, "torch")
+                  for img, f in ((a, flow4[..., 0:2]), (b, flow4[..., 2:4]))]
+    return torch.cat(halves, dim=0)

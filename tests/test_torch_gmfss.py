@@ -88,7 +88,7 @@ def _params(name, seed):
 
 @pytest.fixture(scope="module")
 def models():
-    return JaxGMFSS(weights=None, config=JAX_F32), GMFSS(config=F32)
+    return JaxGMFSS(weights=None, config=JAX_F32), GMFSS(config=F32, device="cpu")
 
 
 # ------------------------------------------------------------------------- specs and weights
@@ -344,7 +344,7 @@ def test_gmfss_cuda_attention_on_cpu_tensors_raises():
     """``attn_backend='cuda'`` never falls back to the plain attention."""
     from drba_tpu_torch import _build
 
-    m = GMFSS(config=F32.replace(attn_backend="cuda"))
+    m = GMFSS(config=F32.replace(attn_backend="cuda"), device="cpu")
     launches = _build.counts()
     fr = _frames(2)
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -58,7 +58,7 @@ def test_run_pipeline_gmfss_matches_jax():
 
     jio, tio = _FakeIO(_u8_frames(5)), _FakeIO(_u8_frames(5))
     jstats = jax_run(JaxGMFSS(weights=None, config=JAX_F32), jio)
-    stats = run_pipeline(GMFSS(config=F32), tio)
+    stats = run_pipeline(GMFSS(config=F32, device="cpu"), tio)
     assert stats.frames_out == jstats.frames_out == planned_outputs(5, 24.0, 60.0) == 13
     assert (stats.frames_in, stats.windows) == (jstats.frames_in, jstats.windows)
     for g, w in zip(tio.written, jio.written):

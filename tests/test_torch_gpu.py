@@ -14,9 +14,9 @@ import torch
 import torch.nn.functional as F
 
 from drba_tpu_torch import _build
-from drba_tpu_torch.ops.conv_chain import ChainStep, conv_chain
+from drba_tpu_torch.ops.conv_chain import chain_step, conv_chain
 from drba_tpu_torch.ops.softsplat import softsplat
-from drba_tpu_torch.ops.warp import backwarp, warp_downsample
+from drba_tpu_torch.ops.warp import backwarp, backwarp2, warp_downsample
 
 pytestmark = pytest.mark.gpu
 
@@ -71,28 +71,66 @@ def test_warp_kernel_matches_plain(dev, dtype, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 16, 19, 128])
+def test_warp2_kernel_matches_plain(dev, dtype, c):
+    """Both directions of a 4-channel flow in one launch, read in place (a
+    non-contiguous flow view is made contiguous by the wrapper only), at
+    W = 72 (no multiple of 32), flows reaching past the frame edge."""
+    gen = torch.Generator(device=dev).manual_seed(10 + c)
+    a, b = (torch.rand(2, 40, 72, c, generator=gen, device=dev).to(dtype) for _ in range(2))
+    flow = torch.cat([_flow(gen, 2, 40, 72, 25.0, dev) for _ in range(2)], dim=-1).to(dtype)
+    for k in (1, 2, 4, 8):
+        for mode in ("border", "zeros"):
+            n0 = _build.WARP.launches
+            got = backwarp2(a, b, flow, k, mode, backend="cuda")
+            assert _build.WARP.launches == n0 + 1
+            want = backwarp2(a, b, flow, k, mode, backend="torch")
+            # same f32 arithmetic up to FMA contraction; in bf16 one output ulp
+            tol = 1e-5 if dtype == torch.float32 else 8e-3
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0,
+                                       msg=lambda m: f"k={k} {mode}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 3])
 @pytest.mark.parametrize("cin,cout,beta", [(32, 32, True), (64, 64, True), (96, 96, True),
-                                           (128, 128, True), (192, 192, True), (24, 40, False)])
-def test_conv_chain_kernel_matches_plain(dev, dtype, cin, cout, beta):
-    """IFNet's ResConv widths, and a bias-only step at widths that are not
-    multiples of the kernel's channel tiles."""
+                                           (128, 128, True), (192, 192, True), (24, 40, False),
+                                           (19, 40, False)])
+def test_conv_chain_kernel_matches_plain(dev, dtype, n, cin, cout, beta):
+    """IFNet's ResConv widths at N = 1 and 3 on a 19 x 37 map (no multiple
+    of the 16-column tile or its rows), and bias-only steps at widths that
+    are not multiples of the kernel's channel tiles (Cin = 19: staged
+    without cp.async); weights packed once per step (``chain_step``)."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    x = (torch.rand(2, 19, 37, cin, generator=gen, device=dev) * 2 - 1).to(dtype)
+    x = (torch.rand(n, 19, 37, cin, generator=gen, device=dev) * 2 - 1).to(dtype)
     bound = 1.0 / (9 * cin) ** 0.5
     steps, c = [], cin
     for _ in range(2 if beta else 1):
-        steps.append(ChainStep(
-            w=((torch.rand(cout, c, 3, 3, generator=gen, device=dev) * 2 - 1) * bound).to(dtype),
-            b=((torch.rand(cout, generator=gen, device=dev) * 2 - 1) * 0.05).to(dtype),
-            beta=(1 + 0.2 * torch.randn(cout, generator=gen, device=dev)).to(dtype)
-            if beta else None))
+        args = (((torch.rand(cout, c, 3, 3, generator=gen, device=dev) * 2 - 1) * bound).to(dtype),
+                ((torch.rand(cout, generator=gen, device=dev) * 2 - 1) * 0.05).to(dtype),
+                (1 + 0.2 * torch.randn(cout, generator=gen, device=dev)).to(dtype)
+                if beta else None)
+        steps.append(chain_step(*args))
         c = cout
+    n0 = _build.CONV.launches
     got = conv_chain(x, steps, backend="cuda")
+    assert _build.CONV.launches == n0 + len(steps)
     want = conv_chain(x, steps, backend="torch")
     # f32: sums of 9*C products in another order; bf16: the conv output and
     # three epilogue ops round to bf16 on both sides, at possibly other ulps
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_conv_kernel_bf16_without_packed_weights_raises(dev):
+    from drba_tpu_torch.ops.conv_chain import conv3x3_cuda
+
+    x = torch.zeros(1, 4, 4, 16, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(16, 16, 3, 3, dtype=torch.bfloat16, device=dev)
+    n0 = _build.CONV.launches
+    with pytest.raises(ValueError, match="packed weights"):
+        conv3x3_cuda(x, w, torch.zeros(16, dtype=torch.bfloat16, device=dev))
+    assert _build.CONV.launches == n0
 
 
 def test_rife_1080p_window_kernel_path_matches_plain(dev):
@@ -110,9 +148,14 @@ def test_rife_1080p_window_kernel_path_matches_plain(dev):
                                         conv_backend="torch"), device=dev)
         frames = [f.to(cfg.compute_dtype) for f in fr]
         before = _build.counts()
-        got, _ = m.inference_ts_drba(*frames, [0.7, 1.1], None, linear=True)
+        got, reuse = m.inference_ts_drba(*frames, [0.7, 1.1], None, linear=True)
         after = _build.counts()
         assert all(after[k] > before[k] for k in ("splat", "warp", "conv_chain"))
+        # a T=3 window with the reuse chained: both directions of every stage
+        # and of the merge in one launch each, 5 warp launches in all
+        w0 = _build.WARP.launches
+        m.inference_ts_drba(*frames, [0.6, 1.0, 1.4], reuse, linear=True)
+        assert _build.WARP.launches - w0 == 5
         want, _ = plain.inference_ts_drba(*frames, [0.7, 1.1], None, linear=True)
         for g, w in zip(got, want):
             assert tuple(g.shape) == (1, 1088, 1920, 3) and bool(torch.isfinite(g).all())

@@ -63,7 +63,7 @@ def _frames(n, h=H, w=W, step=3):
 
 @pytest.fixture(scope="module")
 def models():
-    return JaxRIFE(weights=None, scale=1.0, config=JAX_F32), RIFE(weights=None, config=F32)
+    return JaxRIFE(weights=None, scale=1.0, config=JAX_F32), RIFE(weights=None, config=F32, device="cpu")
 
 
 # ---------------------------------------------------------------------------------------- drm

@@ -15,6 +15,8 @@ Phases (any failure exits non-zero and prints no result):
      stated beside each check; times both with CUDA events, beside the
      kernel's bound (drba_tpu_torch/bounds.py) and, where one PyTorch call
      computes the same function, that call's time (used nowhere in the port);
+     the splat as the paths' six softsplat calls (scatter and normalise
+     launches), the layer's projection, window and tail also timed apart;
   4. slices: ``run_pipeline`` on synthetic 1088x1920 frames at 24 -> 60 fps in
      bf16, with a seed-0 random-weight RIFE (IFNet 4.26-heavy, full width) and
      then a seed-0 GMFSS (GMFlow, MetricNet, FeatureNet, GridNet, full width);
@@ -48,9 +50,8 @@ PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain"),
                 "gmfss": ("splat", "warp", "window_attention", "flash_attention",
                           "transformer_layer")}
 # the __global__ functions of drba_tpu_torch/csrc (by name prefix)
-DEVICE_KERNELS = ("splat_kernel", "warp_", "conv3x3_", "attn_wgmma_kernel",
-                  "attn_fma_kernel", "flash_combine_kernel", "layer_proj_kernel",
-                  "layer_tail_kernel")
+DEVICE_KERNELS = ("splat_", "warp_", "conv3x3_", "attn_wgmma_kernel",
+                  "attn_fma_kernel", "flash_combine_kernel", "layer_proj_", "layer_tail_")
 # the TPU kernel(s) each kernel replaces (function reaching pl.pallas_call)
 REPLACES = {"splat": "drba_tpu/ops/splat_stencil.py:282",
             "warp": "drba_tpu/ops/warp_mxu.py:265",
@@ -60,8 +61,9 @@ REPLACES = {"splat": "drba_tpu/ops/splat_stencil.py:282",
             "transformer_layer": "drba_tpu/ops/attn_layer.py:176"}
 # the one PyTorch call timed beside each kernel (used nowhere in the port), or
 # why there is none
-LIBRARY = {"splat": "none: no single call scatters with bilinear weights (index_add_ takes "
-                    "precomputed indices and weighted values, one call per corner)",
+LIBRARY = {"splat": "none: no single call scatters with bilinear weights and normalises "
+                    "(index_add_ takes precomputed indices and weighted values, one call per "
+                    "corner)",
            "warp": "F.grid_sample on a precomputed normalised grid, both directions' images "
                    "stacked beforehand, at the k = 1 launches only (stage 4 C=19 and the merge "
                    "C=3); the tap-averaged k = 2/4/8 warps have none",
@@ -204,8 +206,7 @@ def phase_kernels(dev):
 
     from drba_tpu_torch import bounds
     from drba_tpu_torch.ops.conv_chain import _step_plain, chain_step, conv3x3_cuda
-    from drba_tpu_torch.ops.softsplat import _splat_plain
-    from drba_tpu_torch.ops.splat_cuda import splat_cuda
+    from drba_tpu_torch.ops.softsplat import softsplat
     from drba_tpu_torch.ops.warp import backwarp, backwarp2, sample_positions
     from drba_tpu_torch.ops.warp_cuda import warp_cuda
 
@@ -242,19 +243,41 @@ def phase_kernels(dev):
                 s["library_ms"] = (s["library_ms"] or 0.0) + tl
 
     print("kernels vs plain PyTorch (1080p RIFE and GMFSS path shapes):")
-    # splat: flow inversion (S=2, [flow, 1] planes at full res) and the DRM
-    # alignment (S=2T=6, [drm, 1] planes at half res); f32 accumulation on both
-    # sides, so only the order of the atomic additions differs
-    for label, (s, c, h, w, mag) in {"flow inversion": (2, 3, H, W, 24.0),
-                                     "drm alignment": (6, 2, H // 2, W // 2, 12.0)}.items():
-        for dt in (f32, bf16):
-            ten = torch.rand(s, h, w, c, generator=gen, device=dev).to(dt)
-            flow = smooth_flow(gen, s, h, w, mag, dev, dt)
-            err = check_close(f"splat {label} {tuple(ten.shape)} {dt}", splat_cuda(ten, flow),
-                              _splat_plain(ten, flow), 1e-4, 1e-5,
-                              "f32 sums of <= ~10 terms in another order")
-            record("splat", err, lambda: splat_cuda(ten, flow), lambda: _splat_plain(ten, flow),
-                   10, dt, bounds.splat_work(s, h, w, c, ten.element_size()))
+    # splat: the path's softsplat calls of a T=3 window, each a scatter and a
+    # normalise launch: RIFE's flow inversion (both directions' flows splat
+    # themselves, full res) and DRM alignment (f32 maps along an f32 flow,
+    # half res); GMFSS's three soft splats (image + features, both
+    # directions, B = 2T) and its DRM alignment (f32 maps, bf16 flow and
+    # metric, quarter res). Each in f32 and in the path's dtypes (summed).
+    for label, (n, c, h, w, mag, main, cov, path_dt) in {
+            "rife flow inversion": (2, 2, H, W, 24.0, "avg", True, (bf16, bf16, None)),
+            "rife drm alignment": (6, 1, H // 2, W // 2, 12.0, "avg", True, (f32, f32, None)),
+            "gmfss soft level 0": (6, 67, H // 2, W // 2, 12.0, "soft", True, (bf16,) * 3),
+            "gmfss soft level 1": (6, 128, H // 4, W // 4, 6.0, "soft", False, (bf16,) * 3),
+            "gmfss soft level 2": (6, 192, H // 8, W // 8, 3.0, "soft", False, (bf16,) * 3),
+            "gmfss drm alignment": (6, 1, H // 4, W // 4, 6.0, "soft", True,
+                                    (f32, bf16, bf16))}.items():
+        for variant, (vdt, fdt, mdt) in (("f32", (f32, f32, f32)), ("path dtypes", path_dt)):
+            flow = smooth_flow(gen, n, h, w, mag, dev, fdt)
+            ten = flow if label == "rife flow inversion" else \
+                torch.rand(n, h, w, c, generator=gen, device=dev).to(vdt)
+            metric = None
+            if main == "soft":
+                metric = (torch.randn(n, h, w, 1, generator=gen, device=dev) * 0.5).to(mdt)
+            kern = lambda: softsplat(ten, flow, metric, main, backend="cuda", return_coverage=cov)
+            plain = lambda: softsplat(ten, flow, metric, main, backend="torch",
+                                      return_coverage=cov)
+            got, want = kern(), plain()
+            tol = (1e-4, 1e-5, "f32 sums of <= ~10 terms in another order, divided alike") \
+                if ten.dtype == f32 else (1e-2, 8e-3, "one bf16 output ulp (2^-8 relative)")
+            err = 0.0
+            for part, g, wt in zip(("result", "coverage"), got if cov else [got],
+                                   want if cov else [want]):
+                err = max(err, check_close(f"splat {label} {part} ({n},{h},{w},{c}) "
+                                           f"{variant}", g, wt, *tol))
+            work = bounds.splat_work(n, h, w, c, ten.element_size(), flow.element_size(),
+                                     0 if metric is None else metric.element_size(), cov)
+            record("splat", err, kern, plain, 10, f32 if variant == "f32" else bf16, work)
 
     # warp, summed into the kernel's summary: the RIFE path's five launches
     # of a T=3 window, each warping both directions of the 4-channel flow,
@@ -337,12 +360,13 @@ def attention_checks(dev, gen, record):
 
     from drba_tpu_torch import bounds
     from drba_tpu_torch.convert import from_jax_params
-    from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, shift_region_labels
+    from drba_tpu_torch.models.gmflow_net import (GMFLOW_SPEC, pack_transformer_weights,
+                                                  shift_region_labels)
     from drba_tpu_torch.models.layers import init_from_spec
     from drba_tpu_torch.ops.attention import (flash_attention, split_windows, window_attention,
                                               window_attention_nhwc)
-    from drba_tpu_torch.ops.attn_layer import (layer_weights, layer_window_attention,
-                                               transformer_layer)
+    from drba_tpu_torch.ops.attn_layer import (layer_proj_cuda, layer_tail_cuda, layer_weights,
+                                               layer_window_attention, transformer_layer)
 
     f32, bf16 = torch.float32, torch.bfloat16
 
@@ -462,20 +486,23 @@ def attention_checks(dev, gen, record):
 
     # transformer layers: scale 1 (4, 136, 240, 128) k = 8 (windows 17x30,
     # L = 510) and scale 0 (2, 68, 120, 128) k = 2; a self layer (no FFN,
-    # unmasked) and a cross layer (FFN, shift mask, batch-half swap, target)
+    # unmasked) and a cross layer (FFN, shift mask, batch-half swap, target);
+    # weights packed once, as GMFSS packs them
     params = from_jax_params(init_from_spec(GMFLOW_SPEC, seed=0), GMFLOW_SPEC)
+    packed = {dt: pack_transformer_weights({kk: vv.to(dev, dt) for kk, vv in params.items()})
+              for dt in (f32, bf16)}
     for (b, h, w, ks) in ((4, 136, 240, 8), (2, 68, 120, 2)):
         lab = shift_region_labels(h, w, ks)
         for cross in (False, True):
             base = f"transformer.layers.1.{'cross_attn_ffn' if cross else 'self_attn'}"
             for dt in (f32, bf16):
-                p = {kk: vv.to(dev, dt) for kk, vv in params.items()}
-                wqkv, wm, norm1, ffn = layer_weights(p, base, cross)
+                wt = layer_weights(packed[dt], base, cross)
+                ffn = wt.ffn
                 x, tgt = (randn(b, h, w, 128, scale=0.5).to(dt) for _ in range(2))
                 kw = dict(labels=lab, with_mask=cross, cross_swap=cross,
-                          target=tgt if cross else None, ffn=ffn)
-                kern = lambda: transformer_layer(x, wqkv, wm, norm1, ks, backend="cuda", **kw)
-                plain = lambda: transformer_layer(x, wqkv, wm, norm1, ks, backend="torch", **kw)
+                          target=tgt if cross else None)
+                kern = lambda: transformer_layer(x, wt, ks, backend="cuda", **kw)
+                plain = lambda: transformer_layer(x, wt, ks, backend="torch", **kw)
                 tol = (1e-4, 1e-4, "f32 sums in another order") if dt == f32 else \
                     (6e-2, 6e-2, "the kernel keeps merge, norms and FFN sum in f32 where the "
                      "plain ops round each to bf16, and rounds P: a few bf16 ulps at |out| ~4")
@@ -487,6 +514,16 @@ def attention_checks(dev, gen, record):
                     cross=cross, pairs=b * bounds.live_pairs(lab.reshape(ks * ks, -1))
                     if cross else None, labels=h * w if cross else 0)
                 record("transformer_layer", err, kern, plain, 5, dt, work)
+                if dt == bf16:  # the three launches alone (not summed)
+                    t = tgt if cross else x
+                    qkv = layer_proj_cuda(x, t, wt.qkv_p)
+                    wkw = dict(labels=lab, with_mask=cross, cross_swap=cross)
+                    av = layer_window_attention(qkv, ks, **wkw)
+                    split = [timed(fn, 5) for fn in (lambda: layer_proj_cuda(x, t, wt.qkv_p),
+                                                     lambda: layer_window_attention(qkv, ks, **wkw),
+                                                     lambda: layer_tail_cuda(x, av, wt))]
+                    print(f"    split (not summed): projection {split[0]:.4f} ms, window "
+                          f"{split[1]:.4f} ms, tail {split[2]:.4f} ms")
 
 
 def make_model(name, dev, **cfg):
@@ -643,9 +680,11 @@ def profile_window(name, fn):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile {name} kernel-path window T=3: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / wall:.1f}%), top device kernels:")
-    # the twelve largest, then the rest of the hand-written kernels
+    # the twelve largest, then the rest of the hand-written kernels and the
+    # memsets (the splat zeroes its accumulator with one)
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    own = [e for e in ranked[12:] if any(f"::{n}" in e.key for n in DEVICE_KERNELS)]
+    own = [e for e in ranked[12:]
+           if any(f"::{n}" in e.key for n in DEVICE_KERNELS) or "Memset" in e.key]
     for e in ranked[:12] + own:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 

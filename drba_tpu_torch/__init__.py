@@ -2,9 +2,10 @@
 
 Same module names and NHWC layouts as ``drba_tpu`` at every public function,
 so each module can be held against its JAX counterpart. Plain tensor code is
-PyTorch; the three kernels of the RIFE path (forward splat, backward warp,
-3x3 conv chain) are CUDA C++ written for ``sm_90a`` under ``csrc/``, built at
-first use (``_build.py``). This package never imports JAX.
+PyTorch; the kernels of the RIFE and GMFSS paths (forward splat, backward
+warp, 3x3 conv chain, window and flash attention, the transformer layer) are
+CUDA C++ written for ``sm_90a`` under ``csrc/``, built at first use
+(``_build.py``). This package never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -159,7 +159,12 @@ class Kernel:
 _BUILD_LOCKS: dict = {}
 _BUILD_LOGS: dict = {}
 
-SPLAT = Kernel("splat", "splat.cu", {"drba_splat": [_P, _P, _P] + [_I] * 6 + [_P]})
+SPLAT = Kernel("splat", "splat.cu", {
+    # ten, flow, metric, acc; n, h, w, c, mode; 3 dtypes; stream
+    "drba_splat_scatter": [_P] * 4 + [_I] * 8 + [_P],
+    # acc, out, cov; pixels; c, denom, dtype; stream
+    "drba_splat_normalise": [_P] * 3 + [_L] + [_I] * 3 + [_P],
+})
 # img0, img1, flow, out; n, h, w, c, k, zeros, flow stride, flow offset 1; 2 dtypes; stream
 WARP = Kernel("warp", "warp.cu", {"drba_warp": [_P] * 4 + [_I] * 10 + [_P]})
 # x, w (OIHW), packed w, bias, beta, out; n, h, w, cin, cout, dtype; stream
@@ -174,10 +179,10 @@ FLASH = Kernel("flash_attention", "attention.cu", {
     "drba_flash_combine": [_P, _P, _I, _I, _P],
 })
 LAYER = Kernel("transformer_layer", "attn_layer.cu", {
-    # x, target, wqkv, qkv; tokens; dtype; stream
+    # x, target, packed wqkv, qkv; tokens; dtype; stream
     "drba_layer_proj": [_P] * 4 + [_L, _I, _P],
-    # x, av, wmerge, g1, b1, w0, w2, g2, b2, out; hidden, tokens, dtype; stream
-    "drba_layer_tail": [_P] * 10 + [_I, _L, _I, _P],
+    # x, av, packed wmerge, g1, b1, packed ffn, g2, b2, out; hidden, tokens, dtype; stream
+    "drba_layer_tail": [_P] * 9 + [_I, _L, _I, _P],
 })
 KERNELS = (SPLAT, WARP, CONV, WINDOW, FLASH, LAYER)
 

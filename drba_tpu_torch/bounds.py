@@ -143,9 +143,19 @@ def conv3x3_work(n: int, h: int, w: int, cin: int, cout: int, itemsize: int,
     return Work(moved, {_pipe(itemsize): 2.0 * 9 * cin * cout * n * h * w})
 
 
-def splat_work(n: int, h: int, w: int, c: int, itemsize: int) -> Work:
-    """Forward splat of (n, h, w, c) by an (n, h, w, 2) flow of the same
-    type into an f32 (n, h, w, c) sum: 4 corners x c multiply-adds per
-    source pixel, in f32."""
+def splat_work(n: int, h: int, w: int, c: int, itemsize: int, flow_itemsize: int,
+               metric_itemsize: int = 0, coverage: bool = False) -> Work:
+    """One softsplat of (n, h, w, c) values in ``itemsize`` bytes along an
+    (n, h, w, 2) flow in ``flow_itemsize``.
+
+    Counts, once each: the values, the flow and the (n, h, w, 1) metric
+    (``metric_itemsize``, 0 without one) read; the (n, h, w, c) result and,
+    with ``coverage``, the (n, h, w, 1) coverage written in the values'
+    type. The f32 accumulator is an intermediate and not counted.
+    Operations: 4 corners x (c + 1) multiply-adds per source pixel in f32
+    (the c values and the weight channel).
+    """
     pixels = n * h * w
-    return Work(pixels * (c * itemsize + 2 * itemsize + c * 4), {"f32": 2.0 * 4 * c * pixels})
+    read = c * itemsize + 2 * flow_itemsize + metric_itemsize
+    written = (c + (1 if coverage else 0)) * itemsize
+    return Work(pixels * (read + written), {"f32": 2.0 * 4 * (c + 1) * pixels})

@@ -69,10 +69,11 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using drba::bf16;
+using namespace drba;
 
 constexpr int kC = 128;       // head width
 constexpr int kQT = 64;       // queries per block
@@ -137,46 +138,6 @@ __device__ __forceinline__ long long token(const Geom& g, const Window& win, int
 
 // --------------------------------------------------------------- bf16: wgmma
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of `bytes` (4, 8 or 16); with !valid the destination is zero-filled
-template <int kBytes>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool valid) {
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(valid ? 16 : 0));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
-                 "n"(kBytes), "r"(valid ? kBytes : 0));
-  }
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// make this thread's shared-memory writes visible to wgmma (the async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator accesses across wgmma
-template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 // A 64 x 128 bf16 tile is two 64 x 64 halves of 8 KB (channels [0, 64) and
 // [64, 128)); each row of a half is 128 bytes whose 16-byte chunks are
 // XOR-swizzled by (row % 8), the layout wgmma reads with 128-byte swizzle.
@@ -185,12 +146,6 @@ __device__ __forceinline__ uint32_t sw128(int r, int cc) {
   return (cc >> 3) * 8192 + r * 128 + (((cc & 7) ^ (r & 7)) << 4);
 }
 
-// shared-memory matrix descriptor, 128-byte swizzle; lbo/sbo in bytes
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
 // K-major operand (Q as A, K as B): 8-row groups 1024 B apart; k-step kk of
 // 16 channels starts 32 B further into the swizzle atom, or in the next half
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
@@ -201,53 +156,6 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
 // covers keys [16 t, 16 t + 16)
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int t) {
   return gmma_desc(tile + t * 2048, 8192, 1024);
-}
-
-// S (64 x 64, f32) (+)= Q K^T for one 16-channel step; Q and K from shared memory
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// O (64 x 128, f32) += P V for one 16-key step; P from registers (bf16 A
-// fragment), V from shared memory as an MN-major (transposed) B
-__device__ __forceinline__ void wgmma_pv(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Shared memory of the bf16 kernel (offsets from a 1024-byte aligned base):
@@ -397,7 +305,8 @@ __global__ void __launch_bounds__(kWgThreadsAll) attn_wgmma_kernel(Geom g, Split
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kC / 16; ++kk)
-      wgmma_qk(s, desc_kmajor(sQ, kk), desc_kmajor(base + SM::kK + st * SM::kTile, kk), kk > 0);
+      wgmma_m64n64_ss<0>(s, desc_kmajor(sQ, kk),
+                         desc_kmajor(base + SM::kK + st * SM::kTile, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -424,8 +333,8 @@ __global__ void __launch_bounds__(kWgThreadsAll) attn_wgmma_kernel(Geom g, Split
       wgmma_fence();
 #pragma unroll
       for (int t = 0; t < kKT / 16; ++t)
-        wgmma_pv(o, a[4 * t], a[4 * t + 1], a[4 * t + 2], a[4 * t + 3],
-                 desc_mnmajor(base + SM::kVal + st * SM::kV, t));
+        wgmma_m64n128_rs<1>(o, a[4 * t], a[4 * t + 1], a[4 * t + 2], a[4 * t + 3],
+                            desc_mnmajor(base + SM::kVal + st * SM::kV, t), 1);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);

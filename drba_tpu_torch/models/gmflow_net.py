@@ -15,7 +15,8 @@ batch axis.
 Every TransformerLayer goes through ``ops/attn_layer.transformer_layer`` and
 the global correlation and global propagation through
 ``ops/attention.flash_attention``: the hand-written kernels on a CUDA tensor
-(``attn_backend`` 'auto' or 'cuda'), the plain versions otherwise. The
+(``attn_backend`` 'auto' or 'cuda'), the plain versions otherwise. The layer
+kernels read the weights ``pack_transformer_weights`` packs once. The
 backbone and upsampler convs are cuDNN's, as the JAX package leaves them to
 XLA.
 """
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 
 from drba_tpu_torch.models.layers import Params, conv2d, instance_norm, linear, relu
 from drba_tpu_torch.ops.attention import flash_attention
-from drba_tpu_torch.ops.attn_layer import layer_weights, transformer_layer
+from drba_tpu_torch.ops.attn_layer import layer_weights, pack_layer_weights, transformer_layer
 from drba_tpu_torch.ops.resize import resize_bilinear
 from drba_tpu_torch.ops.shuffle import unfold3x3
 from drba_tpu_torch.ops.warp import backwarp
@@ -169,6 +170,17 @@ def shift_region_labels(h: int, w: int, k: int) -> np.ndarray:
 # ----------------------------------------------------------------------------------- transformer
 
 
+def pack_transformer_weights(p: Params) -> Params:
+    """``p`` plus every TransformerLayer's weights packed for the layer
+    kernels (ops/attn_layer.pack_layer_weights): built once, where a model
+    builds its parameters."""
+    out = dict(p)
+    for i in range(NUM_LAYERS):
+        for attn, cross in (("self_attn", False), ("cross_attn_ffn", True)):
+            out.update(pack_layer_weights(p, f"transformer.layers.{i}.{attn}", cross))
+    return out
+
+
 def transformer_apply(p: Params, feature0, feature1, attn_splits: int, backend: str = "auto"):
     """FeatureTransformer (transformer.py:244-322): 6 blocks of self-attention
     and cross-attention with FFN, both directions stacked on the batch axis.
@@ -189,10 +201,10 @@ def transformer_apply(p: Params, feature0, feature1, attn_splits: int, backend: 
             x = torch.roll(x, (-sh, -sw), dims=(1, 2))
         x_pre = x
         for attn, cross in (("self_attn", False), ("cross_attn_ffn", True)):
-            wqkv, wm, norm1, ffn = layer_weights(p, f"transformer.layers.{i}.{attn}", cross)
-            x = transformer_layer(x, wqkv, wm, norm1, k, labels=lab if with_shift else None,
-                                  with_mask=with_shift, cross_swap=cross,
-                                  target=x_pre if cross else None, ffn=ffn, backend=backend)
+            x = transformer_layer(x, layer_weights(p, f"transformer.layers.{i}.{attn}", cross), k,
+                                  labels=lab if with_shift else None, with_mask=with_shift,
+                                  cross_swap=cross, target=x_pre if cross else None,
+                                  backend=backend)
         if with_shift:
             x = torch.roll(x, (sh, sw), dims=(1, 2))
     half = b2 // 2

@@ -16,7 +16,7 @@ import torch
 from drba_tpu_torch.config import DEFAULT, Config, model_device
 from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_gmfss
-from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC
+from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, pack_transformer_weights
 from drba_tpu_torch.models.gmfss_core import GmfssParams, Reuse, gmfss_inference, gmfss_reuse
 from drba_tpu_torch.models.gmfss_nets import FEATURENET_SPEC, GRIDNET_SPEC, METRICNET_SPEC
 
@@ -87,7 +87,8 @@ class GMFSS:
     """Quality-path model (reference: models/gmfss.py:7-73) on ``device``
     (CUDA unless the caller asks for another; raises when there is none).
 
-    Parameters are cast to ``config.compute_dtype`` once, on the device.
+    Parameters are cast to ``config.compute_dtype`` once, on the device;
+    GMFlow's transformer weights are packed for the layer kernels once, here.
     """
 
     def __init__(self, weights: str | None = None, scale: float = 1.0,
@@ -101,6 +102,7 @@ class GMFSS:
             params = load_network(weights, fname, spec, seed=config.seed + i,
                                   strict=config.strict_load)
             nets.append({k: v.to(self.device, config.compute_dtype) for k, v in params.items()})
+        nets[0] = pack_transformer_weights(nets[0])
         self.params = GmfssParams(*nets)
         self.scale = scale
         self.pad_size = 64

@@ -12,13 +12,17 @@ batch-half-swapped ``target`` (GMFlow's concat0/concat1 layout).
 On a CUDA tensor it runs three hand-written launches: the q|k|v projection
 and the token-wise tail (csrc/attn_layer.cu), with the window-attention
 kernel (csrc/attention.cu) between them, reading k/v from the other batch
-half in place. On a CPU tensor (or ``backend='torch'``) it runs the plain
-version, ``gmflow_net._transformer_layer``'s ops in order.
+half in place. The two layer kernels read their weights packed once per
+model (``pack_layer_weights``, stored in the model's parameters by
+``models/gmflow_net.pack_transformer_weights`` in ``GMFSS.__init__``) and
+raise without them. On a CPU tensor (or ``backend='torch'``) it runs the
+plain version, ``gmflow_net._transformer_layer``'s ops in order, on the
+natural weights.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -32,33 +36,116 @@ from drba_tpu_torch.ops.attention import (
     window_attention_nhwc,
 )
 
+SLAB = 64      # columns of a packed slab
+H_CHUNK = 64   # hidden columns of a packed FFN chunk
 
-def _layer_plain(x, wqkv, wmerge, norm1, k_splits, labels, with_mask, cross_swap, target, ffn):
-    c = x.shape[-1]
+
+class LayerWeights(NamedTuple):
+    """One TransformerLayer's parameters. Linear weights stored (in, out):
+    wq, wk, wv, wmerge (C, C); norm1 (gamma, beta); ffn (w0 (2C, hidden),
+    w2 (hidden, C), gamma2, beta2) for the cross layer's concat-FFN, or
+    None. ``qkv_p``, ``merge_p``, ``ffn_p``: the copies packed for the
+    kernels (``pack_layer_weights``), or None."""
+
+    wq: torch.Tensor
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wmerge: torch.Tensor
+    norm1: tuple
+    ffn: tuple | None = None
+    qkv_p: torch.Tensor | None = None
+    merge_p: torch.Tensor | None = None
+    ffn_p: torch.Tensor | None = None
+
+
+def _swizzle_index(k: int, device) -> torch.Tensor:
+    """(K, 8): the 8-element group that lands at position p of row k."""
+    return torch.arange(8, device=device)[None, :] ^ (torch.arange(k, device=device)[:, None] % 8)
+
+
+def pack_slabs(w: torch.Tensor) -> torch.Tensor:
+    """A (K, N) weight stored (in, out), N a multiple of 64 -> (N/64, K, 64):
+    64-column slabs, the 8-element groups of row k XOR-permuted by k % 8
+    (position p holds group p ^ (k % 8)). In bf16 this is wgmma's MN-major B
+    operand with the 128-byte swizzle, byte for byte."""
+    k, n = w.shape
+    t = w.reshape(k, n // SLAB, 8, 8).permute(1, 0, 2, 3)
+    idx = _swizzle_index(k, w.device)[None, :, :, None].expand(t.shape)
+    return t.gather(2, idx).reshape(n // SLAB, k, SLAB).contiguous()
+
+
+def unpack_slabs(p: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_slabs``: (N/64, K, 64) -> (K, N)."""
+    s, k, _ = p.shape
+    t = p.reshape(s, k, 8, 8)
+    idx = _swizzle_index(k, p.device)[None, :, :, None].expand(t.shape)  # XOR is its own inverse
+    return t.gather(2, idx).permute(1, 0, 2, 3).reshape(k, s * SLAB)
+
+
+def pack_ffn(w0: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The concat-FFN's w0 (2C, hidden) and w2 (hidden, C) -> (hidden/64,
+    2C*64 + 64*C): chunk j is [pack_slabs(w0[:, 64j:64j+64]) |
+    pack_slabs(w2[64j:64j+64])], the weights one hidden chunk needs, in the
+    order the tail kernel streams them."""
+    hidden = w0.shape[1]
+    return torch.stack([torch.cat([pack_slabs(w0[:, j:j + H_CHUNK]).reshape(-1),
+                                   pack_slabs(w2[j:j + H_CHUNK]).reshape(-1)])
+                        for j in range(0, hidden, H_CHUNK)])
+
+
+def pack_layer_weights(p: Mapping[str, torch.Tensor], base: str, cross: bool) -> dict:
+    """The packed weights of TransformerLayer ``base`` for the kernels:
+    ``{base}.qkv.wp`` (the (C, 3C) [Wq | Wk | Wv], packed once here),
+    ``{base}.merge.wp`` and, for a cross layer, ``{base}.mlp.wp``
+    (``pack_ffn``); in the parameters' dtype and device."""
+    out = {f"{base}.qkv.wp": pack_slabs(torch.cat(
+               [p[f"{base}.{n}.weight"] for n in ("q_proj", "k_proj", "v_proj")], dim=1)),
+           f"{base}.merge.wp": pack_slabs(p[f"{base}.merge.weight"])}
+    if cross:
+        out[f"{base}.mlp.wp"] = pack_ffn(p[f"{base}.mlp.0.weight"], p[f"{base}.mlp.2.weight"])
+    return out
+
+
+def layer_weights(p: Mapping[str, torch.Tensor], base: str, cross: bool) -> LayerWeights:
+    """The LayerWeights of TransformerLayer ``base`` in a GMFlow param dict
+    (linear weights stored (in, out)), with the packed copies where the dict
+    holds them (``pack_layer_weights``)."""
+    ffn = None
+    if cross:
+        ffn = (p[f"{base}.mlp.0.weight"], p[f"{base}.mlp.2.weight"],
+               p[f"{base}.norm2.weight"], p[f"{base}.norm2.bias"])
+    return LayerWeights(p[f"{base}.q_proj.weight"], p[f"{base}.k_proj.weight"],
+                        p[f"{base}.v_proj.weight"], p[f"{base}.merge.weight"],
+                        (p[f"{base}.norm1.weight"], p[f"{base}.norm1.bias"]), ffn,
+                        p.get(f"{base}.qkv.wp"), p.get(f"{base}.merge.wp"),
+                        p.get(f"{base}.mlp.wp") if cross else None)
+
+
+def _layer_plain(x, wt: LayerWeights, k_splits, labels, with_mask, cross_swap, target):
     tgt = x if target is None else target
     if cross_swap:
         half = tgt.shape[0] // 2
         tgt = torch.cat([tgt[half:], tgt[:half]], dim=0)
-    p = {"q.weight": wqkv[:, :c], "kv.weight": wqkv[:, c:], "merge.weight": wmerge,
-         "norm1.weight": norm1[0], "norm1.bias": norm1[1]}
-    q = linear(p, "q", x)
-    kv = linear(p, "kv", tgt)
-    msg = window_attention_nhwc(q, kv[..., :c], kv[..., c:], k_splits, labels, with_mask,
-                                backend="torch")
+    p = {"q.weight": wt.wq, "k.weight": wt.wk, "v.weight": wt.wv, "merge.weight": wt.wmerge,
+         "norm1.weight": wt.norm1[0], "norm1.bias": wt.norm1[1]}
+    msg = window_attention_nhwc(linear(p, "q", x), linear(p, "k", tgt), linear(p, "v", tgt),
+                                k_splits, labels, with_mask, backend="torch")
     msg = layer_norm(p, "norm1", linear(p, "merge", msg))
-    if ffn is not None:
-        p.update({"mlp.0.weight": ffn[0], "mlp.2.weight": ffn[1], "norm2.weight": ffn[2],
-                  "norm2.bias": ffn[3]})
+    if wt.ffn is not None:
+        p.update({"mlp.0.weight": wt.ffn[0], "mlp.2.weight": wt.ffn[1],
+                  "norm2.weight": wt.ffn[2], "norm2.bias": wt.ffn[3]})
         msg = linear(p, "mlp.0", torch.cat([x, msg], dim=-1))
         msg = layer_norm(p, "norm2", linear(p, "mlp.2", gelu(msg)))
     return x + msg
 
 
-def _weight(name: str, t: torch.Tensor, like: torch.Tensor, dtype=None) -> torch.Tensor:
-    t = t.to(device=like.device, dtype=dtype or like.dtype).contiguous()
-    if t.data_ptr() % 32:
-        raise ValueError(f"{name}: the layer kernels need 32-byte aligned weights")
-    return t
+def _weight(name: str, t: torch.Tensor, like: torch.Tensor, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous, 32-byte aligned ``shape`` tensor
+    in ``like``'s dtype, on its device."""
+    check_cuda_input(name, t, dtypes=(like.dtype,))
+    if tuple(t.shape) != shape or t.device != like.device or t.data_ptr() % 32:
+        raise ValueError(f"{name}: expected {shape} on {like.device}, 32-byte aligned; got "
+                         f"{tuple(t.shape)} on {t.device}")
 
 
 def layer_window_attention(qkv: torch.Tensor, k_splits: int, labels=None,
@@ -80,7 +167,36 @@ def layer_window_attention(qkv: torch.Tensor, k_splits: int, labels=None,
     return av
 
 
-def _layer_cuda(x, wqkv, wmerge, norm1, k_splits, labels, with_mask, cross_swap, target, ffn):
+def layer_proj_cuda(x: torch.Tensor, tgt: torch.Tensor, qkv_p: torch.Tensor) -> torch.Tensor:
+    """The layer's first launch: (B, H, W, 3C) = [x Wq | tgt Wk | tgt Wv]
+    from the packed q|k|v weight (``tgt`` may be ``x`` itself)."""
+    qkv = torch.empty(x.shape[:-1] + (3 * x.shape[-1],), dtype=x.dtype, device=x.device)
+    LAYER.launch(x.data_ptr(), tgt.data_ptr(), qkv_p.data_ptr(), qkv.data_ptr(),
+                 x.numel() // x.shape[-1], dtype_code(x), stream_of(x), entry="drba_layer_proj")
+    return qkv
+
+
+def layer_tail_cuda(x: torch.Tensor, av: torch.Tensor, wt: LayerWeights) -> torch.Tensor:
+    """The layer's last launch: x + [FFN of] LayerNorm(merge(av)), from the
+    packed merge and FFN weights."""
+    out = torch.empty_like(x)
+    g2 = b2 = None
+    hidden = 0
+    if wt.ffn is not None:
+        g2, b2 = wt.ffn[2], wt.ffn[3]
+        hidden = wt.ffn_p.shape[0] * H_CHUNK
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    LAYER.launch(x.data_ptr(), av.data_ptr(), wt.merge_p.data_ptr(), wt.norm1[0].data_ptr(),
+                 wt.norm1[1].data_ptr(), ptr(wt.ffn_p), ptr(g2), ptr(b2), out.data_ptr(), hidden,
+                 x.numel() // x.shape[-1], dtype_code(x), stream_of(x), entry="drba_layer_tail")
+    return out
+
+
+def _layer_cuda(x, wt: LayerWeights, k_splits, labels, with_mask, cross_swap, target):
+    if wt.qkv_p is None or wt.merge_p is None or (wt.ffn is not None and wt.ffn_p is None):
+        raise ValueError("the layer kernels read packed weights: add pack_layer_weights(p, base, "
+                         "cross) to the parameters once (GMFSS.__init__ does, through "
+                         "gmflow_net.pack_transformer_weights)")
     check_cuda_input("x", x, ndim=4)
     b, h, w, c = x.shape
     if c != HEAD_DIM or h % k_splits or w % k_splits:
@@ -92,67 +208,37 @@ def _layer_cuda(x, wqkv, wmerge, norm1, k_splits, labels, with_mask, cross_swap,
         raise ValueError("target must match x; both 32-byte aligned")
     if cross_swap and b % 2:
         raise ValueError(f"cross_swap needs an even batch, got {b}")
-    m = b * h * w
-    wqkv = _weight("wqkv", wqkv, x)
-    wmerge = _weight("wmerge", wmerge, x)
-    g1, b1 = (_weight("norm1", t, x, torch.float32) for t in norm1)
-    if tuple(wqkv.shape) != (c, 3 * c) or tuple(wmerge.shape) != (c, c):
-        raise ValueError(f"wqkv {tuple(wqkv.shape)} / wmerge {tuple(wmerge.shape)}")
-    stream = stream_of(x)
+    _weight("qkv_p", wt.qkv_p, x, (3 * c // SLAB, c, SLAB))
+    _weight("merge_p", wt.merge_p, x, (c // SLAB, c, SLAB))
+    for name, t in zip(("gamma1", "beta1"), wt.norm1):
+        _weight(name, t, x, (c,))
+    if wt.ffn is not None:
+        hidden = wt.ffn_p.shape[0] * H_CHUNK
+        if hidden % HEAD_DIM:
+            raise ValueError(f"the tail kernel takes a hidden width divisible by {HEAD_DIM}, "
+                             f"got {hidden}")
+        _weight("ffn_p", wt.ffn_p, x, (hidden // H_CHUNK, 2 * c * H_CHUNK + H_CHUNK * c))
+        for name, t in zip(("gamma2", "beta2"), wt.ffn[2:]):
+            _weight(name, t, x, (c,))
 
-    qkv = torch.empty((b, h, w, 3 * c), dtype=x.dtype, device=x.device)
-    LAYER.launch(x.data_ptr(), tgt.data_ptr(), wqkv.data_ptr(), qkv.data_ptr(), m,
-                 dtype_code(x), stream, entry="drba_layer_proj")
-
+    qkv = layer_proj_cuda(x, tgt, wt.qkv_p)
     av = layer_window_attention(qkv, k_splits, labels, with_mask, cross_swap)
-
-    w0 = w2 = g2 = b2 = None
-    hidden = 0
-    if ffn is not None:
-        w0, w2 = _weight("w0", ffn[0], x), _weight("w2", ffn[1], x)
-        g2, b2 = (_weight("norm2", t, x, torch.float32) for t in ffn[2:])
-        hidden = w0.shape[1]
-        if tuple(w0.shape) != (2 * c, hidden) or tuple(w2.shape) != (hidden, c) \
-                or hidden % HEAD_DIM:
-            raise ValueError(f"ffn weights {tuple(w0.shape)} / {tuple(w2.shape)}")
-    out = torch.empty_like(x)
-    ptr = (lambda t: None if t is None else t.data_ptr())
-    LAYER.launch(x.data_ptr(), av.data_ptr(), wmerge.data_ptr(), g1.data_ptr(), b1.data_ptr(),
-                 ptr(w0), ptr(w2), ptr(g2), ptr(b2), out.data_ptr(), hidden, m, dtype_code(x),
-                 stream, entry="drba_layer_tail")
-    return out
+    return layer_tail_cuda(x, av, wt)
 
 
-def transformer_layer(x: torch.Tensor, wqkv: torch.Tensor, wmerge: torch.Tensor,
-                      norm1: tuple[torch.Tensor, torch.Tensor], k_splits: int,
-                      labels=None, with_mask: bool = False, cross_swap: bool = False,
-                      target: torch.Tensor | None = None,
-                      ffn: tuple | None = None, backend: str = "auto") -> torch.Tensor:
+def transformer_layer(x: torch.Tensor, wt: LayerWeights, k_splits: int, labels=None,
+                      with_mask: bool = False, cross_swap: bool = False,
+                      target: torch.Tensor | None = None, backend: str = "auto") -> torch.Tensor:
     """One TransformerLayer over the swin windows of ``x`` (B, H, W, C).
 
-    ``wqkv`` (C, 3C) = [Wq | Wk | Wv] and ``wmerge`` (C, C), stored (in, out);
-    ``norm1`` (gamma, beta). ``target``: the map k/v are projected from
-    (default ``x``); ``cross_swap`` reads it batch-half swapped. ``ffn``:
-    (w0 (2C, hidden), w2 (hidden, C), gamma2, beta2) for the cross layer's
-    concat-FFN, or None. ``labels``: numpy (k^2, H/k, W/k) region ids of a
-    shifted layer, used when ``with_mask``. Returns (B, H, W, C).
+    ``wt``: the layer's weights (``layer_weights``). ``target``: the map k/v
+    are projected from (default ``x``); ``cross_swap`` reads it batch-half
+    swapped. ``labels``: numpy (k^2, H/k, W/k) region ids of a shifted
+    layer, used when ``with_mask``. Returns (B, H, W, C).
     """
     if with_mask and labels is None:
         raise ValueError("with_mask needs labels")
     if use_kernel(backend, x):
-        return _layer_cuda(x.contiguous(), wqkv, wmerge, norm1, k_splits, labels, with_mask,
-                           cross_swap, None if target is None else target.contiguous(), ffn)
-    return _layer_plain(x, wqkv, wmerge, norm1, k_splits, labels, with_mask, cross_swap,
-                        target, ffn)
-
-
-def layer_weights(p: Mapping[str, torch.Tensor], base: str, cross: bool):
-    """(wqkv, wmerge, norm1, ffn) of TransformerLayer ``base`` in a GMFlow
-    param dict (linear weights stored (in, out))."""
-    wqkv = torch.cat([p[f"{base}.{n}.weight"] for n in ("q_proj", "k_proj", "v_proj")], dim=1)
-    ffn = None
-    if cross:
-        ffn = (p[f"{base}.mlp.0.weight"], p[f"{base}.mlp.2.weight"],
-               p[f"{base}.norm2.weight"], p[f"{base}.norm2.bias"])
-    return (wqkv, p[f"{base}.merge.weight"],
-            (p[f"{base}.norm1.weight"], p[f"{base}.norm1.bias"]), ffn)
+        return _layer_cuda(x.contiguous(), wt, k_splits, labels, with_mask, cross_swap,
+                           None if target is None else target.contiguous())
+    return _layer_plain(x, wt, k_splits, labels, with_mask, cross_swap, target)

@@ -11,10 +11,14 @@ and non-finite targets are dropped. ``mode``:
 
 with '-addeps' (default), '-zeroeps' or '-clipeps' denominators.
 
-The scatter itself is ``splat``: the hand-written atomic kernel
-(ops/splat_cuda.py) for CUDA tensors, or the plain f32 ``index_add_`` below,
-which follows ``_corner_contributions`` of the JAX package exactly. Both are
-exact everywhere: there is no stencil radius.
+``softsplat`` runs in two steps: the scatter of the planes [in * factor,
+factor] into an f32 accumulator padded to ``acc_stride(C)`` channels, then
+the normalise step (divide, cast, coverage). For CUDA tensors these are the
+two hand-written kernels of ops/splat_cuda.py, the factor formed inside the
+first; otherwise their plain versions below, ``_scatter_plain`` (the planes
+and the f32 ``index_add_`` of ``_splat_plain``, which follows
+``_corner_contributions`` of the JAX package exactly) and
+``_normalise_plain``. Both are exact everywhere: there is no stencil radius.
 """
 
 from __future__ import annotations
@@ -22,8 +26,13 @@ from __future__ import annotations
 import torch
 
 from drba_tpu_torch._build import use_kernel
+from drba_tpu_torch.ops.splat_cuda import acc_stride
 
 _EPS = 1e-7
+# the scatter's factor per main mode, and the normalise step's denominator
+# rule per sub mode (0: none, the sum mode)
+FACTOR = {"sum": 0, "avg": 0, "linear": 1, "soft": 2}
+DENOM = {None: 1, "addeps": 1, "zeroeps": 2, "clipeps": 3}
 
 
 def _splat_plain(ten: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -58,12 +67,52 @@ def _splat_plain(ten: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out.reshape(n, h, w, c)
 
 
-def splat(ten: torch.Tensor, flow: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """Bilinear forward splat (summation) of ten (N,H,W,C) -> f32 (N,H,W,C)."""
-    if use_kernel(backend, ten):
-        from drba_tpu_torch.ops.splat_cuda import splat_cuda
+def _scatter_plain(ten: torch.Tensor, flow: torch.Tensor, metric: torch.Tensor | None,
+                   mode: int) -> torch.Tensor:
+    """The scatter kernel's accumulator: the f32 planes [ten * factor,
+    factor, 0...] (factor 1, metric or exp(metric) for ``mode`` 0, 1, 2)
+    padded to ``acc_stride(C)`` channels, splatted."""
+    n, h, w, c = ten.shape
+    x = ten.float()
+    planes = torch.zeros((n, h, w, acc_stride(c)), dtype=torch.float32, device=ten.device)
+    if mode == 0:
+        planes[..., :c] = x
+        planes[..., c] = 1.0
+    else:
+        m = metric.float() if mode == 1 else torch.exp(metric.float())
+        planes[..., :c] = x * m
+        planes[..., c:c + 1] = m
+    return _splat_plain(planes, flow)
 
-        return splat_cuda(ten.contiguous(), flow.contiguous())
+
+def _normalise_plain(acc: torch.Tensor, c: int, denom: int, dtype: torch.dtype,
+                     coverage: bool = False):
+    """The normalise kernel's result from the accumulator: the sums cast to
+    ``dtype`` (``denom`` 0), or divided by the weight channel under the
+    addeps (1), zeroeps (2) or clipeps (3) rule, with the coverage."""
+    if denom == 0:
+        return acc[..., :c].to(dtype)
+    raw = acc[..., c:c + 1]
+    if denom == 1:
+        norm = raw + _EPS
+    elif denom == 2:
+        norm = torch.where(raw == 0.0, torch.ones_like(raw), raw)
+    else:
+        norm = raw.clamp(min=_EPS)
+    result = (acc[..., :c] / norm).to(dtype)
+    if coverage:
+        return result, (raw / norm).to(dtype)
+    return result
+
+
+def splat(ten: torch.Tensor, flow: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Bilinear forward splat (summation) of ten (N,H,W,C) -> f32 (N,H,W,C)
+    (on the kernel, a view of the padded accumulator)."""
+    if use_kernel(backend, ten):
+        from drba_tpu_torch.ops.splat_cuda import splat_scatter_cuda
+
+        acc = splat_scatter_cuda(ten.contiguous(), flow.contiguous(), None, 0)
+        return acc[..., :ten.shape[-1]]
     return _splat_plain(ten, flow)
 
 
@@ -77,36 +126,20 @@ def softsplat(ten: torch.Tensor, flow: torch.Tensor, metric: torch.Tensor | None
     """
     parts = mode.split("-")
     main, sub = parts[0], (parts[1] if len(parts) > 1 else None)
-    if main not in ("sum", "avg", "linear", "soft") or sub not in (None, "addeps", "zeroeps",
-                                                                   "clipeps"):
+    if main not in FACTOR or sub not in DENOM:
         raise ValueError(f"unknown softsplat mode {mode!r}")
     if (metric is None) != (main in ("sum", "avg")):
         raise ValueError(f"mode {mode!r} {'needs' if metric is None else 'takes no'} metric")
     if return_coverage and main == "sum":
         raise ValueError("return_coverage needs a normalised mode")
 
-    x = ten.float()
-    if main == "avg":
-        x = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
-    elif main == "linear":
-        m = metric.float()
-        x = torch.cat([x * m, m], dim=-1)
-    elif main == "soft":
-        m = torch.exp(metric.float())
-        x = torch.cat([x * m, m], dim=-1)
+    c = ten.shape[-1]
+    denom = 0 if main == "sum" else DENOM[sub]
+    if use_kernel(backend, ten):
+        from drba_tpu_torch.ops.splat_cuda import splat_normalise_cuda, splat_scatter_cuda
 
-    out = splat(x, flow, backend)
-    if main == "sum":
-        return out.to(ten.dtype)
-
-    raw = out[..., -1:]
-    if sub is None or sub == "addeps":
-        norm = raw + _EPS
-    elif sub == "zeroeps":
-        norm = torch.where(raw == 0.0, torch.ones_like(raw), raw)
-    else:
-        norm = raw.clamp(min=_EPS)
-    result = (out[..., :-1] / norm).to(ten.dtype)
-    if return_coverage:
-        return result, (raw / norm).to(ten.dtype)
-    return result
+        acc = splat_scatter_cuda(ten.contiguous(), flow.contiguous(),
+                                 None if metric is None else metric.contiguous(), FACTOR[main])
+        return splat_normalise_cuda(acc, c, denom, ten.dtype, return_coverage)
+    acc = _scatter_plain(ten, flow, metric, FACTOR[main])
+    return _normalise_plain(acc, c, denom, ten.dtype, return_coverage)

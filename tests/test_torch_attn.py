@@ -25,7 +25,8 @@ from drba_tpu_torch import _build
 from drba_tpu_torch.convert import from_jax_params
 from drba_tpu_torch.models import gmflow_net as gm
 from drba_tpu_torch.ops import attention as attn
-from drba_tpu_torch.ops.attn_layer import layer_weights, transformer_layer
+from drba_tpu_torch.ops.attn_layer import (layer_weights, pack_layer_weights,
+                                           transformer_layer, unpack_slabs)
 
 # f32 attention outputs of unit-scale inputs: sums in another order
 TOL = 2e-4
@@ -149,14 +150,14 @@ def test_transformer_layer_matches_jax_kernel(params, cross):
     b, h, w, c, ks = 4, 16, 24, 128, 2
     x, tgt = (_rand(rng, b, h, w, c, scale=0.5) for _ in range(2))
     base = f"transformer.layers.1.{'cross_attn_ffn' if cross else 'self_attn'}"
-    wqkv, wm, norm1, ffn = layer_weights(p, base, cross)
+    wt = layer_weights(p, base, cross)
     lab = gm.shift_region_labels(h, w, ks)
-    got = transformer_layer(torch.from_numpy(x), wqkv, wm, norm1, ks, lab, with_mask=cross,
-                            cross_swap=cross, target=torch.from_numpy(tgt) if cross else None,
-                            ffn=ffn)
-    jw = [jnp.asarray(_np(t)) for t in (wqkv, wm)]
-    jn = tuple(jnp.asarray(_np(t)) for t in norm1)
-    jffn = None if ffn is None else tuple(jnp.asarray(_np(t)) for t in ffn)
+    got = transformer_layer(torch.from_numpy(x), wt, ks, lab, with_mask=cross, cross_swap=cross,
+                            target=torch.from_numpy(tgt) if cross else None)
+    jw = [jnp.asarray(np.concatenate([_np(wt.wq), _np(wt.wk), _np(wt.wv)], axis=1)),
+          jnp.asarray(_np(wt.wmerge))]
+    jn = tuple(jnp.asarray(_np(t)) for t in wt.norm1)
+    jffn = None if wt.ffn is None else tuple(jnp.asarray(_np(t)) for t in wt.ffn)
     want = transformer_layer_mxu(jnp.asarray(x), *jw, jn, ks, labels=lab, with_mask=cross,
                                  cross_swap=cross, target=jnp.asarray(tgt) if cross else None,
                                  ffn=jffn)
@@ -178,12 +179,18 @@ def test_transformer_apply_matches_jax(params, fused, monkeypatch):
 
 
 def test_layer_weights_concatenate_qkv(params):
+    """The natural weights are the dict's own tensors (no copy per call);
+    q|k|v is concatenated once, when the weights are packed."""
     _, p = params
-    wqkv, wm, norm1, ffn = layer_weights(p, "transformer.layers.0.cross_attn_ffn", True)
-    assert tuple(wqkv.shape) == (128, 384) and tuple(wm.shape) == (128, 128)
-    assert tuple(ffn[0].shape) == (256, 1024) and tuple(ffn[1].shape) == (1024, 128)
-    torch.testing.assert_close(wqkv[:, 128:256], p["transformer.layers.0.cross_attn_ffn.k_proj.weight"])
-    assert layer_weights(p, "transformer.layers.0.self_attn", False)[3] is None
+    base = "transformer.layers.0.cross_attn_ffn"
+    wt = layer_weights(p, base, True)
+    assert wt.wk is p[f"{base}.k_proj.weight"] and wt.wmerge is p[f"{base}.merge.weight"]
+    assert tuple(wt.ffn[0].shape) == (256, 1024) and tuple(wt.ffn[1].shape) == (1024, 128)
+    assert wt.qkv_p is None and wt.merge_p is None and wt.ffn_p is None  # not packed yet
+    packed = layer_weights({**p, **pack_layer_weights(p, base, True)}, base, True)
+    assert tuple(packed.qkv_p.shape) == (6, 128, 64)
+    torch.testing.assert_close(unpack_slabs(packed.qkv_p)[:, 128:256], wt.wk, rtol=0, atol=0)
+    assert layer_weights(p, "transformer.layers.0.self_attn", False).ffn is None
 
 
 # ------------------------------------------------------------------------------------ guards
@@ -201,9 +208,9 @@ def test_attention_cuda_backend_on_cpu_tensor_raises(params):
     x = torch.zeros(2, 4, 4, 128)
     with pytest.raises(ValueError, match="CUDA tensor"):
         attn.window_attention_nhwc(x, x, x, 2, backend="cuda")
-    wqkv, wm, norm1, _ = layer_weights(p, "transformer.layers.0.self_attn", False)
+    wt = layer_weights(p, "transformer.layers.0.self_attn", False)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        transformer_layer(x, wqkv, wm, norm1, 2, backend="cuda")
+        transformer_layer(x, wt, 2, backend="cuda")
     with pytest.raises(ValueError, match="split"):
         attn.window_attention_nhwc(x, x, x, 3)
     with pytest.raises(ValueError, match="with_mask"):

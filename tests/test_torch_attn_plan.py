@@ -107,10 +107,15 @@ def _check(work, bytes_, ops, ms, by):
 
 
 def test_bound_splat_flow_inversion():
-    """(2, 1088, 1920, 3) bf16 planes and flow into an f32 sum."""
+    """RIFE's flow inversion: (2, 1088, 1920, 2) bf16 flows splat along
+    themselves, avg with coverage; the weight channel's multiply-adds too."""
     px = 2 * 1088 * 1920
-    _check(bounds.splat_work(2, 1088, 1920, 3, 2), px * (3 * 2 + 2 * 2 + 3 * 4),
-           {"f32": 2 * 4 * 3 * px}, px * 22 / 3.35e12 * 1e3, "bytes")
+    _check(bounds.splat_work(2, 1088, 1920, 2, 2, 2, coverage=True),
+           px * (2 * 2 + 2 * 2 + 3 * 2), {"f32": 2 * 4 * 3 * px}, px * 14 / 3.35e12 * 1e3,
+           "bytes")
+    # a soft splat reads the metric too; f32 values, bf16 flow and metric
+    soft = bounds.splat_work(6, 272, 480, 1, 4, 2, metric_itemsize=2, coverage=True)
+    assert soft.bytes == 6 * 272 * 480 * (4 + 4 + 2 + 2 * 4)
 
 
 def test_bound_warp_full_res_and_tap_grid():

@@ -44,12 +44,62 @@ def test_splat_kernel_matches_plain(dev, dtype):
     n0 = _build.SPLAT.launches
     got = softsplat(ten, flow, None, "avg", backend="cuda", return_coverage=True)
     want = softsplat(ten, flow, None, "avg", backend="torch", return_coverage=True)
-    assert _build.SPLAT.launches == n0 + 1
+    assert _build.SPLAT.launches == n0 + 2  # the scatter and the normalise step
     # f32 accumulation on both sides, atomics in another order; then the
     # output dtype's rounding (one bf16 ulp, 2^-7, at values <= 1)
     tol = 1e-5 if dtype == torch.float32 else 8e-3
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+_MODES = ["sum", "avg", "avg-zeroeps", "avg-clipeps", "linear", "linear-zeroeps",
+          "linear-clipeps", "soft", "soft-zeroeps", "soft-clipeps"]
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32,) * 3, (torch.bfloat16,) * 3,
+                                    (torch.float32, torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("c", [2, 3, 67, 128, 192])
+def test_fused_splat_matches_plain(dev, c, dtypes):
+    """The fused scatter (factor formed in the kernel) and the normalise
+    step against their plain versions at the path's channel counts (C + 1
+    <= 4 one thread a pixel; C % 4 == 0 vector loads and stores; C = 67
+    neither), every mode, with coverage; values, flow and metric each in
+    its dtype (the DRM splat's f32 values with a bf16 flow and metric).
+    The flow has non-finite targets and image 1 lies wholly out of frame."""
+    from drba_tpu_torch.ops.softsplat import FACTOR, _scatter_plain
+    from drba_tpu_torch.ops.splat_cuda import splat_scatter_cuda
+
+    tdt, fdt, mdt = dtypes
+    gen = torch.Generator(device=dev).manual_seed(20 + c)
+    ten = torch.rand(2, 24, 40, c, generator=gen, device=dev).to(tdt)
+    flow = _flow(gen, 2, 24, 40, 9.0, dev)
+    flow[0, 3, 5, 0] = float("nan")
+    flow[0, 7, 9, 1] = float("inf")
+    flow[1] += 100.0  # every target out of frame: image 1 gets nothing
+    flow = flow.to(fdt)
+    for mode in _MODES:
+        main = mode.split("-")[0]
+        metric = None
+        if main in ("linear", "soft"):
+            lo = 0.1 if main == "linear" else -1.0
+            metric = (lo + (1 - lo) * torch.rand(2, 24, 40, 1, generator=gen, device=dev)).to(mdt)
+        # the accumulators: f32 sums of <= ~8 terms of size <= e, in another order
+        acc = splat_scatter_cuda(ten, flow, metric, FACTOR[main])
+        want_acc = _scatter_plain(ten, flow, metric, FACTOR[main])
+        torch.testing.assert_close(acc, want_acc, atol=2e-5, rtol=1e-5)
+        assert not acc[1].any()
+        cov = main != "sum"
+        n0 = _build.SPLAT.launches
+        got = softsplat(ten, flow, metric, mode, backend="cuda", return_coverage=cov)
+        assert _build.SPLAT.launches == n0 + 2
+        want = softsplat(ten, flow, metric, mode, backend="torch", return_coverage=cov)
+        # the sums' order, divided by denominators >= ~0.1 w; in bf16 one
+        # output ulp (2^-8 relative) on top
+        tol = 1e-4 if tdt == torch.float32 else 8e-3
+        for g, w in zip(got if cov else [got], want if cov else [want]):
+            assert g.dtype == tdt and g.shape == w.shape
+            torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol,
+                                       msg=lambda m: f"{mode}: {m}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -262,33 +312,75 @@ def test_window_attention_in_layer_geometry_matches_plain(dev, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cross", [False, True])
-def test_transformer_layer_kernel_matches_plain(dev, dtype, cross):
-    """A self layer (no FFN, unmasked) and a cross layer (FFN, shift mask,
-    batch-half swap, a separate target) at a scale-1-like geometry."""
-    from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, shift_region_labels
+def _layer_params(dev, dtype, seed):
     from drba_tpu_torch.convert import from_jax_params
+    from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, pack_transformer_weights
     from drba_tpu_torch.models.layers import init_from_spec
+
+    return pack_transformer_weights(
+        {k: v.to(dev, dtype) for k, v in
+         from_jax_params(init_from_spec(GMFLOW_SPEC, seed=seed), GMFLOW_SPEC).items()})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cross,masked", [(False, False), (False, True), (True, True)])
+def test_transformer_layer_kernel_matches_plain(dev, dtype, cross, masked):
+    """Self layers (no FFN) and a cross layer (hidden 1024, batch-half swap,
+    a separate target), with and without the shift mask, on weights packed
+    as GMFSS packs them; 8160 tokens, no multiple of the 128-token tile."""
+    from drba_tpu_torch.models.gmflow_net import shift_region_labels
     from drba_tpu_torch.ops.attn_layer import layer_weights, transformer_layer
 
-    p = {k: v.to(dev, dtype) for k, v in
-         from_jax_params(init_from_spec(GMFLOW_SPEC, seed=7), GMFLOW_SPEC).items()}
+    p = _layer_params(dev, dtype, 7)
     gen = torch.Generator(device=dev).manual_seed(7)
-    x, tgt, _ = _qkv(gen, (4, 32, 48, 128), dev, dtype, scale=0.5)
+    x, tgt, _ = _qkv(gen, (4, 34, 60, 128), dev, dtype, scale=0.5)
     base = f"transformer.layers.1.{'cross_attn_ffn' if cross else 'self_attn'}"
-    wqkv, wm, norm1, ffn = layer_weights(p, base, cross)
-    kw = dict(labels=shift_region_labels(32, 48, 8), with_mask=cross, cross_swap=cross,
-              target=tgt if cross else None, ffn=ffn)
+    wt = layer_weights(p, base, cross)
+    assert wt.ffn is None or wt.ffn_p.shape[0] * 64 == 1024
+    kw = dict(labels=shift_region_labels(34, 60, 2), with_mask=masked, cross_swap=cross,
+              target=tgt if cross else None)
     n0 = _build.LAYER.launches
-    got = transformer_layer(x, wqkv, wm, norm1, 8, backend="cuda", **kw)
-    want = transformer_layer(x, wqkv, wm, norm1, 8, backend="torch", **kw)
+    got = transformer_layer(x, wt, 2, backend="cuda", **kw)
+    want = transformer_layer(x, wt, 2, backend="torch", **kw)
     assert _build.LAYER.launches == n0 + 2
     # f32: sums in another order; bf16: the kernel keeps the merge, the norms
     # and the FFN sum in f32 where the plain ops round each to bf16, and
     # rounds P, so outputs of size ~4 may differ by a few bf16 ulps (2^-6)
     tol = 1e-4 if dtype == torch.float32 else 6e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_layer_kernels_without_packed_weights_raise(dev):
+    from drba_tpu_torch.convert import from_jax_params
+    from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC
+    from drba_tpu_torch.models.layers import init_from_spec
+    from drba_tpu_torch.ops.attn_layer import layer_weights, transformer_layer
+
+    p = {k: v.to(dev, torch.bfloat16) for k, v in
+         from_jax_params(init_from_spec(GMFLOW_SPEC, seed=1), GMFLOW_SPEC).items()}
+    x = torch.zeros(2, 8, 8, 128, dtype=torch.bfloat16, device=dev)
+    n0 = _build.LAYER.launches
+    with pytest.raises(ValueError, match="packed weights"):
+        transformer_layer(x, layer_weights(p, "transformer.layers.0.self_attn", False), 2)
+    assert _build.LAYER.launches == n0
+
+
+def test_gmfss_window_launch_counts(dev):
+    """One T=3 window with the reuse chained: one GMFlow pass (24 layers, a
+    projection and a tail launch each) and four softsplats (the DRM
+    alignment, three pyramid levels), two splat launches each."""
+    from drba_tpu_torch.models.gmfss import GMFSS
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    base = torch.rand(1, 128, 192 + 12, 3, generator=gen, device=dev)
+    fr = [base[:, :, 6 * i:6 * i + 192].contiguous().to(torch.bfloat16) for i in range(3)]
+    m = GMFSS(device=dev)
+    _, reuse = m.inference_ts_drba(*fr, [0.7, 1.1], None, linear=True)
+    before = _build.counts()
+    m.inference_ts_drba(*fr, [0.6, 1.0, 1.4], reuse, linear=True)
+    after = _build.counts()
+    assert after["transformer_layer"] - before["transformer_layer"] == 48
+    assert after["splat"] - before["splat"] == 8
 
 
 def test_gmfss_window_kernel_path_matches_plain(dev):

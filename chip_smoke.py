@@ -17,12 +17,17 @@ Phases (any failure exits non-zero and prints no result):
      computes the same function, that call's time (used nowhere in the port);
      the splat as the paths' six softsplat calls (scatter and normalise
      launches), the layer's projection, window and tail also timed apart;
-  4. slices: ``run_pipeline`` on synthetic 1088x1920 frames at 24 -> 60 fps in
-     bf16, with a seed-0 random-weight RIFE (IFNet 4.26-heavy, full width) and
-     then a seed-0 GMFSS (GMFlow, MetricNet, FeatureNet, GridNet, full width);
-     checks the output count against the plan, every frame finite, and that
-     each kernel of the path was launched during its run (launch counts are
-     reset just before each run and read just after);
+     GMFSS_UNION's shapes (1080p padded to 1152x1920) checked and timed
+     outside the summed rows;
+  4. slices: ``run_pipeline`` on synthetic 1080p frames at 24 -> 60 fps in
+     bf16, with a seed-0 random-weight RIFE (IFNet 4.26-heavy, full width), a
+     seed-0 GMFSS (GMFlow, MetricNet, FeatureNet, GridNet, full width), a
+     seed-0 GMFSS_UNION (the union nets and a half-resolution IFNet), and
+     RIFE with scene detection (``-s -st 0.3``) on a stream whose frame 4
+     alone is colour-inverted (two cuts); checks the output count against
+     the plan, every frame finite at the model's padded size, the cuts, and
+     that each kernel of the path was launched during its run (launch counts
+     are reset just before each run and read just after);
   5. windows: one window of each model on the kernel path against the plain
      path (f32 and bf16), the window time both ways, and a profile of one
      kernel-path window with its launches per kernel.
@@ -41,14 +46,28 @@ import subprocess
 import sys
 import time
 
-H, W = 1088, 1920          # 1080p padded to the network's multiple of 64
+H, W = 1088, 1920          # 1080p padded to RIFE's and GMFSS's multiple of 64
+HU = 1152                  # 1080p padded to GMFSS_UNION's multiple of 128
 SRC_FPS, DST_FPS = 24.0, 60.0
-N_FRAMES = {"rife": 10, "gmfss": 6}
+N_FRAMES = {"rife": 10, "gmfss": 6, "gmfss_union": 6, "scdet": 10}
 
-# the kernels each path must launch
+# the kernels each path must launch ("scdet": RIFE with scene detection)
 PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain"),
                 "gmfss": ("splat", "warp", "window_attention", "flash_attention",
-                          "transformer_layer")}
+                          "transformer_layer"),
+                "gmfss_union": ("splat", "warp", "conv_chain", "window_attention",
+                                "flash_attention", "transformer_layer"),
+                "scdet": ("splat", "warp", "conv_chain")}
+# window gates, kernel path against plain path on one T=3 window, per
+# dtype: (mean abs, share of values off by more than 1e-2). f32: the same
+# arithmetic up to atomic/FMA/summation order; bf16: roundings at other
+# places (the bf16 layer kernel keeps f32 intermediates that the plain ops
+# round). Five random-weight IFNet stages, or GMFlow's 24 transformer layers
+# and two correlation softmaxes, amplify both, and thresholds (coverage
+# < 0.999; union's 25x timestep swap) can flip pixels, so the gate is on the
+# mean and on the share. GMFSS_UNION measured within the same gates (bf16
+# mean 3.7e-4, share 2.1e-3), so it shares them.
+GATES = {"f32": (1e-4, 1e-3), "bf16": (1e-2, 5e-2)}
 # the __global__ functions of drba_tpu_torch/csrc (by name prefix)
 DEVICE_KERNELS = ("splat_", "warp_", "conv3x3_", "attn_wgmma_kernel",
                   "attn_fma_kernel", "flash_combine_kernel", "layer_proj_", "layer_tail_")
@@ -249,14 +268,24 @@ def phase_kernels(dev):
     # half res); GMFSS's three soft splats (image + features, both
     # directions, B = 2T) and its DRM alignment (f32 maps, bf16 flow and
     # metric, quarter res). Each in f32 and in the path's dtypes (summed).
-    for label, (n, c, h, w, mag, main, cov, path_dt) in {
-            "rife flow inversion": (2, 2, H, W, 24.0, "avg", True, (bf16, bf16, None)),
-            "rife drm alignment": (6, 1, H // 2, W // 2, 12.0, "avg", True, (f32, f32, None)),
-            "gmfss soft level 0": (6, 67, H // 2, W // 2, 12.0, "soft", True, (bf16,) * 3),
-            "gmfss soft level 1": (6, 128, H // 4, W // 4, 6.0, "soft", False, (bf16,) * 3),
-            "gmfss soft level 2": (6, 192, H // 8, W // 8, 3.0, "soft", False, (bf16,) * 3),
+    # Checked and timed, not summed: GMFSS_UNION's level-0 soft splat, whose
+    # timestep map makes C = 3 + 64 + 1 = 68 (an accumulator stride of 72),
+    # and its auxiliary RIFE's DRM alignment, at 1152x1920.
+    for label, (n, c, h, w, mag, main, cov, path_dt, summed) in {
+            "rife flow inversion": (2, 2, H, W, 24.0, "avg", True, (bf16, bf16, None), True),
+            "rife drm alignment": (6, 1, H // 2, W // 2, 12.0, "avg", True, (f32, f32, None),
+                                   True),
+            "gmfss soft level 0": (6, 67, H // 2, W // 2, 12.0, "soft", True, (bf16,) * 3, True),
+            "gmfss soft level 1": (6, 128, H // 4, W // 4, 6.0, "soft", False, (bf16,) * 3,
+                                   True),
+            "gmfss soft level 2": (6, 192, H // 8, W // 8, 3.0, "soft", False, (bf16,) * 3,
+                                   True),
             "gmfss drm alignment": (6, 1, H // 4, W // 4, 6.0, "soft", True,
-                                    (f32, bf16, bf16))}.items():
+                                    (f32, bf16, bf16), True),
+            "union soft level 0 + timestep": (6, 68, HU // 2, W // 2, 12.0, "soft", True,
+                                              (bf16,) * 3, False),
+            "union rife-aux drm alignment": (6, 1, HU // 4, W // 4, 6.0, "soft", True,
+                                             (f32, bf16, bf16), False)}.items():
         for variant, (vdt, fdt, mdt) in (("f32", (f32, f32, f32)), ("path dtypes", path_dt)):
             flow = smooth_flow(gen, n, h, w, mag, dev, fdt)
             ten = flow if label == "rife flow inversion" else \
@@ -277,7 +306,8 @@ def phase_kernels(dev):
                                            f"{variant}", g, wt, *tol))
             work = bounds.splat_work(n, h, w, c, ten.element_size(), flow.element_size(),
                                      0 if metric is None else metric.element_size(), cov)
-            record("splat", err, kern, plain, 10, f32 if variant == "f32" else bf16, work)
+            record("splat", err, kern, plain, 10, f32 if variant == "f32" else bf16, work,
+                   summed=summed)
 
     # warp, summed into the kernel's summary: the RIFE path's five launches
     # of a T=3 window, each warping both directions of the 4-channel flow,
@@ -296,7 +326,13 @@ def phase_kernels(dev):
             "one direction C=19": (3, 19, 1, False, "border", H, W, False),
             "one direction C=3": (3, 3, 1, False, "border", H, W, False),
             "metricnet zeros C=5": (2, 5, 1, False, "zeros", H // 2, W // 2, False),
-            "gmflow zeros C=128": (2, 128, 1, False, "zeros", H // 8, W // 8, False)}.items():
+            "gmflow zeros C=128": (2, 128, 1, False, "zeros", H // 8, W // 8, False),
+            # GMFSS_UNION's auxiliary IFNet at half resolution (576x960)
+            "union aux tap k=2 C=19": (3, 19, 2, True, "border", HU // 2, W // 2, False),
+            "union aux tap k=4 C=19": (3, 19, 4, True, "border", HU // 2, W // 2, False),
+            "union aux tap k=8 C=19": (3, 19, 8, True, "border", HU // 2, W // 2, False),
+            "union aux stage 4 C=19": (3, 19, 1, True, "border", HU // 2, W // 2, False),
+            "union aux merge C=3": (3, 3, 1, True, "border", HU // 2, W // 2, False)}.items():
         for dt in (f32, bf16):
             img = torch.rand(b, h, w, c, generator=gen, device=dev).to(dt)
             flow = smooth_flow(gen, b, h, w, 16.0, dev, dt)
@@ -327,10 +363,15 @@ def phase_kernels(dev):
             record("warp", err, kern, plain, 10, dt, work, library, summed)
 
     # conv chain: one ResConv step of each IFNet block at 1080p, N=T=3
-    # (summed), and block 0 at N=1 as the flow pass of _calc_flow runs it;
-    # weights packed once, as the model packs them
-    for n, c, h, w in ((3, 192, 17, 30), (3, 128, 34, 60), (3, 96, 68, 120),
-                       (3, 64, 136, 240), (3, 32, 272, 480), (1, 192, 17, 30)):
+    # (summed), and, not summed, block 0 at N=1 as the flow pass of
+    # _calc_flow runs it and each block of GMFSS_UNION's auxiliary IFNet at
+    # half resolution (576x960); weights packed once, as the model packs them
+    for n, c, h, w, summed in ((3, 192, 17, 30, True), (3, 128, 34, 60, True),
+                               (3, 96, 68, 120, True), (3, 64, 136, 240, True),
+                               (3, 32, 272, 480, True), (1, 192, 17, 30, False),
+                               (3, 192, 9, 15, False), (3, 128, 18, 30, False),
+                               (3, 96, 36, 60, False), (3, 64, 72, 120, False),
+                               (3, 32, 144, 240, False)):
         for dt in (f32, bf16):
             bound = 1.0 / (9 * c) ** 0.5
             x = (torch.rand(n, h, w, c, generator=gen, device=dev) * 2 - 1).to(dt)
@@ -346,7 +387,7 @@ def phase_kernels(dev):
             nchw = x.permute(0, 3, 1, 2)  # the NHWC data, channels_last
             record("conv_chain", err, kern, lambda: _step_plain(x, st), 10, dt,
                    bounds.conv3x3_work(n, h, w, c, c, x.element_size()),
-                   (lambda: F.conv2d(nchw, st.w, st.b, padding=1), "F.conv2d (cuDNN)"), n == 3)
+                   (lambda: F.conv2d(nchw, st.w, st.b, padding=1), "F.conv2d (cuDNN)"), summed)
     attention_checks(dev, gen, record)
     return summary
 
@@ -394,42 +435,49 @@ def attention_checks(dev, gen, record):
         return fn, f"SDPA {name}"
 
     # NHWC windows at scale 0: (2, 68, 120, 128), 2x2 windows of 34x60 (L = 2040)
-    lab0 = shift_region_labels(68, 120, 2)
-    pairs0 = 2 * bounds.live_pairs(lab0.reshape(4, -1))
-    for masked in (False, True):
-        for dt in (f32, bf16):
-            q, k, v = (randn(2, 68, 120, 128).to(dt) for _ in range(3))
-            kern = lambda: window_attention_nhwc(q, k, v, 2, lab0, masked, backend="cuda")
-            plain = lambda: window_attention_nhwc(q, k, v, 2, lab0, masked, backend="torch")
-            err = check_close(f"window nhwc (2,68,120,128) k=2 mask={masked} {dt}", kern(),
-                              plain(), *attn_tol(dt))
-            work = bounds.attention_work(8, 2040, q.element_size(),
-                                         pairs=pairs0 if masked else None,
-                                         labels=68 * 120 if masked else 0)
-            record("window_attention", err, kern, plain, 5, dt, work,
-                   sdpa(windows(q, 2), windows(k, 2), windows(v, 2),
-                        same_label(lab0, 2) if masked else None))
+    # (summed); GMFSS_UNION's (2, 72, 120, 128), windows of 36x60 (L = 2160)
+    # (not summed)
+    for fh, summed in ((68, True), (72, False)):
+        lab0 = shift_region_labels(fh, 120, 2)
+        L0 = fh // 2 * 60
+        pairs0 = 2 * bounds.live_pairs(lab0.reshape(4, -1))
+        for masked in (False, True):
+            for dt in (f32, bf16):
+                q, k, v = (randn(2, fh, 120, 128).to(dt) for _ in range(3))
+                kern = lambda: window_attention_nhwc(q, k, v, 2, lab0, masked, backend="cuda")
+                plain = lambda: window_attention_nhwc(q, k, v, 2, lab0, masked, backend="torch")
+                err = check_close(f"window nhwc (2,{fh},120,128) k=2 mask={masked} {dt}", kern(),
+                                  plain(), *attn_tol(dt))
+                work = bounds.attention_work(8, L0, q.element_size(),
+                                             pairs=pairs0 if masked else None,
+                                             labels=fh * 120 if masked else 0)
+                record("window_attention", err, kern, plain, 5, dt, work,
+                       sdpa(windows(q, 2), windows(k, 2), windows(v, 2),
+                            same_label(lab0, 2) if masked else None), summed)
 
     # the window kernel alone at scale 1, as the transformer layer's cross
     # layer calls it: interleaved q|k|v rows (stride 3c), keys and values from
     # the other batch half (half = 2), shift labels; (4, 136, 240) k = 8,
-    # windows of 17x30 (L = 510)
-    lab1 = shift_region_labels(136, 240, 8)
-    pairs1 = 4 * bounds.live_pairs(lab1.reshape(64, -1))
-    for dt in (f32, bf16):
-        qkv = randn(4, 136, 240, 384).to(dt)
-        q, k, v = qkv.split(128, dim=-1)
-        swap = lambda t: torch.cat([t[2:], t[:2]])
-        kern = lambda: layer_window_attention(qkv, 8, lab1, True, cross_swap=True)
-        plain = lambda: window_attention_nhwc(q, swap(k), swap(v), 8, lab1, True,
-                                              backend="torch")
-        err = check_close(f"window in layer (4,136,240,3x128) k=8 swap, masked {dt}", kern(),
-                          plain(), *attn_tol(dt))
-        work = bounds.attention_work(256, 510, qkv.element_size(), pairs=pairs1,
-                                     labels=136 * 240, qkv_bytes=qkv.numel() * qkv.element_size())
-        record("window_attention", err, kern, plain, 5, dt, work,
-               sdpa(windows(q, 8), windows(swap(k), 8), windows(swap(v), 8),
-                    same_label(lab1, 4)))
+    # windows of 17x30 (L = 510) (summed); GMFSS_UNION's (4, 144, 240),
+    # windows of 18x30 (L = 540) (not summed)
+    for fh, summed in ((136, True), (144, False)):
+        lab1 = shift_region_labels(fh, 240, 8)
+        pairs1 = 4 * bounds.live_pairs(lab1.reshape(64, -1))
+        for dt in (f32, bf16):
+            qkv = randn(4, fh, 240, 384).to(dt)
+            q, k, v = qkv.split(128, dim=-1)
+            swap = lambda t: torch.cat([t[2:], t[:2]])
+            kern = lambda: layer_window_attention(qkv, 8, lab1, True, cross_swap=True)
+            plain = lambda: window_attention_nhwc(q, swap(k), swap(v), 8, lab1, True,
+                                                  backend="torch")
+            err = check_close(f"window in layer (4,{fh},240,3x128) k=8 swap, masked {dt}",
+                              kern(), plain(), *attn_tol(dt))
+            work = bounds.attention_work(256, fh // 8 * 30, qkv.element_size(), pairs=pairs1,
+                                         labels=fh * 240,
+                                         qkv_bytes=qkv.numel() * qkv.element_size())
+            record("window_attention", err, kern, plain, 5, dt, work,
+                   sdpa(windows(q, 8), windows(swap(k), 8), windows(swap(v), 8),
+                        same_label(lab1, 4)), summed)
 
     # (B, L, c) windows with region ids at the 720p scale-0 shape: 48x80
     # features, 2x2 windows of 24x40 (L = 960), two images
@@ -446,52 +494,57 @@ def attention_checks(dev, gen, record):
                sdpa(q[:, None], k[:, None], v[:, None], same_label(lab720, 2)))
 
     # flash: global correlation (value = the pixel grid, f32 out), one
-    # direction (B = 1) and both stacked (B = 2), L = 68 * 120 = 8160; B = 1
-    # in bf16 splits the keys (two launches); and with region ids
-    gy, gx = torch.meshgrid(torch.arange(68.0, device=dev), torch.arange(120.0, device=dev),
-                            indexing="ij")
-    grid = torch.stack([gx, gy], dim=-1).reshape(1, 8160, 2)
-    # the scale-0 shift regions (9) in raster order
-    rid8160 = torch.as_tensor(lab0.reshape(2, 2, 34, 60).transpose(0, 2, 1, 3).reshape(1, 8160),
-                              device=dev)
-    for b in (1, 2):
-        for masked in (False, True):
-            for dt in (f32, bf16):
-                q, k = (randn(b, 8160, 128, scale=0.3).to(dt) for _ in range(2))
-                v = grid.expand(b, 8160, 2)
-                rid = rid8160.expand(b, 8160) if masked else None
-                kern = lambda: flash_attention(q, k, v, rid, masked, out_dtype=f32,
-                                               backend="cuda")
-                plain = lambda: flash_attention(q, k, v, rid, masked, out_dtype=f32,
-                                                backend="torch")
-                err = check_close(f"flash ({b},8160,128)/({b},8160,2) mask={masked} {dt}",
-                                  kern(), plain(), 2e-3, 1e-5,
-                                  "P.V in f32 on both sides: sums of 8160 weights of pixel "
-                                  "coordinates <= 119 in another order")
-                pairs = b * bounds.live_pairs(rid8160.cpu().numpy()) if masked else None
-                work = bounds.attention_work(b, 8160, q.element_size(), value_width=2,
-                                             pairs=pairs, labels=b * 8160 if masked else 0)
-                library = None
-                if dt == bf16 and not masked:  # SDPA with the value zero-padded, in bf16
-                    best = None
-                    for width in (8, 128):
-                        vp = torch.zeros(b, 1, 8160, width, dtype=bf16, device=dev)
-                        vp[..., :2] = v[:, None].to(bf16)
-                        fn, name = sdpa_call(q[:, None], k[:, None], vp)
-                        t = timed(fn, 3)
-                        if best is None or t < best[0]:
-                            best = (t, fn, f"SDPA {name}, value padded to {width}")
-                    library = best[1:]
-                record("flash_attention", err, kern, plain, 5, dt, work, library)
+    # direction (B = 1) and both stacked (B = 2), L = 68 * 120 = 8160
+    # (summed) and GMFSS_UNION's L = 72 * 120 = 8640 (not summed); B = 1 in
+    # bf16 splits the keys (two launches); and with region ids
+    for fh, summed in ((68, True), (72, False)):
+        L = fh * 120
+        gy, gx = torch.meshgrid(torch.arange(float(fh), device=dev),
+                                torch.arange(120.0, device=dev), indexing="ij")
+        grid = torch.stack([gx, gy], dim=-1).reshape(1, L, 2)
+        # the scale-0 shift regions (9) in raster order
+        rid_l = torch.as_tensor(shift_region_labels(fh, 120, 2).reshape(2, 2, fh // 2, 60)
+                                .transpose(0, 2, 1, 3).reshape(1, L), device=dev)
+        for b in (1, 2):
+            for masked in (False, True):
+                for dt in (f32, bf16):
+                    q, k = (randn(b, L, 128, scale=0.3).to(dt) for _ in range(2))
+                    v = grid.expand(b, L, 2)
+                    rid = rid_l.expand(b, L) if masked else None
+                    kern = lambda: flash_attention(q, k, v, rid, masked, out_dtype=f32,
+                                                   backend="cuda")
+                    plain = lambda: flash_attention(q, k, v, rid, masked, out_dtype=f32,
+                                                    backend="torch")
+                    err = check_close(f"flash ({b},{L},128)/({b},{L},2) mask={masked} {dt}",
+                                      kern(), plain(), 2e-3, 1e-5,
+                                      f"P.V in f32 on both sides: sums of {L} weights of pixel "
+                                      "coordinates <= 119 in another order")
+                    pairs = b * bounds.live_pairs(rid_l.cpu().numpy()) if masked else None
+                    work = bounds.attention_work(b, L, q.element_size(), value_width=2,
+                                                 pairs=pairs, labels=b * L if masked else 0)
+                    library = None
+                    if dt == bf16 and not masked:  # SDPA with the value zero-padded, in bf16
+                        best = None
+                        for width in (8, 128):
+                            vp = torch.zeros(b, 1, L, width, dtype=bf16, device=dev)
+                            vp[..., :2] = v[:, None].to(bf16)
+                            fn, name = sdpa_call(q[:, None], k[:, None], vp)
+                            t = timed(fn, 3)
+                            if best is None or t < best[0]:
+                                best = (t, fn, f"SDPA {name}, value padded to {width}")
+                        library = best[1:]
+                    record("flash_attention", err, kern, plain, 5, dt, work, library, summed)
 
     # transformer layers: scale 1 (4, 136, 240, 128) k = 8 (windows 17x30,
-    # L = 510) and scale 0 (2, 68, 120, 128) k = 2; a self layer (no FFN,
+    # L = 510) and scale 0 (2, 68, 120, 128) k = 2 (summed), GMFSS_UNION's
+    # (4, 144, 240) and (2, 72, 120) (not summed); a self layer (no FFN,
     # unmasked) and a cross layer (FFN, shift mask, batch-half swap, target);
     # weights packed once, as GMFSS packs them
     params = from_jax_params(init_from_spec(GMFLOW_SPEC, seed=0), GMFLOW_SPEC)
     packed = {dt: pack_transformer_weights({kk: vv.to(dev, dt) for kk, vv in params.items()})
               for dt in (f32, bf16)}
-    for (b, h, w, ks) in ((4, 136, 240, 8), (2, 68, 120, 2)):
+    for (b, h, w, ks, summed) in ((4, 136, 240, 8, True), (2, 68, 120, 2, True),
+                                  (4, 144, 240, 8, False), (2, 72, 120, 2, False)):
         lab = shift_region_labels(h, w, ks)
         for cross in (False, True):
             base = f"transformer.layers.1.{'cross_attn_ffn' if cross else 'self_attn'}"
@@ -513,8 +566,8 @@ def attention_checks(dev, gen, record):
                     b, h, w, ks, x.element_size(), hidden=ffn[0].shape[1] if cross else 0,
                     cross=cross, pairs=b * bounds.live_pairs(lab.reshape(ks * ks, -1))
                     if cross else None, labels=h * w if cross else 0)
-                record("transformer_layer", err, kern, plain, 5, dt, work)
-                if dt == bf16:  # the three launches alone (not summed)
+                record("transformer_layer", err, kern, plain, 5, dt, work, summed=summed)
+                if dt == bf16 and summed:  # the three launches alone (not summed)
                     t = tgt if cross else x
                     qkv = layer_proj_cuda(x, t, wt.qkv_p)
                     wkw = dict(labels=lab, with_mask=cross, cross_swap=cross)
@@ -526,50 +579,81 @@ def attention_checks(dev, gen, record):
                           f"{split[1]:.4f} ms, tail {split[2]:.4f} ms")
 
 
+MODELS = {"rife": ("drba_tpu_torch.models.rife", "RIFE", "RIFE IFNet 4.26-heavy"),
+          "gmfss": ("drba_tpu_torch.models.gmfss", "GMFSS",
+                    "GMFSS (GMFlow, MetricNet, FeatureNet, GridNet)"),
+          "gmfss_union": ("drba_tpu_torch.models.gmfss_union", "GMFSS_UNION",
+                          "GMFSS_UNION (union GMFSS nets + half-resolution IFNet 4.26-heavy)")}
+
+
 def make_model(name, dev, **cfg):
-    """Seed-0 random-weight model ``name`` ('rife' | 'gmfss') in bf16 (or the
+    """Seed-0 random-weight model ``name`` (a key of MODELS) in bf16 (or the
     given config fields) on ``dev``."""
+    import importlib
+
     from drba_tpu_torch.config import DEFAULT
 
-    if name == "rife":
-        from drba_tpu_torch.models.rife import RIFE as cls
-    else:
-        from drba_tpu_torch.models.gmfss import GMFSS as cls
-    return cls(weights=None, scale=1.0, config=DEFAULT.replace(**cfg), device=dev)
+    module, cls, _ = MODELS[name]
+    return getattr(importlib.import_module(module), cls)(weights=None, scale=1.0,
+                                                         config=DEFAULT.replace(**cfg), device=dev)
 
 
-def phase_slice(name, dev):
-    """run_pipeline with model ``name`` on the kernel path; returns the
-    launch counts of that run."""
+def padded_size(model) -> tuple[int, int]:
+    """The size ``model`` runs 1080p frames at (1088x1920, or 1152x1920 for
+    GMFSS_UNION's pad of 128)."""
+    from drba_tpu_torch.utils import get_valid_net_inp_size
+
+    return get_valid_net_inp_size(synthetic_frames(1)[0], model.scale,
+                                  div=model.pad_size)["dst_size"]
+
+
+def n_params(model) -> int:
+    """Parameters of ``model``, without the kernels' packed copies (.wp)."""
+    nets = [model.params] if isinstance(model.params, dict) else list(model.params)
+    nets += [model.rife_params] if hasattr(model, "rife_params") else []
+    return sum(v.numel() for p in nets for k, v in p.items() if not k.endswith(".wp"))
+
+
+def phase_slice(name, dev, scdet=False):
+    """run_pipeline with model ``name`` on the kernel path (``scdet``: RIFE
+    with scene detection on a stream whose frame 4 alone is colour-inverted);
+    returns the launch counts of that run."""
     import torch
 
     from drba_tpu_torch import _build
     from drba_tpu_torch.pipeline import planned_outputs, run_pipeline
 
+    path = "scdet" if scdet else name
     model = make_model(name, dev)
-    params = model.params.items() if isinstance(model.params, dict) else \
-        [kv for p in model.params for kv in p.items()]
-    # RIFE's packed copies of its ResConv weights are no parameters of their own
-    n_params = sum(v.numel() for k, v in params if not k.endswith(".wp"))
-    n_frames = N_FRAMES[name]
+    size = padded_size(model)
+    n_frames = N_FRAMES[path]
     checked = {"frames": 0}
 
     def finite(frames):
         for f in frames:
-            if tuple(f.shape) != (1, H, W, 3) or not bool(torch.isfinite(f).all()):
-                fail(f"{name} window frame shape {tuple(f.shape)} or non-finite values")
+            if tuple(f.shape) != (1, *size, 3) or not bool(torch.isfinite(f).all()):
+                fail(f"{path} window frame shape {tuple(f.shape)} (model size {size}) "
+                     "or non-finite values")
         checked["frames"] += len(frames)
         return frames
 
     ts_fn, drba_fn = model.inference_ts, model.inference_ts_drba
-    model.inference_ts = lambda *a, **k: finite(ts_fn(*a, **k))
+
+    def checked_ts(*a, **k):  # a scene cut's window asks for the reuse back
+        r = ts_fn(*a, **k)
+        return (finite(r[0]), r[1]) if k.get("return_reuse") else finite(r)
+
+    model.inference_ts = checked_ts
     model.inference_ts_drba = lambda *a, **k: (lambda r: (finite(r[0]), r[1]))(drba_fn(*a, **k))
 
-    io = _FrameIO(synthetic_frames(n_frames))
+    frames = synthetic_frames(n_frames)
+    if scdet:  # the pairs (3, 4) and (4, 5) are cuts
+        frames[4] = 255 - frames[4]
+    io = _FrameIO(frames)
     _build.reset_counts()
     t0 = time.perf_counter()
     try:
-        stats = run_pipeline(model, io)
+        stats = run_pipeline(model, io, enable_scdet=scdet, scdet_threshold=0.3)
         torch.cuda.synchronize()
     finally:
         del model.inference_ts, model.inference_ts_drba  # back to the class methods
@@ -577,23 +661,27 @@ def phase_slice(name, dev):
     counts = _build.counts()
 
     plan = planned_outputs(n_frames, SRC_FPS, DST_FPS)
-    what = {"rife": "RIFE IFNet 4.26-heavy",
-            "gmfss": "GMFSS (GMFlow, MetricNet, FeatureNet, GridNet)"}[name]
-    print(f"slice: {what}, {n_params} params (seed 0), bf16, {n_frames} frames "
-          f"1080p {SRC_FPS:g}->{DST_FPS:g}: frames_out {stats.frames_out} (plan {plan}), "
-          f"{stats.windows} windows, {checked['frames']} frames checked finite, "
-          f"wall {wall:.2f} s (first run, includes warm-up)")
-    print(f"slice {name}: kernel launches during the run: {counts}")
+    print(f"slice{' (scene detection, -s -st 0.3)' if scdet else ''}: {MODELS[name][2]}, "
+          f"{n_params(model)} params (seed 0), bf16, {n_frames} frames 1080p at "
+          f"{size[0]}x{size[1]} {SRC_FPS:g}->{DST_FPS:g}: frames_out {stats.frames_out} "
+          f"(plan {plan}), {stats.windows} windows, {stats.scene_cuts} scene cuts, "
+          f"{checked['frames']} frames checked finite, wall {wall:.2f} s "
+          "(first run, includes warm-up)")
+    print(f"slice {path}: kernel launches during the run: {counts}")
     if stats.frames_out != plan or len(io.written) != plan:
-        fail(f"{name}: frames_out {stats.frames_out} / written {len(io.written)} != plan {plan}")
-    if checked["frames"] < plan - 2:  # the head's and the tail's source frames skip the model
-        fail(f"{name}: fewer model frames checked than planned")
+        fail(f"{path}: frames_out {stats.frames_out} / written {len(io.written)} != plan {plan}")
+    if scdet and stats.scene_cuts != 2:
+        fail(f"scdet: {stats.scene_cuts} scene cuts, expected 2")
+    # the head's and the tail's source frames skip the model, and so do the
+    # cut windows' source frames
+    if not scdet and checked["frames"] < plan - 2:
+        fail(f"{path}: fewer model frames checked than planned")
     for f in io.written:
         if f.shape != (1080, 1920, 3) or str(f.dtype) != "uint8":
-            fail(f"{name}: written frame {f.shape} {f.dtype}")
-    for k in PATH_KERNELS[name]:
+            fail(f"{path}: written frame {f.shape} {f.dtype}")
+    for k in PATH_KERNELS[path]:
         if counts[k] == 0:
-            fail(f"kernel {k} was not launched on the {name} path")
+            fail(f"kernel {k} was not launched on the {path} path")
     return counts
 
 
@@ -611,21 +699,17 @@ def phase_window(name, dev, gpu_line):
     ts2, ts3 = calc_ts(1, tmap, -1), calc_ts(0, tmap, -1)  # 24 -> 60 alternates T = 2, 3
     plain_cfg = {"rife": dict(splat_backend="torch", warp_backend="torch", conv_backend="torch"),
                  "gmfss": dict(splat_backend="torch", warp_backend="torch",
-                               attn_backend="torch")}[name]
-    # f32: the same arithmetic up to atomic/FMA/summation order; bf16:
-    # roundings at other places (the bf16 layer kernel keeps f32 intermediates
-    # that the plain ops round). Five random-weight IFNet stages, or GMFlow's
-    # 24 transformer layers and two correlation softmaxes, amplify both, and
-    # coverage thresholds (< 0.999) can flip pixels, so the gate is on the
-    # mean and on the share of values off by more than 1e-2: (mean, share)
-    gates = {"f32": (1e-4, 1e-3), "bf16": (1e-2, 5e-2)}
+                               attn_backend="torch"),
+                 "gmfss_union": dict(splat_backend="torch", warp_backend="torch",
+                                     conv_backend="torch", attn_backend="torch")}[name]
 
     for dname in ("bf16", "f32"):
         extra = {} if dname == "bf16" else {"compute_dtype": torch.float32}
         # same seed, same parameters; only the backends differ
         m = make_model(name, dev, **extra)
         plain = make_model(name, dev, **extra, **plain_cfg)
-        I0, I1, I2 = (to_inp(f, (H, W), m.config.compute_dtype, dev) for f in frames)
+        size = padded_size(m)
+        I0, I1, I2 = (to_inp(f, size, m.config.compute_dtype, dev) for f in frames)
         reuse = m._calc_flow(I1, I0) if name == "rife" else m.reuse(I1, I0)
         out_k = torch.stack(m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)[0])
         out_p = torch.stack(plain.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)[0])
@@ -633,9 +717,9 @@ def phase_window(name, dev, gpu_line):
             fail(f"{name} window {dname}: non-finite output")
         d = (out_k.float() - out_p.float()).abs()
         mx, mean, share = float(d.max()), float(d.mean()), float((d > 1e-2).float().mean())
-        print(f"window {name} {dname} (T={len(ts3)}): kernel vs plain path max_abs {mx:.3e}  "
-              f"mean_abs {mean:.3e}  share(>1e-2) {share:.3e}")
-        mean_tol, share_tol = gates[dname]
+        print(f"window {name} {dname} (T={len(ts3)}, {size[0]}x{size[1]}): kernel vs plain path "
+              f"max_abs {mx:.3e}  mean_abs {mean:.3e}  share(>1e-2) {share:.3e}")
+        mean_tol, share_tol = GATES[dname]
         if mean > mean_tol or share > share_tol:
             fail(f"{name} {dname} window kernel vs plain: mean {mean:.3e} (tol {mean_tol:g}), "
                  f"share(>1e-2) {share:.3e} (tol {share_tol:g})")
@@ -723,10 +807,11 @@ def main() -> None:
 
     summary = phase_kernels(dev)
     launches = {k.name: 0 for k in _build.KERNELS}
-    for name in ("rife", "gmfss"):
-        for k, n in phase_slice(name, dev).items():
+    for name, scdet in (("rife", False), ("gmfss", False), ("gmfss_union", False),
+                        ("rife", True)):
+        for k, n in phase_slice(name, dev, scdet).items():
             launches[k] += n
-    for name in ("rife", "gmfss"):
+    for name in ("rife", "gmfss", "gmfss_union"):
         phase_window(name, dev, gpu_line)
 
     kernels = []

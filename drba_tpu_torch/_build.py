@@ -8,7 +8,8 @@ fresh checkout builds from its own sources alone.
 
 Every C entry returns ``cudaGetLastError()`` after its launch and
 :meth:`Kernel.launch` raises if it is not 0. There is no fallback: a missing
-``nvcc``, a failed build or a failed launch raises.
+``nvcc``, a failed build or a failed launch raises. Each launch runs with
+its tensors' device current (:meth:`Kernel.launch`'s ``device``).
 """
 
 from __future__ import annotations
@@ -147,10 +148,23 @@ class Kernel:
                     fn.restype = ctypes.c_int
                     self._fns[entry] = fn
 
-    def launch(self, *args, entry: str | None = None) -> None:
-        """Call a C entry (which launches on the given stream) and count it."""
+    def launch(self, *args, device: torch.device, entry: str | None = None) -> None:
+        """Call a C entry (which launches on the given stream) on ``device``,
+        the CUDA device of the call's tensors, and count it.
+
+        The entry runs with ``device`` current, so that its launch and the
+        ``cudaGetDevice`` it sizes its grid by see the tensors' device; the
+        switch is skipped when that device is already current.
+        """
         self.load()
-        rc = self._fns[entry or next(iter(self.entries))](*args)
+        fn = self._fns[entry or next(iter(self.entries))]
+        if device.type != "cuda":
+            raise ValueError(f"{self.name}: kernels launch on a CUDA device, got {device}")
+        if device.index is None or device.index == torch.cuda.current_device():
+            rc = fn(*args)
+        else:
+            with torch.cuda.device(device.index):
+                rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {rc}")
         self.launches += 1

@@ -1,13 +1,13 @@
-"""CLI driver of the port, flag-compatible with the reference (infer.py:18-36)
-for ``-m rife`` and ``-m gmfss``.
+"""CLI driver of the port, flag-compatible with the reference (infer.py:18-36).
 
 Usage:
-  python -m drba_tpu_torch.cli -m rife|gmfss -i in.mp4 -o out.mp4 -fps 60 [-t N] \\
-      [-hw] [-scale 1.0] [--fp32] [--exact-drm] [--device cuda|cpu]
+  python -m drba_tpu_torch.cli -m rife|gmfss|gmfss_union -i in.mp4 -o out.mp4 \\
+      -fps 60 [-t N] [-s] [-st 0.3] [-hw] [-scale 1.0] [--fp32] [--exact-drm] \\
+      [--device cuda|cuda:N|cpu]
 
-The models run on the CUDA card; without one the CLI raises unless it is
-given ``--device cpu``. Scene detection (``-s``) and ``-m gmfss_union`` are
-not ported yet and raise.
+The models run on the CUDA card; without one, or given a card index PyTorch
+does not see, the CLI raises before it builds a model, unless it is given
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from drba_tpu_torch.pipeline import run_pipeline
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Interpolate a video with DRBA (PyTorch/CUDA)")
     p.add_argument("-m", "--model_type", dest="model_type", default="rife",
-                   help="model network type: rife or gmfss")
+                   help="model network type: rife, gmfss or gmfss_union")
     p.add_argument("-i", "--input", dest="input", default="input.mp4",
                    help="path of the input video")
     p.add_argument("-o", "--output", dest="output", default="output.mp4",
@@ -34,7 +34,7 @@ def parse_args(argv=None):
     p.add_argument("-t", "--times", dest="times", type=int, default=-1,
                    help="interpolate to N x source fps")
     p.add_argument("-s", "--enable_scdet", dest="enable_scdet", action="store_true",
-                   help="scene change detection (not ported yet)")
+                   help="enable scene change detection")
     p.add_argument("-st", "--scdet_threshold", dest="scdet_threshold", type=float,
                    default=0.3, help="ssim scene detection threshold")
     p.add_argument("-hw", "--hwaccel", dest="hwaccel", action="store_true",
@@ -56,7 +56,8 @@ def parse_args(argv=None):
 
 # model type -> (module, class, weights subdirectory), as infer.py:39-55
 _MODELS = {"rife": ("rife", "RIFE", "train_log_rife_426_heavy"),
-           "gmfss": ("gmfss", "GMFSS", "train_log_gmfss")}
+           "gmfss": ("gmfss", "GMFSS", "train_log_gmfss"),
+           "gmfss_union": ("gmfss_union", "GMFSS_UNION", "train_log_gmfss_union")}
 
 
 def load_model(model_type: str, weights_root: str, scale: float, config: Config, device):
@@ -74,10 +75,8 @@ def load_model(model_type: str, weights_root: str, scale: float, config: Config,
 def main(argv=None):
     args = parse_args(argv)
     if args.model_type not in _MODELS:
-        raise NotImplementedError(f"model {args.model_type!r} is not ported yet; "
-                                  f"use -m {' or -m '.join(_MODELS)}")
-    if args.enable_scdet:
-        raise NotImplementedError("scene detection (-s) is not ported yet")
+        raise ValueError(f"model_type must be one of {', '.join(_MODELS)}, "
+                         f"got {args.model_type!r}")
     device = model_device(args.device)
     if not os.path.exists(args.input):
         raise FileNotFoundError(f"can't find the video file {args.input}")
@@ -93,10 +92,11 @@ def main(argv=None):
     video_io = VideoFI_IO(args.input, args.output, dst_fps=args.dst_fps, times=args.times,
                           hwaccel=args.hwaccel)
     pbar = tqdm(total=video_io.total_frames_count)
-    stats = run_pipeline(model, video_io, progress=pbar.update, times=args.times)
+    stats = run_pipeline(model, video_io, progress=pbar.update, times=args.times,
+                         enable_scdet=args.enable_scdet, scdet_threshold=args.scdet_threshold)
     pbar.close()
     print(f"done: {stats.frames_in} frames in, {stats.frames_out} frames out, "
-          f"{stats.windows} windows, {stats.wall_s:.2f}s")
+          f"{stats.windows} windows, {stats.scene_cuts} scene cuts, {stats.wall_s:.2f}s")
     return stats
 
 

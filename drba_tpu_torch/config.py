@@ -66,10 +66,13 @@ DEFAULT = Config()
 
 def model_device(device: str | torch.device) -> torch.device:
     """The device a model runs on. The models and the CLI default to CUDA;
-    asking for CUDA where PyTorch sees none raises instead of falling back
-    to the CPU."""
+    asking for CUDA where PyTorch sees none, or for a card index it does not
+    see, raises instead of falling back to another device."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available (torch.cuda.is_available() is False); "
                            "pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    if dev.type == "cuda" and dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"{dev} does not exist: PyTorch sees {torch.cuda.device_count()} "
+                           "CUDA device(s)")
     return dev

@@ -1,4 +1,5 @@
-"""Distance Ratio Map (DRM) for RIFE and GMFSS (counterpart of drba_tpu/drm.py).
+"""Distance Ratio Map (DRM) for RIFE, GMFSS and GMFSS_UNION (counterpart of
+drba_tpu/drm.py).
 
   * ratio maps ``d10 / (d10 + d12)`` from bidirectional flow magnitudes;
   * linear retiming ``drm * t * 2`` (the driver always passes linear=True)
@@ -194,3 +195,35 @@ def calc_drm_gmfss(t, flow10: torch.Tensor, flow12: torch.Tensor,
                                             metric12, mode, backend, splat_scale)
     return DrmGmfss(drm0t_t01=_hole_fill(w0, m0, drm0t_u), drm1t_t01=drm1t_t01,
                     drm1t_t12=drm1t_t12, drm2t_t12=_hole_fill(w2, m2, drm2t_u))
+
+
+def calc_drm_rife_auxiliary(t, flow10: torch.Tensor, flow12: torch.Tensor,
+                            metric10: torch.Tensor | None, metric12: torch.Tensor | None,
+                            linear: bool = False, backend: str = "auto",
+                            splat_scale: float = 1.0) -> DrmRife:
+    """DRM timestep maps for the auxiliary RIFE inside GMFSS_UNION
+    (drm.py:158-195; drba_tpu/drm.py:261-298): :func:`calc_drm_rife` with
+    metric-weighted ('soft') alignment splats when both metrics are given.
+
+    ``t``: a float, or a (T,) f32 tensor giving (T*N, H, W, 1) folded maps.
+    """
+    drm10, drm12 = _ratio_maps(flow10, flow12, eps=1e-4)
+    if _is_batched_t(t):
+        T = t.shape[0]
+        drm_t0 = _retime_batched(drm10, t, linear)
+        drm_t1 = _retime_batched(drm12, t, linear)
+        flow10 = _tile_t(flow10, T)
+        flow12 = _tile_t(flow12, T)
+        metric10 = None if metric10 is None else _tile_t(metric10, T)
+        metric12 = None if metric12 is None else _tile_t(metric12, T)
+    else:
+        drm_t0 = _retime(drm10, t, linear)
+        drm_t1 = _retime(drm12, t, linear)
+
+    mode = "soft" if (metric10 is not None and metric12 is not None) else "avg"
+    (w01, m01), (w12, m12) = _splat_avg_scaled2(
+        drm_t1, flow10 * drm_t1, metric10, drm_t0, flow12 * drm_t0, metric12,
+        mode, backend, splat_scale,
+    )
+    return DrmRife(drm_t1_t01=_hole_fill(w01, m01, drm_t1),
+                   drm_t1_t12=_hole_fill(w12, m12, drm_t0))

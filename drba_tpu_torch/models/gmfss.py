@@ -68,18 +68,26 @@ def _drba_window_fused(p: GmfssParams, I0, I1, I2, ts, reuse10: Reuse, scale, li
     return out, reuse12
 
 
+def _tile(x, T):
+    return x.expand((T,) + tuple(x.shape[1:]))
+
+
+def _tile_reuse(reuse: Reuse, T) -> Reuse:
+    """A single pair's reuse broadcast over T timesteps."""
+    def tile(x):
+        return _tile(x, T)
+
+    return Reuse(tile(reuse.flow01), tile(reuse.flow10), tile(reuse.metric0),
+                 tile(reuse.metric1), tuple(map(tile, reuse.feat0)),
+                 tuple(map(tile, reuse.feat1)))
+
+
 def _ts_batch(p: GmfssParams, I0, I1, ts, reuse: Reuse, backend="auto"):
     """Plain interpolation at T timesteps, T folded into the batch axis."""
     T = ts.shape[0]
-
-    def tile(x):
-        return x.expand((T,) + tuple(x.shape[1:]))
-
-    reuse_b = Reuse(tile(reuse.flow01), tile(reuse.flow10), tile(reuse.metric0),
-                    tile(reuse.metric1), tuple(map(tile, reuse.feat0)),
-                    tuple(map(tile, reuse.feat1)))
     tcol = ts[:, None, None, None].to(I0.dtype)
-    out = gmfss_inference(p, tile(I0), tile(I1), reuse_b, tcol, 1 - tcol, backend=backend)
+    out = gmfss_inference(p, _tile(I0, T), _tile(I1, T), _tile_reuse(reuse, T), tcol, 1 - tcol,
+                          backend=backend)
     return _select_integer_ts(out, ts, I0, I1)[:, None]
 
 

@@ -1,5 +1,8 @@
 """GMFSS sub-networks: MetricNet, FeatureNet and GridNet, NHWC, in PyTorch
-(counterpart of drba_tpu/models/gmfss_nets.py, quality path).
+(counterpart of drba_tpu/models/gmfss_nets.py), with the union variants:
+MetricNet's ``Tanh * 10`` tail (model_gmfss_union/MetricNet.py:41-42,63) and
+GridNet's 9-channel head ``residual_model_head0``
+(model_gmfss_union/FusionNet.py:59).
 
 The convs are cuDNN's, as the JAX package leaves them to XLA; MetricNet's
 four backward warps are the exact zeros-padding gather of ``ops/warp``
@@ -36,8 +39,10 @@ def build_metricnet_spec() -> dict:
 METRICNET_SPEC = build_metricnet_spec()
 
 
-def metricnet_apply(p: Params, img0, img1, flow01, flow10, warp_backend: str = "auto"):
-    """MetricNet.forward (model_gmfss/MetricNet.py:44-65) -> (metric0, metric1).
+def metricnet_apply(p: Params, img0, img1, flow01, flow10, union: bool = False,
+                    warp_backend: str = "auto"):
+    """MetricNet.forward (model_gmfss/MetricNet.py:44-65) -> (metric0, metric1);
+    ``union`` bounds the metrics to (-10, 10) by ``tanh`` in float32.
 
     The two image warps and the forward/backward consistency check's two flow
     warps (gmflow/geometry.py:87-108) run as one two-sample zeros-padding warp.
@@ -73,6 +78,8 @@ def metricnet_apply(p: Params, img0, img1, flow01, flow10, warp_backend: str = "
     for i in (1, 2, 3):
         feat = conv2d(p, f"metric_net{i}.1", prelu(p, f"metric_net{i}.0", feat), padding=1) + feat
     out = conv2d(p, "metric_out.1", prelu(p, "metric_out.0", feat), padding=1)
+    if union:
+        out = torch.tanh(out.float()).to(out.dtype) * 10
     return out[..., 0:1], out[..., 1:2]
 
 
@@ -118,9 +125,13 @@ def _seq_conv_spec(spec, prefix, cin, cout, transpose=False):
     spec[f"{prefix}.3.bias"] = ("bias", cout)
 
 
-def build_gridnet_spec(in_channels: int = 12) -> dict:
+def _head0(union: bool) -> str:
+    return "residual_model_head0" if union else "residual_model_head"
+
+
+def build_gridnet_spec(in_channels: int = 12, union: bool = False) -> dict:
     spec = {}
-    _seq_conv_spec(spec, "residual_model_head", in_channels, 64)
+    _seq_conv_spec(spec, _head0(union), in_channels, 64)
     _seq_conv_spec(spec, "residual_model_head1", 128, 64)
     _seq_conv_spec(spec, "residual_model_head2", 256, 128)
     _seq_conv_spec(spec, "residual_model_head3", 384, 192)
@@ -150,6 +161,7 @@ def build_gridnet_spec(in_channels: int = 12) -> dict:
 
 
 GRIDNET_SPEC = build_gridnet_spec(12)
+GRIDNET_UNION_SPEC = build_gridnet_spec(9, union=True)
 
 
 def _tail_out(p: Params, u):
@@ -170,9 +182,10 @@ def _seq_block(p: Params, prefix, x, stride=1, transpose=False):
     return conv2d(p, f"{prefix}.3", prelu(p, f"{prefix}.2", y), stride=1, padding=1)
 
 
-def gridnet_apply(p: Params, x, x1, x2, x3):
-    """GridNet lattice (model_gmfss/FusionNet.py:106-145)."""
-    X00 = _seq_block(p, "residual_model_head", x) + _seq_block(p, "residual_model_head1", x1)
+def gridnet_apply(p: Params, x, x1, x2, x3, union: bool = False):
+    """GridNet lattice (model_gmfss/FusionNet.py:106-145); ``union`` names the
+    head as the union network does."""
+    X00 = _seq_block(p, _head0(union), x) + _seq_block(p, "residual_model_head1", x1)
     X01 = _seq_block(p, "residual_model_01", X00) + X00
     X10 = (_seq_block(p, "downsample_model_10", X00, stride=2)
            + _seq_block(p, "residual_model_head2", x2))

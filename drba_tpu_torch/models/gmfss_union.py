@@ -1,0 +1,158 @@
+"""GMFSS_UNION model wrapper, the high-quality path (counterpart of
+drba_tpu/models/gmfss_union.py; reference models/gmfss_union.py:10-100).
+
+GMFSS with the union MetricNet (metrics bounded by ``Tanh * 10``) plus an
+auxiliary RIFE: IFNet 4.26-heavy runs at half resolution with the DRM map as
+its per-pixel timestep, and its frame is the middle 3 channels of the union
+GridNet's 9-channel head (model_gmfss_union/GMFSS.py:152). ``pad_size`` is 128
+so that the half-resolution IFNet still sees frames divisible by 64. The same
+duck-typed API as ``models/gmfss.GMFSS``; the T timesteps of a window are
+folded into the batch axis.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from drba_tpu_torch.config import DEFAULT, Config, model_device
+from drba_tpu_torch.convert import load_network
+from drba_tpu_torch.drm import calc_drm_gmfss, calc_drm_rife_auxiliary
+from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, pack_transformer_weights
+from drba_tpu_torch.models.gmfss import _select_integer_ts, _select_reuse, _tile, _tile_reuse
+from drba_tpu_torch.models.gmfss_core import (GmfssParams, Reuse, gmfss_reuse,
+                                              gmfss_union_inference)
+from drba_tpu_torch.models.gmfss_nets import FEATURENET_SPEC, GRIDNET_UNION_SPEC, METRICNET_SPEC
+from drba_tpu_torch.models.ifnet import IFNET_SPEC, ifnet_apply, pack_resconv_weights
+from drba_tpu_torch.ops.resize import resize_bilinear, scale_by
+
+
+def _half(x, T):
+    """(1, H, W, C) -> (T, H/2, W/2, C): resized once, broadcast over T."""
+    return _tile(scale_by(x, 0.5), T)
+
+
+def _drba_window(p: GmfssParams, rife_params, I0, I1, I2, ts, reuse10: Reuse, reuse12: Reuse,
+                 scale_list, linear, backend="auto", warp_backend="auto", drm_splat_scale=1.0,
+                 conv_backend="auto"):
+    """All T timesteps of one window, T folded into the batch axis; returns
+    (T, 1, H, W, 3)."""
+    T = ts.shape[0]
+    tt = torch.where(ts < 1, 1 - ts, ts - 1)
+    flow10, flow12 = reuse10.flow01, reuse12.flow01
+    metric10, metric12 = reuse10.metric0, reuse12.metric0
+    drm_g = calc_drm_gmfss(tt, flow10, flow12, metric10, metric12, linear=linear,
+                           backend=backend, splat_scale=drm_splat_scale)
+    drm_r = calc_drm_rife_auxiliary(tt, flow10, flow12, metric10, metric12, linear=linear,
+                                    backend=backend, splat_scale=drm_splat_scale)
+    left = (ts < 1)[:, None, None, None]
+    imgB = torch.where(left, I0, I2)
+    I1b = _tile(I1, T)
+    reuse = _select_reuse(left, reuse10, reuse12)
+    t0 = torch.where(left, drm_g.drm1t_t01, drm_g.drm1t_t12).to(I1.dtype)
+    t1 = torch.where(left, drm_g.drm0t_t01, drm_g.drm2t_t12).to(I1.dtype)
+    drm_rife = torch.where(left, drm_r.drm_t1_t01, drm_r.drm_t1_t12)
+
+    # the auxiliary RIFE at half resolution (models/gmfss_union.py:72-74)
+    I1s = _half(I1, T)
+    IBs = scale_by(imgB, 0.5)
+    ts_map = resize_bilinear(drm_rife, (I1s.shape[1], I1s.shape[2])).to(I1s.dtype)
+    rife, _ = ifnet_apply(rife_params, I1s, IBs, ts_map, scale_list, warp_backend=warp_backend,
+                          conv_backend=conv_backend)
+    out = gmfss_union_inference(p, I1b, imgB, reuse, t0, t1, rife, backend=backend)
+    return _select_integer_ts(out, ts, I0, I1, I2)[:, None]
+
+
+def _drba_window_fused(p: GmfssParams, rife_params, I0, I1, I2, ts, reuse10: Reuse, scale,
+                       scale_list, linear, backend="auto", warp_backend="auto",
+                       attn_backend="auto", drm_splat_scale=1.0, conv_backend="auto"):
+    """reuse(I1, I2) (reusing I1's features from ``reuse10``) plus the
+    window's timesteps. Returns (frames (T, 1, H, W, 3), reuse12)."""
+    reuse12 = gmfss_reuse(p, I1, I2, scale, feat0=reuse10.feat0, union=True,
+                          warp_backend=warp_backend, attn_backend=attn_backend)
+    out = _drba_window(p, rife_params, I0, I1, I2, ts, reuse10, reuse12, scale_list, linear,
+                       backend, warp_backend, drm_splat_scale, conv_backend)
+    return out, reuse12
+
+
+def _ts_batch(p: GmfssParams, rife_params, I0, I1, ts, reuse: Reuse, scale_list,
+              backend="auto", warp_backend="auto", conv_backend="auto"):
+    """Plain interpolation at T timesteps, T folded into the batch axis; the
+    auxiliary RIFE at the plain timesteps, no timestep-swap mask."""
+    T = ts.shape[0]
+    I0s, I1s = _half(I0, T), _half(I1, T)
+    tmap = ts[:, None, None, None].expand(T, I0s.shape[1], I0s.shape[2], 1).to(I0s.dtype)
+    rife, _ = ifnet_apply(rife_params, I0s, I1s, tmap, scale_list, warp_backend=warp_backend,
+                          conv_backend=conv_backend)
+    tcol = ts[:, None, None, None].to(I0.dtype)
+    out = gmfss_union_inference(p, _tile(I0, T), _tile(I1, T), _tile_reuse(reuse, T), tcol,
+                                1 - tcol, rife, enable_mask=False, backend=backend)
+    return _select_integer_ts(out, ts, I0, I1)[:, None]
+
+
+class GMFSS_UNION:
+    """High-quality-path model (reference: models/gmfss_union.py:10-100) on
+    ``device`` (CUDA unless the caller asks for another; raises when there is
+    none).
+
+    The four GMFSS nets take seeds ``seed + 0..3``, the auxiliary IFNet
+    (``rife.pkl``) ``seed + 4``. Parameters are cast to
+    ``config.compute_dtype`` once, on the device; GMFlow's transformer
+    weights and the IFNet's ResConv weights are packed for their kernels
+    once, here.
+    """
+
+    def __init__(self, weights: str | None = None, scale: float = 1.0,
+                 config: Config = DEFAULT, device: str | torch.device = "cuda"):
+        self.device = model_device(device)
+
+        def load(fname, spec, i):
+            params = load_network(weights, fname, spec, seed=config.seed + i,
+                                  strict=config.strict_load)
+            return {k: v.to(self.device, config.compute_dtype) for k, v in params.items()}
+
+        self.params = GmfssParams(
+            pack_transformer_weights(load("flownet.pkl", GMFLOW_SPEC, 0)),
+            load("metric.pkl", METRICNET_SPEC, 1), load("feat.pkl", FEATURENET_SPEC, 2),
+            load("fusionnet.pkl", GRIDNET_UNION_SPEC, 3))
+        self.rife_params = pack_resconv_weights(load("rife.pkl", IFNET_SPEC, 4))
+        self.scale = scale
+        self.scale_list = tuple(s / scale for s in (16.0, 8.0, 4.0, 2.0, 1.0))
+        self.pad_size = 128
+        self.config = config
+
+    def _ts(self, ts) -> torch.Tensor:
+        return torch.as_tensor(list(ts), dtype=torch.float32).to(self.device)
+
+    def reuse(self, img0, img1, feat0=None) -> Reuse:
+        return gmfss_reuse(self.params, img0, img1, self.scale, feat0=feat0, union=True,
+                           warp_backend=self.config.warp_backend,
+                           attn_backend=self.config.attn_backend)
+
+    def inference_ts(self, I0, I1, ts: Sequence[float], reuse=None, return_reuse=False):
+        """Plain interpolation at timesteps in [0, 1]. ``reuse`` (an I0 -> I1
+        ``Reuse``) skips the GMFlow pass; ``return_reuse`` hands the pass back."""
+        if len(ts) == 0:
+            return ([], None) if return_reuse else []
+        if reuse is None:
+            reuse = self.reuse(I0, I1)
+        out = _ts_batch(self.params, self.rife_params, I0, I1, self._ts(ts), reuse,
+                        self.scale_list, backend=self.config.splat_backend,
+                        warp_backend=self.config.warp_backend,
+                        conv_backend=self.config.conv_backend)
+        frames = list(out.unbind(0))
+        return (frames, reuse) if return_reuse else frames
+
+    def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
+        """DRM-adjusted interpolation over a 3-frame window; ``ts`` in
+        [0.5, 1.5). Returns (frames, reuse) with the reuse of (I2, I1) for the
+        next window."""
+        reuse10 = self.reuse(I1, I0) if reuse is None else reuse
+        if len(ts) == 0:
+            return [], self.reuse(I1, I2, feat0=reuse10.feat0).swapped()
+        out, reuse12 = _drba_window_fused(
+            self.params, self.rife_params, I0, I1, I2, self._ts(ts), reuse10, self.scale,
+            self.scale_list, linear, self.config.splat_backend, self.config.warp_backend,
+            self.config.attn_backend, self.config.drm_splat_scale, self.config.conv_backend)
+        return list(out.unbind(0)), reuse12.swapped()

@@ -179,7 +179,7 @@ def launch_window(q, k, v, out, b, h, w, kk, strides, labels, lab_strides, half)
         _check_aligned(name, t, st)
     WINDOW.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   None if labels is None else labels.data_ptr(), b, h, w, kk, *strides,
-                  *lab_strides, half, dtype_code(q), stream_of(q))
+                  *lab_strides, half, dtype_code(q), stream_of(q), device=q.device)
 
 
 def _check_qkv(q, k, v, ndim, vdim=HEAD_DIM):
@@ -246,10 +246,11 @@ def _flash_cuda(q, k, v, rid, with_mask):
     stream = stream_of(q)
     FLASH.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lab is None else lab.data_ptr(), b, L, dtype_code(q),
-                 None if part is None else part.data_ptr(), n_split, stream)
+                 None if part is None else part.data_ptr(), n_split, stream,
+                 device=q.device)
     if part is not None:
         FLASH.launch(part.data_ptr(), out.data_ptr(), b * L, n_split, stream,
-                     entry="drba_flash_combine")
+                     device=q.device, entry="drba_flash_combine")
     return out
 
 

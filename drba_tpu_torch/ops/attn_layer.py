@@ -172,7 +172,8 @@ def layer_proj_cuda(x: torch.Tensor, tgt: torch.Tensor, qkv_p: torch.Tensor) -> 
     from the packed q|k|v weight (``tgt`` may be ``x`` itself)."""
     qkv = torch.empty(x.shape[:-1] + (3 * x.shape[-1],), dtype=x.dtype, device=x.device)
     LAYER.launch(x.data_ptr(), tgt.data_ptr(), qkv_p.data_ptr(), qkv.data_ptr(),
-                 x.numel() // x.shape[-1], dtype_code(x), stream_of(x), entry="drba_layer_proj")
+                 x.numel() // x.shape[-1], dtype_code(x), stream_of(x), device=x.device,
+                 entry="drba_layer_proj")
     return qkv
 
 
@@ -188,7 +189,8 @@ def layer_tail_cuda(x: torch.Tensor, av: torch.Tensor, wt: LayerWeights) -> torc
     ptr = (lambda t: None if t is None else t.data_ptr())
     LAYER.launch(x.data_ptr(), av.data_ptr(), wt.merge_p.data_ptr(), wt.norm1[0].data_ptr(),
                  wt.norm1[1].data_ptr(), ptr(wt.ffn_p), ptr(g2), ptr(b2), out.data_ptr(), hidden,
-                 x.numel() // x.shape[-1], dtype_code(x), stream_of(x), entry="drba_layer_tail")
+                 x.numel() // x.shape[-1], dtype_code(x), stream_of(x), device=x.device,
+                 entry="drba_layer_tail")
     return out
 
 

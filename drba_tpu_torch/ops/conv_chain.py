@@ -113,7 +113,7 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     CONV.launch(x.data_ptr(), w.data_ptr(), None if wp is None else wp.data_ptr(), b.data_ptr(),
                 None if beta is None else beta.data_ptr(), out.data_ptr(),
-                n, h, wd, cin, cout, dtype_code(x), stream_of(x))
+                n, h, wd, cin, cout, dtype_code(x), stream_of(x), device=x.device)
     return out
 
 

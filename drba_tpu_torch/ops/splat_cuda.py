@@ -45,7 +45,7 @@ def splat_scatter_cuda(ten: torch.Tensor, flow: torch.Tensor, metric: torch.Tens
     SPLAT.launch(ten.data_ptr(), flow.data_ptr(), None if metric is None else metric.data_ptr(),
                  acc.data_ptr(), n, h, w, c, mode, dtype_code(ten), dtype_code(flow),
                  dtype_code(ten if metric is None else metric), stream_of(ten),
-                 entry="drba_splat_scatter")
+                 device=ten.device, entry="drba_splat_scatter")
     return acc
 
 
@@ -64,5 +64,5 @@ def splat_normalise_cuda(acc: torch.Tensor, c: int, denom: int, dtype: torch.dty
     cov = torch.empty((n, h, w, 1), dtype=dtype, device=acc.device) if coverage else None
     SPLAT.launch(acc.data_ptr(), out.data_ptr(), None if cov is None else cov.data_ptr(),
                  n * h * w, c, denom, dtype_code(out), stream_of(acc),
-                 entry="drba_splat_normalise")
+                 device=acc.device, entry="drba_splat_normalise")
     return (out, cov) if coverage else out

@@ -47,5 +47,5 @@ def warp_cuda(img: torch.Tensor, flow: torch.Tensor, k: int = 1,
     out = torch.empty((planes, h // k, w // k, c), dtype=img.dtype, device=img.device)
     WARP.launch(img.data_ptr(), None if img1 is None else img1.data_ptr(), flow.data_ptr(),
                 out.data_ptr(), n, h, w, c, k, int(padding_mode == "zeros"), fc, 2,
-                dtype_code(img), dtype_code(flow), stream_of(img))
+                dtype_code(img), dtype_code(flow), stream_of(img), device=img.device)
     return out

@@ -2,15 +2,23 @@
 (counterpart of drba_tpu/pipeline.py; reference driver infer.py:58-174).
 
 Head interval, body loop over (I0, I1, I2) windows with the reuse chain
-carried across windows, tail interval. Frames stay on the model's device
-between windows: decoded uint8 frames go up on a prefetch thread, finished
-frames come down on a small download pool and are written in order.
+carried across windows and a four-way scene-cut branch (infer.py:122-143),
+tail interval. Frames stay on the model's device between windows: decoded
+uint8 frames go up on a prefetch thread, finished frames come down on a small
+download pool and are written in order.
 
-Scene detection (``-s``) is not ported yet; every window is interpolated.
+Scene detection (``enable_scdet``) scores each pair of consecutive frames by
+SSIM at 32x32 (``utils.scdet.scene_ssim``). On a CUDA device the prefetch
+thread uploads each frame and computes its score on a stream of its own,
+then copies the score to pinned host memory and records an event; the loop
+makes its stream wait on that event before it uses the frame, and resolving
+a cut flag synchronises on the event alone, never on the kernels of earlier
+windows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -18,39 +26,100 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from drba_tpu_torch.utils import TMapper, get_valid_net_inp_size, to_inp, to_out
+from drba_tpu_torch.utils.scdet import scene_ssim
 
 # how long emit() may wait for a free slot before the writer counts as stalled
 _STALL_S = 900.0
 
 
+class _Frame:
+    """A frame the prefetch thread uploaded, with its scene score against the
+    previous frame (None without scene detection) and, on a CUDA device, the
+    event recorded on the upload stream after both."""
+
+    def __init__(self, x: torch.Tensor, score, event):
+        self._x = x
+        self._score = score
+        self._event = event
+
+    def take(self) -> torch.Tensor:
+        """The frame, safe to use on the current stream of its device."""
+        if self._event is not None:
+            stream = torch.cuda.current_stream(self._x.device)
+            stream.wait_event(self._event)
+            self._x.record_stream(stream)
+        return self._x
+
+    def cut(self, threshold: float) -> bool:
+        """Whether the frame starts a new scene (its score below ``threshold``);
+        waits for this frame's upload and score only."""
+        if self._event is not None:
+            self._event.synchronize()
+        return bool(self._score < threshold)
+
+
 class _Prefetcher:
     """Decode + upload thread, ``depth`` frames ahead of the window loop.
 
-    A decode/upload failure re-raises on the consuming thread at ``next()``.
+    With ``prev`` (the last frame uploaded before it, as the scene
+    detection's first partner) it also scores each frame against the one
+    before it. On a CUDA device the uploads and scores run on a stream of the
+    thread's own, the scores land in a ring of pinned host floats, and each
+    frame carries an event (see :class:`_Frame`). A decode/upload failure
+    re-raises on the consuming thread at ``next()``.
     """
 
-    def __init__(self, video_io, dst_size, dtype, device, depth: int = 3):
+    def __init__(self, video_io, dst_size, dtype, device, prev=None, depth: int = 3):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._exc: Optional[BaseException] = None
-        self._t = threading.Thread(target=self._loop, args=(video_io, dst_size, dtype, device),
-                                   daemon=True)
+        device = torch.device(device)
+        self._stream = None
+        if device.type == "cuda":
+            self._stream = torch.cuda.Stream(device)
+            # frames in the queue, one being read, one being made: a slot is
+            # free again long before the ring comes round to it
+            self._scores = torch.empty(4 * depth + 4, dtype=torch.float32, pin_memory=True)
+            self._ready = torch.cuda.Event()  # the frames uploaded so far, prev among them
+            self._ready.record(torch.cuda.current_stream(device))
+            if prev is not None:
+                prev.record_stream(self._stream)
+        self._t = threading.Thread(target=self._loop,
+                                   args=(video_io, dst_size, dtype, device, prev), daemon=True)
         self._t.start()
 
-    def _loop(self, video_io, dst_size, dtype, device):
+    def _loop(self, video_io, dst_size, dtype, device, prev):
         try:
+            if self._stream is not None:
+                self._stream.wait_event(self._ready)
+            i = 0
             while True:
                 frame = video_io.read_frame()
                 if frame is None:
                     break
-                self._q.put(to_inp(frame, dst_size, dtype, device))
+                with torch.cuda.stream(self._stream) if self._stream is not None \
+                        else contextlib.nullcontext():
+                    x = to_inp(frame, dst_size, dtype, device)
+                    score = event = None
+                    if prev is not None:
+                        score = scene_ssim(prev, x)
+                        prev = x
+                    if self._stream is not None:
+                        if score is not None:
+                            slot = self._scores[i % len(self._scores)]
+                            score = slot.copy_(score, non_blocking=True)
+                        event = torch.cuda.Event()
+                        event.record(self._stream)
+                self._q.put(_Frame(x, score, event))
+                i += 1
         except Exception as e:  # re-raised by next()
             self._exc = e
         finally:
             self._q.put(None)
 
-    def next(self):
+    def next(self) -> Optional[_Frame]:
         item = self._q.get()
         if item is None and self._exc is not None:
             raise RuntimeError("frame decode/upload thread failed") from self._exc
@@ -178,15 +247,19 @@ class PipelineStats:
     frames_in: int = 0
     frames_out: int = 0
     windows: int = 0
+    scene_cuts: int = 0
     wall_s: float = 0.0  # run_pipeline wall time (decode -> compute -> encode)
 
 
 def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = None,
-                 times: int = -1) -> PipelineStats:
+                 times: int = -1, enable_scdet: bool = False,
+                 scdet_threshold: float = 0.3) -> PipelineStats:
     """Interpolate ``video_io``'s frames into it with ``model``.
 
     ``video_io`` provides ``read_frame`` (HWC uint8 or None at the end),
-    ``write_frame``, ``finish_writing``, ``src_fps`` and ``dst_fps``.
+    ``write_frame``, ``finish_writing``, ``src_fps`` and ``dst_fps``. With
+    ``enable_scdet`` a pair of frames whose SSIM is below ``scdet_threshold``
+    is a scene cut: no frame is interpolated across it.
     """
     stats = PipelineStats()
     t_start = time.perf_counter()
@@ -207,7 +280,10 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
 
     t_mapper = TMapper(src_fps, dst_fps, times)
     idx = 0
-    prefetch = _Prefetcher(video_io, dst_size, dtype, device)
+    # the head's cut flag, on this thread before any window is queued (its
+    # kernels are then loaded before the prefetch thread scores a frame)
+    left_scene = enable_scdet and bool(scene_ssim(I0, I1) < scdet_threshold)
+    prefetch = _Prefetcher(video_io, dst_size, dtype, device, prev=I1 if enable_scdet else None)
     emitter = _Emitter(video_io, src_size, stats)
 
     def emit_all(frames, n_planned):
@@ -216,33 +292,67 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
         for x in frames:
             emitter.emit(x)
 
-    # head (infer.py:93-110): source frame on the left, plain interpolation on the right
+    def chained(reuse):
+        """The carried reuse of (I1, I0) as the (I0, I1) pass, where the model
+        chains one (GMFSS); RIFE's carry serves drba windows only."""
+        return reuse.swapped() if hasattr(reuse, "swapped") else None
+
+    # head (infer.py:93-110): source frame on the left, plain interpolation on
+    # the right; a cut between the first two frames repeats the first
     ts = calc_ts(idx, t_mapper, times)
-    right_ts = ts[ts >= 1] - 1
-    emit_all([I0] * int((ts < 1).sum()) + list(model.inference_ts(I0, I1, right_ts)), len(ts))
+    if left_scene:
+        stats.scene_cuts += 1
+        emit_all([I0] * len(ts), len(ts))
+    else:
+        right_ts = ts[ts >= 1] - 1
+        emit_all([I0] * int((ts < 1).sum()) + list(model.inference_ts(I0, I1, right_ts)),
+                 len(ts))
     if progress:
         progress(1)
 
     # body (infer.py:112-156)
     reuse = None
     while True:
-        I2 = prefetch.next()
-        if I2 is None:
+        item = prefetch.next()
+        if item is None:
             break
+        I2 = item.take()
+        right_scene = enable_scdet and item.cut(scdet_threshold)
         stats.frames_in += 1
+        stats.scene_cuts += int(right_scene)
         ts = calc_ts(idx, t_mapper, times)
-        frames, reuse = model.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True)
+        if left_scene and right_scene:
+            # cuts on both sides: repeat I1 (infer.py:122-124)
+            reuse = None
+            frames = [I1] * len(ts)
+        elif left_scene:
+            # cut between I0 and I1: plain interpolation on the right
+            # (infer.py:126-132); its I1 -> I2 pass, swapped, is the next
+            # window's chain
+            out, fwd = model.inference_ts(I1, I2, ts[ts >= 1] - 1, return_reuse=True)
+            reuse = chained(fwd)
+            frames = [I1] * int((ts < 1).sum()) + list(out)
+        elif right_scene:
+            # cut between I1 and I2: plain interpolation on the left
+            # (infer.py:134-140) on the chain's I0 -> I1 pass
+            prev, reuse = chained(reuse), None
+            frames = (list(model.inference_ts(I0, I1, ts[ts <= 1], reuse=prev))
+                      + [I1] * int((ts > 1).sum()))
+        else:
+            frames, reuse = model.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True)
         emit_all(frames, len(ts))
         I0, I1 = I1, I2
+        left_scene = right_scene
         idx += 1
         stats.windows += 1
         if progress:
             progress(1)
 
-    # tail (infer.py:158-169): plain interpolation on the left, source frame on the right
+    # tail (infer.py:158-169): plain interpolation on the left, on the chain's
+    # I0 -> I1 pass; source frame on the right
     ts = calc_ts(idx, t_mapper, times)
-    left_ts = ts[ts <= 1]
-    emit_all(list(model.inference_ts(I0, I1, left_ts)) + [I1] * int((ts > 1).sum()), len(ts))
+    emit_all(list(model.inference_ts(I0, I1, ts[ts <= 1], reuse=chained(reuse)))
+             + [I1] * int((ts > 1).sum()), len(ts))
     if progress:
         progress(1)
 

@@ -331,15 +331,26 @@ def test_gmfss_windows_and_reuse_chain_match_jax(models):
 
 
 def test_cli_builds_gmfss_and_refuses_the_rest(tmp_path):
+    from drba_tpu.models.gmfss_union import GMFSS_UNION as JaxUnion
     from drba_tpu_torch import cli
+    from drba_tpu_torch.models.gmfss_union import GMFSS_UNION
 
     m = cli.load_model("gmfss", str(tmp_path), 1.0, F32, "cpu")
     assert isinstance(m, GMFSS) and m.pad_size == 64
     # the layer kernels' packed copies of GMFlow's weights are no parameters of their own
     assert sum(v.numel() for p in m.params for k, v in p.items()
                if not k.endswith(".wp")) == 13_496_106
-    with pytest.raises(NotImplementedError, match="gmfss_union"):
-        cli.main(["-m", "gmfss_union", "-i", str(tmp_path / "none.mp4")])
+    u = cli.load_model("gmfss_union", str(tmp_path), 1.0, F32, "cpu")
+    assert isinstance(u, GMFSS_UNION) and u.pad_size == 128
+    # the four union nets and the auxiliary IFNet, without the packed copies
+    # (.wp) and the JAX package's folded lastconvs (.fold4)
+    ju = JaxUnion(weights=None, config=JAX_F32)
+    n_jax = sum(int(np.prod(v.shape)) for p in list(ju.params) + [ju.rife_params]
+                for k, v in p.items() if ".fold4." not in k)
+    assert sum(v.numel() for p in list(u.params) + [u.rife_params] for k, v in p.items()
+               if not k.endswith(".wp")) == n_jax
+    with pytest.raises(ValueError, match="gmfss_union"):
+        cli.main(["-m", "gmfss_plus", "-i", str(tmp_path / "none.mp4")])
 
 
 def test_gmfss_cuda_attention_on_cpu_tensors_raises():

@@ -409,3 +409,119 @@ def test_gmfss_window_kernel_path_matches_plain(dev):
             d = (g.float() - w.float()).abs()
             assert float(d.mean()) <= mean_tol
             assert float((d > 1e-2).float().mean()) <= 5e-2
+
+
+# ------------------------------------------------------------------- devices, union, scene flags
+
+
+def test_kernels_launch_on_their_tensors_device():
+    """With card 0 current, every kernel on tensors of card 1 runs there and
+    agrees with its plain version; card 0 stays current."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from drba_tpu_torch.ops.attention import flash_attention, window_attention_nhwc
+
+    torch.cuda.set_device(0)
+    d1 = torch.device("cuda", 1)
+    gen = torch.Generator(device=d1).manual_seed(21)
+    img = torch.rand(2, 64, 96, 19, generator=gen, device=d1)
+    flow = _flow(gen, 2, 64, 96, 6.0, d1)
+    metric = torch.randn(2, 64, 96, 1, generator=gen, device=d1)
+    x = torch.rand(1, 16, 24, 32, generator=gen, device=d1)
+    st = chain_step(torch.randn(32, 32, 3, 3, generator=gen, device=d1) * 0.05,
+                    torch.zeros(32, device=d1), torch.ones(32, device=d1))
+    q, k, v = (torch.randn(2, 16, 24, 128, generator=gen, device=d1) for _ in range(3))
+    qf, kf = (torch.randn(1, 384, 128, generator=gen, device=d1) * 0.3 for _ in range(2))
+    vf = torch.rand(1, 384, 2, generator=gen, device=d1)
+    for kern, plain, tol in (
+            (lambda: softsplat(img, flow, metric, "soft", backend="cuda"),
+             lambda: softsplat(img, flow, metric, "soft", backend="torch"), 1e-4),
+            (lambda: backwarp(img, flow, backend="cuda"),
+             lambda: backwarp(img, flow, backend="torch"), 1e-5),
+            (lambda: conv_chain(x, [st], backend="cuda"),
+             lambda: conv_chain(x, [st], backend="torch"), 1e-4),
+            (lambda: window_attention_nhwc(q, k, v, 2, None, False, backend="cuda"),
+             lambda: window_attention_nhwc(q, k, v, 2, None, False, backend="torch"), 2e-5),
+            (lambda: flash_attention(qf, kf, vf, None, False, out_dtype=torch.float32,
+                                     backend="cuda"),
+             lambda: flash_attention(qf, kf, vf, None, False, out_dtype=torch.float32,
+                                     backend="torch"), 2e-3)):
+        got = kern()
+        assert got.device == d1 and torch.cuda.current_device() == 0
+        torch.testing.assert_close(got, plain(), atol=tol, rtol=1e-5)
+
+
+def test_union_window_launches_all_six_kernels_and_matches_plain(dev):
+    """A small GMFSS_UNION T=3 window (256x384, divisible by its pad of 128)
+    on the kernel path against the plain path in f32 and bf16; the window
+    launches all six kernels: GMFlow's layers, window and flash attention,
+    the splats, the warps and the auxiliary IFNet's conv chain."""
+    from drba_tpu_torch.config import DEFAULT, F32
+    from drba_tpu_torch.models.gmfss_union import GMFSS_UNION
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    base = torch.rand(1, 256, 384 + 12, 3, generator=gen, device=dev)
+    fr = [base[:, :, 6 * i:6 * i + 384].contiguous() for i in range(3)]
+    for cfg, mean_tol in ((F32, 1e-4), (DEFAULT, 1e-2)):
+        m = GMFSS_UNION(config=cfg, device=dev)
+        plain = GMFSS_UNION(config=cfg.replace(splat_backend="torch", warp_backend="torch",
+                                               conv_backend="torch", attn_backend="torch"),
+                            device=dev)
+        frames = [f.to(cfg.compute_dtype) for f in fr]
+        reuse = m.reuse(frames[1], frames[0])
+        before = _build.counts()
+        got, _ = m.inference_ts_drba(*frames, [0.6, 1.0, 1.4], reuse, linear=True)
+        after = _build.counts()
+        for name in ("splat", "warp", "conv_chain", "window_attention", "flash_attention",
+                     "transformer_layer"):
+            assert after[name] > before[name], name
+        want, _ = plain.inference_ts_drba(*frames, [0.6, 1.0, 1.4], reuse, linear=True)
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == (1, 256, 384, 3) and bool(torch.isfinite(g).all())
+            d = (g.float() - w.float()).abs()
+            assert float(d.mean()) <= mean_tol
+            # the 25x timestep swap and the < 0.999 hole fill flip pixels on
+            # rounding-level differences, as the coverage thresholds do in GMFSS
+            assert float((d > 1e-2).float().mean()) <= 5e-2
+
+
+def test_scene_flag_resolves_while_the_compute_stream_is_busy(dev):
+    """The prefetch thread uploads and scores each frame on its own stream:
+    with the loop's stream kept busy, frames read only after that stream got
+    its work still get their flags while it has not finished. As in
+    ``run_pipeline``, the loop's thread uploads and scores the first frames
+    first (which also loads the kernels these steps use)."""
+    import threading
+
+    import numpy as np
+
+    from drba_tpu_torch.pipeline import _Prefetcher
+    from drba_tpu_torch.utils import to_inp
+    from drba_tpu_torch.utils.scdet import scene_ssim
+
+    go = threading.Event()
+
+    class _IO:
+        def __init__(self, frames):
+            self._frames = list(frames)
+
+        def read_frame(self):
+            assert go.wait(30)  # decode only once the loop's stream is busy
+            return self._frames.pop(0) if self._frames else None
+
+    rng = np.random.default_rng(0)
+    u8 = rng.integers(0, 255, (64, 128, 3), np.uint8)
+    prev = to_inp(u8, (64, 128), torch.float32, dev)
+    assert float(scene_ssim(prev, prev)) > 0.99
+    pf = _Prefetcher(_IO([u8, 255 - u8]), (64, 128), torch.float32, dev, prev=prev)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev)
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of spinning on the loop's stream
+    go.set()
+    same, inverted = pf.next(), pf.next()
+    assert not same.cut(0.3) and inverted.cut(0.3)
+    assert not stream.query(), "the flags waited for the loop's stream"
+    x = inverted.take()
+    assert pf.next() is None
+    torch.cuda.synchronize()
+    torch.testing.assert_close(x, 1 - prev, atol=1e-6, rtol=0)

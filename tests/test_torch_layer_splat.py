@@ -122,7 +122,8 @@ def test_softsplat_cuda_path_runs_two_launches(monkeypatch):
     monkeypatch.setattr(ss, "use_kernel", lambda backend, t: True)
     monkeypatch.setattr(splat_cuda, "check_cuda_input", lambda *a, **k: None)
     monkeypatch.setattr(splat_cuda, "stream_of", lambda t: 0)
-    monkeypatch.setattr(splat_cuda.SPLAT, "launch", lambda *a, entry: calls.append((entry, a)))
+    monkeypatch.setattr(splat_cuda.SPLAT, "launch",
+                        lambda *a, device, entry: calls.append((entry, a)))
     ten = torch.zeros(2, 5, 7, 67)
     flow = torch.zeros(2, 5, 7, 2, dtype=torch.bfloat16)
     metric = torch.zeros(2, 5, 7, 1, dtype=torch.bfloat16)
@@ -250,7 +251,7 @@ def _mock_layer_kernels(monkeypatch):
     monkeypatch.setattr(al, "use_kernel", lambda backend, t: True)
     monkeypatch.setattr(al, "check_cuda_input", lambda *a, **k: None)
     monkeypatch.setattr(al, "stream_of", lambda t: 0)
-    monkeypatch.setattr(al.LAYER, "launch", lambda *a, entry: calls.append((entry, a)))
+    monkeypatch.setattr(al.LAYER, "launch", lambda *a, device, entry: calls.append((entry, a)))
     monkeypatch.setattr(al, "layer_window_attention",
                         lambda qkv, *a, **k: torch.zeros(qkv.shape[:-1] + (128,)))
     return calls

@@ -1,5 +1,5 @@
-"""The port's two-direction warp, the conv chain's packed weights and the
-models' device defaults, on the CPU.
+"""The port's two-direction warp, the conv chain's packed weights, the
+models' device defaults and the kernels' launch device guard, on the CPU.
 
 ``backwarp2``'s plain version is held against the single-direction plain
 warps (exactly) and against drba_tpu's ``backwarp`` / ``_warp_then_downsample``
@@ -129,14 +129,16 @@ def test_rife_packs_its_resconv_weights_once():
 # ------------------------------------------------------------------------ device defaults
 
 
-@pytest.mark.parametrize("model", ["rife", "gmfss"])
+@pytest.mark.parametrize("model", ["rife", "gmfss", "gmfss_union"])
 def test_models_default_to_cuda_and_raise_without_it(model, monkeypatch):
     from drba_tpu_torch.config import F32
 
     if model == "rife":
         from drba_tpu_torch.models.rife import RIFE as cls
-    else:
+    elif model == "gmfss":
         from drba_tpu_torch.models.gmfss import GMFSS as cls
+    else:
+        from drba_tpu_torch.models.gmfss_union import GMFSS_UNION as cls
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cls(config=F32)
@@ -154,9 +156,128 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["-m", "rife", "-i", str(tmp_path / "none.mp4")])
-    # the model type is checked first
-    with pytest.raises(NotImplementedError, match="gmfss_union"):
-        cli.main(["-m", "gmfss_union", "-i", str(tmp_path / "none.mp4")])
-    # with --device cpu the run gets past the device to the input check
+    # the model type is checked first; gmfss_union is one
+    with pytest.raises(ValueError, match="gmfss_union"):
+        cli.main(["-m", "gmfss_plus", "-i", str(tmp_path / "none.mp4")])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["-m", "gmfss_union", "-s", "-i", str(tmp_path / "none.mp4")])
+    # with --device cpu the run gets past the device to the input check, -s accepted
     with pytest.raises(FileNotFoundError):
         cli.main(["-m", "rife", "--device", "cpu", "-i", str(tmp_path / "none.mp4")])
+    with pytest.raises(FileNotFoundError):
+        cli.main(["-m", "gmfss_union", "-s", "-st", "0.2", "--device", "cpu", "-i",
+                  str(tmp_path / "none.mp4")])
+
+
+# ------------------------------------------------------------------- the launch device guard
+
+
+def test_model_device_refuses_cards_it_does_not_see(monkeypatch, tmp_path):
+    """``cuda:7`` on a machine with one card raises, as does the CLI's
+    ``--device cuda:1``, before any model is built."""
+    from drba_tpu_torch import cli
+    from drba_tpu_torch.config import model_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="sees 1 CUDA device"):
+        model_device("cuda:7")
+    assert model_device("cuda:0") == torch.device("cuda", 0)
+    assert model_device("cuda") == torch.device("cuda")
+    monkeypatch.setattr(cli, "load_model", lambda *a, **k: pytest.fail("model built"))
+    with pytest.raises(RuntimeError, match="cuda:1 does not exist"):
+        cli.main(["-m", "gmfss_union", "--device", "cuda:1", "-i", str(tmp_path / "x.mp4")])
+
+
+def _mock_guard(monkeypatch, kernel, current=0):
+    """Let ``kernel.launch`` run on the CPU: its C entries record the device
+    current when they run; ``torch.cuda.device`` records the index it is
+    entered with."""
+    import contextlib
+
+    from drba_tpu_torch import _build
+
+    state = {"current": current, "entered": [], "ran_on": []}
+
+    @contextlib.contextmanager
+    def guard(index):
+        state["entered"].append(index)
+        prev, state["current"] = state["current"], index
+        try:
+            yield
+        finally:
+            state["current"] = prev
+
+    monkeypatch.setattr(_build.torch.cuda, "current_device", lambda: state["current"])
+    monkeypatch.setattr(_build.torch.cuda, "device", guard)
+    monkeypatch.setattr(kernel, "load", lambda: None)
+    monkeypatch.setattr(kernel, "_fns", {e: (lambda *a: state["ran_on"].append(state["current"])
+                                            or 0) for e in kernel.entries})
+    return state
+
+
+def test_kernel_launch_runs_on_its_device(monkeypatch):
+    """The C entry runs with the tensors' device current: the guard is entered
+    with its index where another device is current, and skipped where it is
+    current already; a launch without a CUDA device raises."""
+    from drba_tpu_torch import _build
+
+    state = _mock_guard(monkeypatch, _build.WARP, current=0)
+    n0 = _build.WARP.launches
+    _build.WARP.launch(1, 2, device=torch.device("cuda", 1))
+    assert state["entered"] == [1] and state["ran_on"] == [1] and state["current"] == 0
+    _build.WARP.launch(1, 2, device=torch.device("cuda", 0))
+    _build.WARP.launch(1, 2, device=torch.device("cuda"))
+    assert state["entered"] == [1] and state["ran_on"] == [1, 0, 0]
+    with pytest.raises(ValueError, match="CUDA device"):
+        _build.WARP.launch(1, 2, device=torch.device("cpu"))
+    assert _build.WARP.launches - n0 == 3
+
+
+def _op_calls():
+    """Each kernel wrapper with small CPU tensors: (module, kernel, call,
+    the tensor whose device the launch must take)."""
+    from types import SimpleNamespace
+
+    import importlib
+
+    from drba_tpu_torch._build import CONV, FLASH, LAYER, SPLAT, WARP, WINDOW
+    from drba_tpu_torch.ops import attention, attn_layer, splat_cuda, warp_cuda
+
+    conv_chain = importlib.import_module("drba_tpu_torch.ops.conv_chain")
+
+    z = torch.zeros
+    ten, acc = z(1, 2, 3, 4), z(1, 2, 3, 8)
+    img, x = z(1, 4, 4, 3), z(1, 4, 4, 8)
+    q = z(2, 64, 128)
+    lx = z(1, 2, 2, 128)
+    wt = SimpleNamespace(ffn=None, ffn_p=None, merge_p=z(1), norm1=(z(1), z(1)))
+    return {
+        "splat scatter": (splat_cuda, SPLAT,
+                          lambda: splat_cuda.splat_scatter_cuda(ten, z(1, 2, 3, 2), None, 0), ten),
+        "splat normalise": (splat_cuda, SPLAT,
+                            lambda: splat_cuda.splat_normalise_cuda(acc, 4, 1, torch.float32),
+                            acc),
+        "warp": (warp_cuda, WARP, lambda: warp_cuda.warp_cuda(img, z(1, 4, 4, 2)), img),
+        "conv": (conv_chain, CONV, lambda: conv_chain.conv3x3_cuda(x, z(8, 8, 3, 3), z(8)), x),
+        "window": (attention, WINDOW, lambda: attention._window_cuda(q, q, q, None, False), q),
+        "flash": (attention, FLASH,
+                  lambda: attention._flash_cuda(q, q, z(2, 64, 2), None, False), q),
+        "layer projection": (attn_layer, LAYER, lambda: attn_layer.layer_proj_cuda(lx, lx, z(1)),
+                             lx),
+        "layer tail": (attn_layer, LAYER, lambda: attn_layer.layer_tail_cuda(lx, lx, wt), lx),
+    }
+
+
+@pytest.mark.parametrize("op", list(_op_calls()))
+def test_each_kernel_launch_takes_its_tensors_device(monkeypatch, op):
+    """Every wrapper hands its launch the device of its tensors (mocked on the
+    CPU, where the tensors' device is the CPU's); with
+    test_kernel_launch_runs_on_its_device, each launch runs on that device."""
+    module, kernel, call, tensor = _op_calls()[op]
+    devices = []
+    monkeypatch.setattr(module, "check_cuda_input", lambda *a, **k: None)
+    monkeypatch.setattr(module, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernel, "launch", lambda *a, device, entry=None: devices.append(device))
+    call()
+    assert devices and all(d == tensor.device for d in devices), devices

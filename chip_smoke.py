@@ -30,7 +30,19 @@ Phases (any failure exits non-zero and prints no result):
      are reset just before each run and read just after);
   5. windows: one window of each model on the kernel path against the plain
      path (f32 and bf16), the window time both ways, and a profile of one
-     kernel-path window with its launches per kernel.
+     kernel-path window with its launches per kernel;
+  6. resume: ``run_pipeline(skip_outputs=k)`` (RIFE at a window boundary and
+     inside a window, GMFSS inside a window, RIFE ``-s`` just past a cut)
+     against the uninterrupted run's tail: the written count is the plan
+     less k, fewer kernel launches than the uninterrupted run, and the
+     frames bitwise where two uninterrupted runs are, else within the bf16
+     gate; the segmented writer (cv2 or ffmpeg) is left to the CPU tests;
+  7. devices: ``run_pipeline_parallel`` over two replicas on the one card
+     (two dispatch threads and streams) for the four slices and an 18-frame
+     GMFSS stream, against the serial run (count, frames within the bf16
+     gate, every kernel of the path launched), both timed in turns;
+     ``exchange_accounting`` of one GMFSS group; eight GMFSS windows alone
+     through the serial chain and the planner over one and two replicas.
 
 The line before the last is one JSON object with a summary per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every
@@ -50,6 +62,8 @@ H, W = 1088, 1920          # 1080p padded to RIFE's and GMFSS's multiple of 64
 HU = 1152                  # 1080p padded to GMFSS_UNION's multiple of 128
 SRC_FPS, DST_FPS = 24.0, 60.0
 N_FRAMES = {"rife": 10, "gmfss": 6, "gmfss_union": 6, "scdet": 10}
+# a longer GMFSS stream for the serial / two-thread timing (8 groups of two)
+N_TIMING = 18
 
 # the kernels each path must launch ("scdet": RIFE with scene detection)
 PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain"),
@@ -68,6 +82,10 @@ PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain"),
 # mean and on the share. GMFSS_UNION measured within the same gates (bf16
 # mean 3.7e-4, share 2.1e-3), so it shares them.
 GATES = {"f32": (1e-4, 1e-3), "bf16": (1e-2, 5e-2)}
+# resumed and two-thread runs against the serial uninterrupted run hold the
+# bf16 gate on the written uint8 frames (on the [0, 1] scale), as the splat's
+# f32 atomics make two runs differ in their last bits; bitwise where two
+# uninterrupted runs are
 # the __global__ functions of drba_tpu_torch/csrc (by name prefix)
 DEVICE_KERNELS = ("splat_", "warp_", "conv3x3_", "attn_wgmma_kernel",
                   "attn_fma_kernel", "flash_combine_kernel", "layer_proj_", "layer_tail_")
@@ -646,10 +664,7 @@ def phase_slice(name, dev, scdet=False):
     model.inference_ts = checked_ts
     model.inference_ts_drba = lambda *a, **k: (lambda r: (finite(r[0]), r[1]))(drba_fn(*a, **k))
 
-    frames = synthetic_frames(n_frames)
-    if scdet:  # the pairs (3, 4) and (4, 5) are cuts
-        frames[4] = 255 - frames[4]
-    io = _FrameIO(frames)
+    io = _FrameIO(stream(path))
     _build.reset_counts()
     t0 = time.perf_counter()
     try:
@@ -773,6 +788,247 @@ def profile_window(name, fn):
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+def frames_vs(label, got, want):
+    """Written uint8 frames against a reference run's: bitwise, or the
+    bf16 gate on the [0, 1] scale; returns (bitwise, mean, share)."""
+    import numpy as np
+
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} frames written against {len(want)}")
+    if all(np.array_equal(a, b) for a, b in zip(got, want)):
+        return True, 0.0, 0.0
+    d = np.stack([np.abs(a.astype(np.float32) - b) / 255.0 for a, b in zip(got, want)])
+    return False, float(d.mean()), float((d > 1e-2).mean())
+
+
+def block_ends(n_frames):
+    """Cumulative planned outputs at the end of the head, each window and
+    the tail of an ``n_frames`` stream at SRC_FPS -> DST_FPS."""
+    from itertools import accumulate
+
+    from drba_tpu_torch.pipeline import calc_ts
+    from drba_tpu_torch.utils import TMapper
+
+    tm = TMapper(SRC_FPS, DST_FPS)
+    return list(accumulate(len(calc_ts(i, tm, -1)) for i in [0, *range(n_frames - 1)]))
+
+
+def stream(path, n=None):
+    frames = synthetic_frames(n or N_FRAMES[path])
+    if path == "scdet":  # the pairs (3, 4) and (4, 5) are cuts
+        frames[4] = 255 - frames[4]
+    return frames
+
+
+def phase_resume(dev):
+    """``run_pipeline(skip_outputs=k)`` against the uninterrupted run;
+    returns the resumed runs' launch counts."""
+    import shutil
+
+    import torch
+
+    from drba_tpu_torch import _build
+    from drba_tpu_torch.pipeline import planned_outputs, run_pipeline
+
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+    print(f"resume: skip_outputs driven through run_pipeline on in-memory frames (cv2 "
+          f"{'present' if has_cv2 else 'absent'}, ffmpeg "
+          f"{'present' if shutil.which('ffmpeg') else 'absent'} here); SegmentedVideoIO, its "
+          "manifest and --resume are covered by tests/test_torch_resume.py on the CPU")
+    launches = {k.name: 0 for k in _build.KERNELS}
+    e10, e6 = block_ends(10), block_ends(6)
+    for path, name, points in (
+            ("rife", "rife", {"window boundary": e10[3], "inside a window": e10[5] + 1}),
+            ("gmfss", "gmfss", {"inside a window": e6[2] + 1}),
+            # inside window 4, the first past the cuts (its I0 and I1 cut apart)
+            ("scdet", "rife", {"just past a cut": e10[4] + 1})):
+        model = make_model(name, dev)
+        scdet = path == "scdet"
+        plan = planned_outputs(N_FRAMES[path], SRC_FPS, DST_FPS)
+        full = []
+        for _ in range(2):
+            io = _FrameIO(stream(path))
+            _build.reset_counts()
+            run_pipeline(model, io, enable_scdet=scdet, scdet_threshold=0.3)
+            torch.cuda.synchronize()
+            full.append((io.written, sum(_build.counts().values())))
+        same, mean, share = frames_vs(f"resume {path} two runs", full[1][0], full[0][0])
+        print(f"resume {path}: two uninterrupted runs {'bitwise equal' if same else 'differ'}: "
+              f"mean {mean:.3e}, share(>1e-2) {share:.3e}; {full[0][1]} launches each")
+        for where, k in points.items():
+            io = _FrameIO(stream(path))
+            _build.reset_counts()
+            stats = run_pipeline(model, io, enable_scdet=scdet, scdet_threshold=0.3,
+                                 skip_outputs=k)
+            torch.cuda.synchronize()
+            counts = _build.counts()
+            for kk, v in counts.items():
+                launches[kk] += v
+            if stats.frames_out != plan - k or len(io.written) != plan - k:
+                fail(f"resume {path} at {k}: {stats.frames_out} frames written, plan {plan}")
+            if sum(counts.values()) >= full[0][1]:
+                fail(f"resume {path} at {k}: {sum(counts.values())} launches, not fewer than "
+                     f"the uninterrupted run's {full[0][1]}")
+            bit, mean, share = frames_vs(f"resume {path} at {k}", io.written, full[0][0][k:])
+            print(f"resume {path} at k = {k} ({where}; plan {plan}): {len(io.written)} frames "
+                  f"written, {sum(counts.values())} launches; against the uninterrupted tail: "
+                  f"{'bitwise equal' if bit else f'mean {mean:.3e}, share(>1e-2) {share:.3e}'}")
+            mean_tol, share_tol = GATES["bf16"]
+            if (same and not bit) or mean > mean_tol or share > share_tol:
+                fail(f"resume {path} at {k}: mean {mean:.3e} share {share:.3e} (two "
+                     f"uninterrupted runs {'bitwise equal' if same else 'differ'})")
+        del model
+        torch.cuda.empty_cache()
+    print(f"resume: kernel launches during the resumed runs: {launches}")
+    return launches
+
+
+def phase_devices(dev, gpu_line):
+    """``run_pipeline_parallel`` over two replicas on the one card against
+    the serial loop; returns the parallel runs' launch counts."""
+    import torch
+
+    from drba_tpu_torch import _build
+    from drba_tpu_torch.parallel.batch import WindowPlanner, exchange_accounting
+    from drba_tpu_torch.parallel.pipeline import run_pipeline_parallel
+    from drba_tpu_torch.pipeline import calc_ts, planned_outputs, run_pipeline
+    from drba_tpu_torch.utils import TMapper, to_inp
+
+    launches = {k.name: 0 for k in _build.KERNELS}
+    devices = [dev, dev]
+    runs = [(p, p if p != "scdet" else "rife", None) for p in N_FRAMES] + \
+        [("gmfss", "gmfss", N_TIMING)]
+    for path, name, n in runs:
+        model = make_model(name, dev)
+        scdet = path == "scdet"
+        n_frames = n or N_FRAMES[path]
+        plan = planned_outputs(n_frames, SRC_FPS, DST_FPS)
+        walls, written = {"serial": [], "two threads": []}, {}
+        # serial, two threads, two threads, serial: each side timed twice, in turns
+        for i, label in enumerate(("serial", "two threads", "two threads", "serial")):
+            io = _FrameIO(stream(path, n_frames))
+            _build.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if label == "serial":
+                stats = run_pipeline(model, io, enable_scdet=scdet, scdet_threshold=0.3)
+            else:
+                stats = run_pipeline_parallel(model, io, devices, enable_scdet=scdet,
+                                              scdet_threshold=0.3)
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+            if stats.frames_out != plan or len(io.written) != plan:
+                fail(f"devices {path} {label}: {stats.frames_out} frames, plan {plan}")
+            if i == 1 and n is None:
+                counts = _build.counts()
+                for kk, v in counts.items():
+                    launches[kk] += v
+                for kk in PATH_KERNELS[path]:
+                    if counts[kk] == 0:
+                        fail(f"devices {path}: kernel {kk} was not launched")
+                print(f"devices {path}: kernel launches during the two-thread run: {counts}")
+            written.setdefault(label, io.written)
+        bit, mean, share = frames_vs(f"devices {path}", written["two threads"], written["serial"])
+        fps = {k: plan / (sum(v) / len(v)) for k, v in walls.items()}
+        print(f"devices {path}{f' ({n_frames} frames)' if n else ''}: {plan} frames each; two "
+              f"threads against serial: "
+              f"{'bitwise equal' if bit else f'mean {mean:.3e}, share(>1e-2) {share:.3e}'}; "
+              f"wall serial {walls['serial'][0]:.3f}/{walls['serial'][1]:.3f} s "
+              f"({fps['serial']:.2f} fps), two threads {walls['two threads'][0]:.3f}/"
+              f"{walls['two threads'][1]:.3f} s ({fps['two threads']:.2f} fps), "
+              f"{fps['two threads'] / fps['serial']:.3f}x  [{gpu_line}]")
+        mean_tol, share_tol = GATES["bf16"]
+        if mean > mean_tol or share > share_tol:
+            fail(f"devices {path}: mean {mean:.3e} share {share:.3e} against the serial run")
+        if path == "gmfss" and n is None:
+            size = padded_size(model)
+            fr = [to_inp(f, size, model.config.compute_dtype, dev) for f in stream(path)[:4]]
+            tm = TMapper(SRC_FPS, DST_FPS)
+            windows = [(fr[k], fr[k + 1], fr[k + 2], calc_ts(k, tm, -1)) for k in range(2)]
+            planner = WindowPlanner(devices, model)
+            try:
+                acc = exchange_accounting(planner, windows)
+            finally:
+                planner.close()
+            print(f"devices gmfss: exchange in one group of two 1080p windows: {acc}")
+            if acc["carries"] != [(0, 1)] or acc["frames"]:
+                fail(f"devices gmfss: exchange {acc}, expected one carry and no frame")
+            window_threads(model, devices, gpu_line)
+        del model
+        torch.cuda.empty_cache()
+    print(f"devices: kernel launches during the two-thread runs: {launches}")
+    return launches
+
+
+def window_threads(model, devices, gpu_line):
+    """Eight 1080p windows through the serial chain (one thread), the
+    planner over one replica (its extra work: each window's own pass
+    without the chain's features, a dispatch thread) and over ``devices``
+    (a dispatch thread per replica), without the frame loop's other
+    threads: wall per side, in turns, and the device time of one call of
+    each (torch.profiler; kernels that overlap on two streams each count
+    whole)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from drba_tpu_torch.parallel.batch import WindowPlanner
+    from drba_tpu_torch.pipeline import calc_ts
+    from drba_tpu_torch.utils import TMapper, to_inp
+
+    dev = devices[0]
+    size = padded_size(model)
+    fr = [to_inp(f, size, model.config.compute_dtype, dev) for f in synthetic_frames(10)]
+    tm = TMapper(SRC_FPS, DST_FPS)
+    windows = [(fr[k], fr[k + 1], fr[k + 2], calc_ts(k, tm, -1)) for k in range(8)]
+    n_out = sum(len(w[3]) for w in windows)
+    planners = {"planner x1": WindowPlanner(devices[:1], model),
+                f"planner x{len(devices)}": WindowPlanner(devices, model)}
+
+    def serial():
+        reuse = None
+        for w in windows:
+            _, reuse = model.inference_ts_drba(*w, reuse, linear=True)
+
+    def planned(planner):
+        def run():
+            planner.reset_chain()
+            for _ in planner.run(windows):
+                pass
+        return run
+
+    sides = {"serial": serial, **{k: planned(p) for k, p in planners.items()}}
+    try:
+        for fn in sides.values():  # warm
+            fn()
+        torch.cuda.synchronize()
+        walls = {k: [] for k in sides}
+        for label in [*sides, *reversed(sides)]:  # in turns, each side twice
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sides[label]()
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+        busy = {}
+        for label, fn in sides.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            busy[label] = sum(e.self_device_time_total for e in prof.key_averages()
+                              if e.self_device_time_total > 0 and e.self_cpu_time_total == 0) / 1e3
+    finally:
+        for p in planners.values():
+            p.close()
+    fps = {k: n_out / (sum(v) / len(v)) for k, v in walls.items()}
+    print(f"devices {type(model).__name__} windows alone (8 windows, {n_out} frames; "
+          f"[{gpu_line}]): " + "; ".join(
+              f"{k} {walls[k][0]:.3f}/{walls[k][1]:.3f} s, {fps[k]:.2f} fps "
+              f"({fps[k] / fps['serial']:.3f}x), device {busy[k]:.1f} ms" for k in sides))
+
+
 def main() -> None:
     import torch
 
@@ -813,6 +1069,9 @@ def main() -> None:
             launches[k] += n
     for name in ("rife", "gmfss", "gmfss_union"):
         phase_window(name, dev, gpu_line)
+    for phase in (phase_resume(dev), phase_devices(dev, gpu_line)):
+        for k, n in phase.items():
+            launches[k] += n
 
     kernels = []
     for k in _build.KERNELS:

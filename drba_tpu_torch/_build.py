@@ -98,7 +98,8 @@ class Kernel:
     ``entries`` maps each C entry of the kernel to its ctypes argtypes; the
     first is the default of :meth:`launch`. Several kernels may share a
     source (one library). ``launches`` counts successful launches through
-    :meth:`launch` only, over all entries.
+    :meth:`launch` only, over all entries; the count is exact when several
+    threads launch (the multi-device planner's dispatch threads).
     """
 
     def __init__(self, name: str, source: str, entries: dict):
@@ -167,7 +168,8 @@ class Kernel:
                 rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {rc}")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 _BUILD_LOCKS: dict = {}
@@ -222,7 +224,8 @@ def build_all() -> dict:
 
 def reset_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        with k._lock:
+            k.launches = 0
 
 
 def counts() -> dict:

@@ -3,11 +3,13 @@
 Usage:
   python -m drba_tpu_torch.cli -m rife|gmfss|gmfss_union -i in.mp4 -o out.mp4 \\
       -fps 60 [-t N] [-s] [-st 0.3] [-hw] [-scale 1.0] [--fp32] [--exact-drm] \\
-      [--device cuda|cuda:N|cpu]
+      [--device cuda|cuda:N|cpu] [--devices N] [--splat-backend auto|torch|cuda] \\
+      [--profile] [--seg-frames N [--resume]]
 
 The models run on the CUDA card; without one, or given a card index PyTorch
 does not see, the CLI raises before it builds a model, unless it is given
-``--device cpu``.
+``--device cpu``. ``--devices N`` above the cards PyTorch sees raises before
+a model is built; with ``--device cpu`` it runs N CPU replicas.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import os
 
 import torch
 
-from drba_tpu_torch.config import Config, model_device
+from drba_tpu_torch.config import BACKENDS, Config, model_device
+from drba_tpu_torch.parallel.mesh import make_devices
 from drba_tpu_torch.pipeline import run_pipeline
+from drba_tpu_torch.utils.log import get_logger
 
 
 def parse_args(argv=None):
@@ -38,7 +42,8 @@ def parse_args(argv=None):
     p.add_argument("-st", "--scdet_threshold", dest="scdet_threshold", type=float,
                    default=0.3, help="ssim scene detection threshold")
     p.add_argument("-hw", "--hwaccel", dest="hwaccel", action="store_true",
-                   help="hardware-accelerated encode (ffmpeg h264_nvenc)")
+                   help="hardware encode: ffmpeg's first hardware h264 encoder (nvenc, "
+                        "videotoolbox, vaapi), else libx264")
     p.add_argument("-scale", "--scale", dest="scale", type=float, default=1.0,
                    help="flow scale: 1.0 at 1080p, 0.5 at 4K")
     p.add_argument("--weights", dest="weights", default="weights",
@@ -51,6 +56,21 @@ def parse_args(argv=None):
                    help="fail when a weight file is absent or its keys do not match")
     p.add_argument("--device", dest="device", default="cuda",
                    help="torch device (default: cuda; raises without a CUDA device)")
+    p.add_argument("--devices", dest="devices", type=int, default=1,
+                   help="spread the windows over the first N devices of --device's type, "
+                        "one model replica, dispatch thread and stream each, the reuse chain "
+                        "handed from device to device (parallel/batch.py); 1: the serial loop")
+    p.add_argument("--splat-backend", dest="splat_backend", default="auto", choices=BACKENDS,
+                   help="forward splat: auto (the CUDA kernel on a CUDA tensor), torch (the "
+                        "plain version), cuda (the kernel, raising on the CPU)")
+    p.add_argument("--profile", dest="profile", action="store_true",
+                   help="print wall-clock timings per pipeline stage at the end")
+    p.add_argument("--seg-frames", dest="seg_frames", type=int, default=0,
+                   help="write the output in crash-safe segments of N frames, concatenated "
+                        "(with the source's audio) at the end; enables --resume")
+    p.add_argument("--resume", dest="resume", action="store_true",
+                   help="resume an interrupted segmented run: the output frames of its "
+                        "completed segments are not computed again (needs --seg-frames)")
     return p.parse_args(argv)
 
 
@@ -78,25 +98,57 @@ def main(argv=None):
         raise ValueError(f"model_type must be one of {', '.join(_MODELS)}, "
                          f"got {args.model_type!r}")
     device = model_device(args.device)
+    devices = make_devices(args.devices, device) if args.devices != 1 else [device]
+    if args.resume and args.seg_frames <= 0:
+        raise ValueError("--resume requires --seg-frames N (segmented output)")
     if not os.path.exists(args.input):
         raise FileNotFoundError(f"can't find the video file {args.input}")
 
     from tqdm import tqdm
 
-    from drba_tpu_torch.utils.video_io import VideoFI_IO
-
+    log = get_logger("drba_tpu_torch.cli")
     config = Config(compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,
                     flow_scale=args.scale, scdet_threshold=args.scdet_threshold,
-                    drm_splat_scale=1.0 if args.exact_drm else 0.5, strict_load=args.strict)
-    model = load_model(args.model_type, args.weights, args.scale, config, device)
-    video_io = VideoFI_IO(args.input, args.output, dst_fps=args.dst_fps, times=args.times,
-                          hwaccel=args.hwaccel)
+                    drm_splat_scale=1.0 if args.exact_drm else 0.5,
+                    splat_backend=args.splat_backend, strict_load=args.strict)
+    model = load_model(args.model_type, args.weights, args.scale, config, devices[0])
+
+    skip_outputs = 0
+    if args.seg_frames > 0:
+        from drba_tpu_torch.utils.segmented_io import SegmentedVideoIO
+
+        video_io = SegmentedVideoIO(args.input, args.output, dst_fps=args.dst_fps,
+                                    times=args.times, hwaccel=args.hwaccel,
+                                    seg_frames=args.seg_frames)
+        if args.resume:
+            skip_outputs = video_io.completed_frames
+            log.info("resuming after %d completed output frames", skip_outputs)
+    else:
+        from drba_tpu_torch.utils.video_io import VideoFI_IO
+
+        video_io = VideoFI_IO(args.input, args.output, dst_fps=args.dst_fps, times=args.times,
+                              hwaccel=args.hwaccel)
     pbar = tqdm(total=video_io.total_frames_count)
-    stats = run_pipeline(model, video_io, progress=pbar.update, times=args.times,
-                         enable_scdet=args.enable_scdet, scdet_threshold=args.scdet_threshold)
+    if len(devices) > 1 and args.resume:
+        log.info("--resume runs the serial loop")
+    elif len(devices) > 1 and args.profile:
+        log.info("--profile reports the serial loop only: no stage report with --devices > 1")
+    if len(devices) > 1 and not args.resume:
+        from drba_tpu_torch.parallel.pipeline import run_pipeline_parallel
+
+        stats = run_pipeline_parallel(model, video_io, devices, progress=pbar.update,
+                                      times=args.times, enable_scdet=args.enable_scdet,
+                                      scdet_threshold=args.scdet_threshold)
+    else:
+        stats = run_pipeline(model, video_io, progress=pbar.update, times=args.times,
+                             enable_scdet=args.enable_scdet,
+                             scdet_threshold=args.scdet_threshold, profile=args.profile,
+                             skip_outputs=skip_outputs)
     pbar.close()
     print(f"done: {stats.frames_in} frames in, {stats.frames_out} frames out, "
           f"{stats.windows} windows, {stats.scene_cuts} scene cuts, {stats.wall_s:.2f}s")
+    if stats.stage_report:
+        print(stats.stage_report)
     return stats
 
 

@@ -57,6 +57,7 @@
 // f32: every product on the FMA pipes (64-token tiles, 256 threads, the
 // intermediates in shared memory), reading the same packed weights.
 
+#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -544,10 +545,12 @@ cudaError_t allow_smem(K kernel, int bytes) {
 
 // A persistent grid: as many blocks as fit on the card at once, at most
 // one per tile. The occupancy of each kernel holds per device; asked once
-// per kTag (one tag per kernel: kernels of one signature share K).
+// per kTag (one tag per kernel: kernels of one signature share K). Host
+// threads may launch at once (one per device or stream): the cache is
+// atomic, and a thread that finds it empty asks the runtime itself.
 template <int kTag, typename K>
 cudaError_t persistent_grid(K kernel, int bytes, long long tiles, int* grid) {
-  static int per_sm[kMaxDevices] = {};
+  static std::atomic<int> per_sm[kMaxDevices] = {};
   int dev = 0, sms = 0, nb = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

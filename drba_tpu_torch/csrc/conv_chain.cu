@@ -54,6 +54,8 @@
 // output with its bias is rounded to T, then y * beta, + x and the leaky
 // product are each rounded to T, as separate eager ops would.
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -338,8 +340,9 @@ int launch_mma(const ConvArgs& a, int n, int dev, cudaStream_t s) {
   using C = MmaCfg<WM, WN, NT>;
   auto kernel = conv3x3_mma_kernel<WM, WN, NT>;
   // the attribute holds per device: set once per instantiation and device
-  // (on every launch past kMaxDevices)
-  static bool smem_set[kMaxDevices] = {};
+  // (on every launch past kMaxDevices); atomic, as host threads may launch
+  // at once, and setting it twice is harmless
+  static std::atomic<bool> smem_set[kMaxDevices] = {};
   if (dev >= kMaxDevices || !smem_set[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);

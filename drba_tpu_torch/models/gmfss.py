@@ -57,17 +57,6 @@ def _drba_window(p: GmfssParams, I0, I1, I2, ts, reuse10: Reuse, reuse12: Reuse,
     return _select_integer_ts(out, ts, I0, I1, I2)[:, None]
 
 
-def _drba_window_fused(p: GmfssParams, I0, I1, I2, ts, reuse10: Reuse, scale, linear,
-                       backend="auto", warp_backend="auto", attn_backend="auto",
-                       drm_splat_scale=1.0):
-    """reuse(I1, I2) (reusing I1's features from ``reuse10``) plus the
-    window's timesteps. Returns (frames (T, 1, H, W, 3), reuse12)."""
-    reuse12 = gmfss_reuse(p, I1, I2, scale, feat0=reuse10.feat0, warp_backend=warp_backend,
-                          attn_backend=attn_backend)
-    out = _drba_window(p, I0, I1, I2, ts, reuse10, reuse12, linear, backend, drm_splat_scale)
-    return out, reuse12
-
-
 def _tile(x, T):
     return x.expand((T,) + tuple(x.shape[1:]))
 
@@ -136,15 +125,30 @@ class GMFSS:
         frames = list(out.unbind(0))
         return (frames, reuse) if return_reuse else frames
 
+    def next_reuse(self, I1, I2, feat1=None) -> Reuse:
+        """The reuse ``inference_ts_drba`` hands the window after (., I1, I2):
+        ``reuse(I1, I2)`` swapped. ``feat1``: I1's feature pyramid, where the
+        chain has it."""
+        return gmfss_reuse(self.params, I1, I2, self.scale, feat0=feat1,
+                           warp_backend=self.config.warp_backend,
+                           attn_backend=self.config.attn_backend).swapped()
+
+    def drba_window(self, I0, I1, I2, ts, reuse10: Reuse | None, reuse21: Reuse,
+                    linear: bool = False):
+        """The window's timesteps, unfused from its GMFlow pass: ``reuse10``
+        is the chain's I1 -> I0 reuse (None starts the chain with that pass),
+        ``reuse21`` this window's ``next_reuse(I1, I2)``."""
+        reuse10 = self.reuse(I1, I0) if reuse10 is None else reuse10
+        out = _drba_window(self.params, I0, I1, I2, self._ts(ts), reuse10, reuse21.swapped(),
+                           linear, self.config.splat_backend, self.config.drm_splat_scale)
+        return list(out.unbind(0))
+
     def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
         """DRM-adjusted interpolation over a 3-frame window; ``ts`` in
         [0.5, 1.5). Returns (frames, reuse) with the reuse of (I2, I1) for the
         next window."""
         reuse10 = self.reuse(I1, I0) if reuse is None else reuse
+        nxt = self.next_reuse(I1, I2, feat1=reuse10.feat0)
         if len(ts) == 0:
-            return [], self.reuse(I1, I2, feat0=reuse10.feat0).swapped()
-        out, reuse12 = _drba_window_fused(
-            self.params, I0, I1, I2, self._ts(ts), reuse10, self.scale, linear,
-            self.config.splat_backend, self.config.warp_backend, self.config.attn_backend,
-            self.config.drm_splat_scale)
-        return list(out.unbind(0)), reuse12.swapped()
+            return [], nxt
+        return self.drba_window(I0, I1, I2, ts, reuse10, nxt, linear), nxt

@@ -3,7 +3,10 @@
 Uniform model API:
   * ``.scale`` / ``.pad_size`` / ``.config`` / ``.device``
   * ``inference_ts(I0, I1, ts) -> [frames]``
-  * ``inference_ts_drba(I0, I1, I2, ts, reuse, linear) -> ([frames], reuse)``
+  * ``inference_ts_drba(I0, I1, I2, ts, reuse, linear) -> ([frames], reuse)``,
+    the composition of ``next_reuse(I1, I2)`` (the window's flow pass,
+    reversed: the next window's reuse) and ``drba_window`` (its timesteps),
+    which the multi-device planner (``parallel/batch.py``) runs apart
 
 As in the JAX package, the T timesteps of a window are folded into the batch
 axis, so one IFNet call serves the whole window; integer timesteps pass the
@@ -89,18 +92,6 @@ def _drba_window(params, I0, I1, I2, ts, flow10, flow12, f0, f1, f2, scale_list,
     return _select_integer_ts(out.reshape(T, n, h, w, 3), ts, I0, I1, I2)
 
 
-def _drba_window_fused(params, I0, I1, I2, ts, flow10, f0, f1, scale_list, linear,
-                       splat_backend="auto", warp_backend="auto", drm_splat_scale=1.0,
-                       conv_backend="auto"):
-    """The I1<->I2 flow pass plus the window's timesteps. Returns
-    (frames, flow12, flow21, f2); the last three thread the reuse chain."""
-    flow12, flow21, _, f2 = _calc_flow(params, I1, I2, scale_list[0], f0=f1,
-                                       splat_backend=splat_backend, conv_backend=conv_backend)
-    out = _drba_window(params, I0, I1, I2, ts, flow10, flow12, f0, f1, f2, scale_list, linear,
-                       splat_backend, warp_backend, drm_splat_scale, conv_backend)
-    return out, flow12, flow21, f2
-
-
 def _ts_batch(params, I0, I1, ts, scale_list, warp_backend="auto", conv_backend="auto"):
     """Plain interpolation at T timesteps, T folded into the batch axis."""
     T = ts.shape[0]
@@ -153,6 +144,25 @@ class RIFE:
         frames = list(out.unbind(0))
         return (frames, None) if return_reuse else frames
 
+    def next_reuse(self, I1, I2, f1=None):
+        """The reuse ``inference_ts_drba`` hands the window after (., I1, I2):
+        the I1 -> I2 pass reversed, (flow21, flow12, f2, f1). ``f1``: I1's
+        encoder features, where the chain has them."""
+        flow12, flow21, f1, f2 = self._calc_flow(I1, I2, f0=f1)
+        return flow21, flow12, f2, f1
+
+    def drba_window(self, I0, I1, I2, ts, reuse10, reuse21, linear: bool = False):
+        """The window's timesteps, unfused from its flow pass: ``reuse10`` is
+        the chain's (flow10, flow01, f1, f0) (None starts the chain with the
+        I1 -> I0 pass), ``reuse21`` this window's ``next_reuse(I1, I2)``."""
+        flow10, _flow01, f1, f0 = self._calc_flow(I1, I0) if reuse10 is None else reuse10
+        _flow21, flow12, f2, _ = reuse21
+        out = _drba_window(self.params, I0, I1, I2, self._ts(ts), flow10, flow12, f0, f1, f2,
+                           self.scale_list, linear, self.config.splat_backend,
+                           self.config.warp_backend, self.config.drm_splat_scale,
+                           self.config.conv_backend)
+        return list(out.unbind(0))
+
     def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
         """DRM-adjusted interpolation over a 3-frame window.
 
@@ -160,19 +170,9 @@ class RIFE:
         (frames, reuse); reuse carries the I1<->I2 flows and encoder features
         to the next window.
         """
-        if reuse is not None:
-            flow10, _flow01, f1, f0 = reuse
-        else:
-            flow10, _flow01, f1, f0 = self._calc_flow(I1, I0)
-
+        if reuse is None:
+            reuse = self._calc_flow(I1, I0)
+        nxt = self.next_reuse(I1, I2, f1=reuse[2])
         if len(ts) == 0:
-            flow12, flow21, _, f2 = self._calc_flow(I1, I2, f0=f1)
-            return [], (flow21, flow12, f2, f1)
-
-        out, flow12, flow21, f2 = _drba_window_fused(
-            self.params, I0, I1, I2, self._ts(ts), flow10, f0, f1, self.scale_list, linear,
-            self.config.splat_backend, self.config.warp_backend, self.config.drm_splat_scale,
-            self.config.conv_backend,
-        )
-        # next window's (flow10, flow01, f1, f0) = the current I1<->I2 pass reversed
-        return list(out.unbind(0)), (flow21, flow12, f2, f1)
+            return [], nxt
+        return self.drba_window(I0, I1, I2, ts, reuse, nxt, linear), nxt

@@ -148,11 +148,15 @@ def _sm_count(device: torch.device) -> int:
 
 @functools.lru_cache(maxsize=64)
 def _device_labels(data: bytes, shape: tuple, device: str) -> torch.Tensor:
+    # a blocking host-to-device copy: PyTorch synchronises the uploading
+    # stream before ``to`` returns, so the cached tensor has landed before any
+    # thread's stream can read it (tests/test_torch_gpu.py checks this)
     return torch.from_numpy(np.frombuffer(data, np.int32).reshape(shape).copy()).to(device)
 
 
 def device_labels(labels, device: torch.device) -> torch.Tensor:
-    """Static numpy region ids as a cached int32 tensor on ``device``."""
+    """Static numpy region ids as a cached int32 tensor on ``device``, safe
+    to read on any stream of that device."""
     a = np.ascontiguousarray(np.asarray(labels, np.int32))
     return _device_labels(a.tobytes(), a.shape, str(device))
 

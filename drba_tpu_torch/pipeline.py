@@ -14,6 +14,13 @@ then copies the score to pinned host memory and records an event; the loop
 makes its stream wait on that event before it uses the frame, and resolving
 a cut flag synchronises on the event alone, never on the kernels of earlier
 windows.
+
+Resume (``skip_outputs``): blocks (head, windows, tail) whose outputs all lie
+before the resume point run no model call; the block across it is computed
+and emits only its part past the point. The first block computed gets the
+reuse the uninterrupted run would hand it: the last skipped window's
+I1 -> I2 pass, recomputed, where that window chained one. So a resumed run
+writes the uninterrupted run's frames.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from drba_tpu_torch.utils import TMapper, get_valid_net_inp_size, to_inp, to_out
+from drba_tpu_torch.utils.profiling import StageTimes
 from drba_tpu_torch.utils.scdet import scene_ssim
 
 # how long emit() may wait for a free slot before the writer counts as stalled
@@ -36,22 +44,41 @@ _STALL_S = 900.0
 
 
 class _Frame:
-    """A frame the prefetch thread uploaded, with its scene score against the
+    """A decoded frame uploaded to a device, with its scene score against the
     previous frame (None without scene detection) and, on a CUDA device, the
-    event recorded on the upload stream after both."""
+    event recorded on the upload stream after both. Another device that asks
+    for the frame gets its own upload of the decoded frame, once, on that
+    device's current stream."""
 
-    def __init__(self, x: torch.Tensor, score, event):
-        self._x = x
+    def __init__(self, img: np.ndarray, dst_size, dtype, x: torch.Tensor, score=None,
+                 event=None):
+        self._img, self._size, self._dtype = img, dst_size, dtype
+        self._device = x.device
+        self._copies = {x.device: (x, event)}
         self._score = score
         self._event = event
+        self._lock = threading.Lock()
 
-    def take(self) -> torch.Tensor:
-        """The frame, safe to use on the current stream of its device."""
-        if self._event is not None:
-            stream = torch.cuda.current_stream(self._x.device)
-            stream.wait_event(self._event)
-            self._x.record_stream(stream)
-        return self._x
+    def take(self, device=None) -> torch.Tensor:
+        """The frame on ``device`` (default: the one it was uploaded to), safe
+        to use on that device's current stream."""
+        device = self._device if device is None else torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        with self._lock:
+            if device not in self._copies:
+                x = to_inp(self._img, self._size, self._dtype, device)
+                event = None
+                if x.is_cuda:
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(device))
+                self._copies[device] = (x, event)
+            x, event = self._copies[device]
+        if event is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(event)
+            x.record_stream(stream)
+        return x
 
     def cut(self, threshold: float) -> bool:
         """Whether the frame starts a new scene (its score below ``threshold``);
@@ -112,7 +139,7 @@ class _Prefetcher:
                             score = slot.copy_(score, non_blocking=True)
                         event = torch.cuda.Event()
                         event.record(self._stream)
-                self._q.put(_Frame(x, score, event))
+                self._q.put(_Frame(frame, dst_size, dtype, x, score, event))
                 i += 1
         except Exception as e:  # re-raised by next()
             self._exc = e
@@ -248,21 +275,75 @@ class PipelineStats:
     frames_out: int = 0
     windows: int = 0
     scene_cuts: int = 0
+    stage_report: Optional[str] = None  # with ``profile``: wall-clock per stage
     wall_s: float = 0.0  # run_pipeline wall time (decode -> compute -> encode)
 
 
+def _chained(reuse):
+    """The carried reuse of (I1, I0) as the (I0, I1) pass, where the model
+    chains one (GMFSS); RIFE's carry serves drba windows only."""
+    return reuse.swapped() if hasattr(reuse, "swapped") else None
+
+
+def _window(model, I0, I1, I2, ts, left_scene: bool, right_scene: bool, reuse):
+    """One body window with the reference's four-way scene branch
+    (infer.py:122-143). ``reuse``: the chain's reuse, which no branch with a
+    cut between I0 and I1 reads. Returns (frames, the reuse the next window
+    takes)."""
+    if left_scene and right_scene:
+        # cuts on both sides: repeat I1 (infer.py:122-124)
+        return [I1] * len(ts), None
+    if left_scene:
+        # cut between I0 and I1: plain interpolation on the right
+        # (infer.py:126-132); its I1 -> I2 pass, swapped, is the next
+        # window's chain
+        out, fwd = model.inference_ts(I1, I2, ts[ts >= 1] - 1, return_reuse=True)
+        return [I1] * int((ts < 1).sum()) + list(out), _chained(fwd)
+    if right_scene:
+        # cut between I1 and I2: plain interpolation on the left
+        # (infer.py:134-140) on the chain's I0 -> I1 pass
+        return (list(model.inference_ts(I0, I1, ts[ts <= 1], reuse=_chained(reuse)))
+                + [I1] * int((ts > 1).sum())), None
+    return model.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True)
+
+
+def _head(model, I0, I1, ts, cut: bool):
+    """The head (infer.py:93-110): source frame on the left, plain
+    interpolation on the right; a cut between the first two frames repeats
+    the first."""
+    if cut:
+        return [I0] * len(ts)
+    return [I0] * int((ts < 1).sum()) + list(model.inference_ts(I0, I1, ts[ts >= 1] - 1))
+
+
+def _tail(model, I0, I1, ts, reuse):
+    """The tail (infer.py:158-169): plain interpolation on the left, on the
+    chain's I0 -> I1 pass; source frame on the right."""
+    return (list(model.inference_ts(I0, I1, ts[ts <= 1], reuse=_chained(reuse)))
+            + [I1] * int((ts > 1).sum()))
+
+
 def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = None,
-                 times: int = -1, enable_scdet: bool = False,
-                 scdet_threshold: float = 0.3) -> PipelineStats:
+                 times: int = -1, enable_scdet: bool = False, scdet_threshold: float = 0.3,
+                 profile: bool = False, skip_outputs: int = 0,
+                 max_frames: Optional[int] = None) -> PipelineStats:
     """Interpolate ``video_io``'s frames into it with ``model``.
 
     ``video_io`` provides ``read_frame`` (HWC uint8 or None at the end),
     ``write_frame``, ``finish_writing``, ``src_fps`` and ``dst_fps``. With
     ``enable_scdet`` a pair of frames whose SSIM is below ``scdet_threshold``
     is a scene cut: no frame is interpolated across it.
+
+    ``skip_outputs`` resumes a run whose first N output frames were written
+    (``SegmentedVideoIO.completed_frames``; see the module docstring).
+    ``max_frames`` stops reading after that many input frames. With
+    ``profile`` a wall-clock report per stage (``window``, ``emit-wait``,
+    ``prefetch-wait``, ``scdet``, ``finish``) is attached to the stats;
+    kernels launch asynchronously, so ``window`` measures the host's dispatch.
     """
     stats = PipelineStats()
     t_start = time.perf_counter()
+    st = StageTimes() if profile else None
     src_fps, dst_fps = video_io.src_fps, video_io.dst_fps
     if dst_fps <= src_fps:
         raise ValueError(f"dst fps must exceed src fps ({dst_fps} <= {src_fps})")
@@ -286,61 +367,77 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
     prefetch = _Prefetcher(video_io, dst_size, dtype, device, prev=I1 if enable_scdet else None)
     emitter = _Emitter(video_io, src_size, stats)
 
-    def emit_all(frames, n_planned):
+    def stage(name):
+        return st.stage(name) if st is not None else contextlib.nullcontext()
+
+    plan_pos = 0  # output frames planned so far, skipped and emitted
+
+    def emit_block(n_planned, build) -> bool:
+        """Plan ``n_planned`` frames; build and emit the part past
+        ``skip_outputs``. Returns False for a block skipped whole (``build``
+        not called)."""
+        nonlocal plan_pos
+        start = plan_pos
+        plan_pos += n_planned
+        if plan_pos <= skip_outputs:
+            return False
+        with stage("window"):
+            frames = build()
         if len(frames) != n_planned:
             raise RuntimeError(f"window produced {len(frames)} frames, planned {n_planned}")
-        for x in frames:
-            emitter.emit(x)
+        with stage("emit-wait"):
+            for x in frames[max(0, skip_outputs - start):]:
+                emitter.emit(x)
+        return True
 
-    def chained(reuse):
-        """The carried reuse of (I1, I0) as the (I0, I1) pass, where the model
-        chains one (GMFSS); RIFE's carry serves drba windows only."""
-        return reuse.swapped() if hasattr(reuse, "swapped") else None
+    reuse = None  # the reuse the next window takes
+    # resume: (I1, I2, plain) of the last skipped window whose I1 -> I2 pass
+    # is the chain (``plain``: a window with a cut between I0 and I1)
+    skipped_pass = None
 
-    # head (infer.py:93-110): source frame on the left, plain interpolation on
-    # the right; a cut between the first two frames repeats the first
+    def chain():
+        """The chain's reuse; after skipped windows, the last one's pass,
+        recomputed as the uninterrupted run computed it."""
+        nonlocal reuse, skipped_pass
+        if skipped_pass is not None:
+            a, b, plain = skipped_pass
+            skipped_pass = None
+            reuse = model.next_reuse(a, b)
+            if plain and not hasattr(reuse, "swapped"):
+                reuse = None  # a plain window hands a pass on only in GMFSS
+        return reuse
+
     ts = calc_ts(idx, t_mapper, times)
-    if left_scene:
-        stats.scene_cuts += 1
-        emit_all([I0] * len(ts), len(ts))
-    else:
-        right_ts = ts[ts >= 1] - 1
-        emit_all([I0] * int((ts < 1).sum()) + list(model.inference_ts(I0, I1, right_ts)),
-                 len(ts))
+    stats.scene_cuts += int(left_scene)
+    emit_block(len(ts), lambda: _head(model, I0, I1, ts, left_scene))
     if progress:
         progress(1)
 
     # body (infer.py:112-156)
-    reuse = None
-    while True:
-        item = prefetch.next()
+    while max_frames is None or stats.frames_in < max_frames:
+        with stage("prefetch-wait"):
+            item = prefetch.next()
         if item is None:
             break
         I2 = item.take()
-        right_scene = enable_scdet and item.cut(scdet_threshold)
+        with stage("scdet"):
+            right_scene = enable_scdet and item.cut(scdet_threshold)
         stats.frames_in += 1
         stats.scene_cuts += int(right_scene)
         ts = calc_ts(idx, t_mapper, times)
-        if left_scene and right_scene:
-            # cuts on both sides: repeat I1 (infer.py:122-124)
-            reuse = None
-            frames = [I1] * len(ts)
-        elif left_scene:
-            # cut between I0 and I1: plain interpolation on the right
-            # (infer.py:126-132); its I1 -> I2 pass, swapped, is the next
-            # window's chain
-            out, fwd = model.inference_ts(I1, I2, ts[ts >= 1] - 1, return_reuse=True)
-            reuse = chained(fwd)
-            frames = [I1] * int((ts < 1).sum()) + list(out)
-        elif right_scene:
-            # cut between I1 and I2: plain interpolation on the left
-            # (infer.py:134-140) on the chain's I0 -> I1 pass
-            prev, reuse = chained(reuse), None
-            frames = (list(model.inference_ts(I0, I1, ts[ts <= 1], reuse=prev))
-                      + [I1] * int((ts > 1).sum()))
-        else:
-            frames, reuse = model.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True)
-        emit_all(frames, len(ts))
+
+        def build(I0=I0, I1=I1, I2=I2, ts=ts, ls=left_scene, rs=right_scene):
+            nonlocal reuse
+            frames, reuse = _window(model, I0, I1, I2, ts, ls, rs, None if ls else chain())
+            return frames
+
+        if not emit_block(len(ts), build):
+            # skipped: the chain the uninterrupted run leaves behind it
+            reuse = skipped_pass = None
+            if not right_scene and not left_scene:
+                skipped_pass = (I1, I2, False)
+            elif not right_scene and (ts >= 1).any():
+                skipped_pass = (I1, I2, True)
         I0, I1 = I1, I2
         left_scene = right_scene
         idx += 1
@@ -348,15 +445,15 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
         if progress:
             progress(1)
 
-    # tail (infer.py:158-169): plain interpolation on the left, on the chain's
-    # I0 -> I1 pass; source frame on the right
     ts = calc_ts(idx, t_mapper, times)
-    emit_all(list(model.inference_ts(I0, I1, ts[ts <= 1], reuse=chained(reuse)))
-             + [I1] * int((ts > 1).sum()), len(ts))
+    emit_block(len(ts), lambda: _tail(model, I0, I1, ts, chain()))
     if progress:
         progress(1)
 
-    emitter.finish()
-    video_io.finish_writing()
+    with stage("finish"):
+        emitter.finish()
+        video_io.finish_writing()
     stats.wall_s = time.perf_counter() - t_start
+    if st is not None:
+        stats.stage_report = st.report()
     return stats

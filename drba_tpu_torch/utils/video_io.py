@@ -9,17 +9,50 @@ imports without it.
 
 from __future__ import annotations
 
+import functools
+import os
 import queue
 import shutil
 import subprocess
 import threading
 
+from drba_tpu_torch.utils.log import get_logger
 
-def encoder_args(hwaccel: bool) -> list[str]:
-    """ffmpeg video-encoder args; ``-hw`` takes NVENC, which an NVIDIA host has."""
-    if hwaccel:
+
+@functools.lru_cache(maxsize=1)
+def _ffmpeg_encoders() -> str:
+    """The host ffmpeg's encoder list (probed once per process; empty when
+    ffmpeg cannot be run)."""
+    try:
+        out = subprocess.run(["ffmpeg", "-hide_banner", "-encoders"], capture_output=True,
+                             timeout=20)
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+    return out.stdout.decode("utf-8", "replace")
+
+
+def select_encoder(hwaccel: bool) -> list[str]:
+    """ffmpeg video-encoder args for the ``-hw`` flag.
+
+    The reference hard-codes ``h264_nvenc`` behind ``-hw``
+    (models/utils/tools.py:176-178), which fails on an ffmpeg built without
+    NVENC. The encoder list is probed once, and the first hardware encoder
+    present is taken (nvenc, videotoolbox, vaapi); else libx264 with a fast
+    preset and a warning, so ``-hw`` never fails where plain mode works.
+    """
+    if not hwaccel:
+        return ["-c:v", "libx264", "-qp", "16", "-preset", "medium"]
+    enc = _ffmpeg_encoders()
+    if " h264_nvenc " in enc:
         return ["-c:v", "h264_nvenc", "-qp", "16", "-preset", "p7"]
-    return ["-c:v", "libx264", "-qp", "16", "-preset", "medium"]
+    if " h264_videotoolbox " in enc:
+        return ["-c:v", "h264_videotoolbox", "-q:v", "65"]
+    if " h264_vaapi " in enc and os.path.exists("/dev/dri/renderD128"):
+        return ["-vf", "format=nv12,hwupload", "-vaapi_device", "/dev/dri/renderD128",
+                "-c:v", "h264_vaapi", "-qp", "16"]
+    get_logger("drba_tpu_torch.video_io").warning(
+        "no hardware h264 encoder in this ffmpeg; -hw falls back to libx264 -preset fast")
+    return ["-c:v", "libx264", "-qp", "16", "-preset", "fast"]
 
 
 class VideoFI_IO:
@@ -46,7 +79,7 @@ class VideoFI_IO:
             cmd = ["ffmpeg", "-y", "-f", "rawvideo", "-pix_fmt", "rgb24",
                    "-r", f"{self.dst_fps}", "-s", f"{self.width}x{self.height}",
                    "-i", "pipe:0", "-i", input_path, "-map", "0:v", "-map", "1:a?",
-                   *encoder_args(hwaccel), "-movflags", "+faststart", "-pix_fmt", "yuv420p",
+                   *select_encoder(hwaccel), "-movflags", "+faststart", "-pix_fmt", "yuv420p",
                    "-c:a", "aac", "-b:a", "320k", output_path]
             self._ffmpeg = subprocess.Popen(cmd, stdin=subprocess.PIPE)
         else:

@@ -525,3 +525,133 @@ def test_scene_flag_resolves_while_the_compute_stream_is_busy(dev):
     assert pf.next() is None
     torch.cuda.synchronize()
     torch.testing.assert_close(x, 1 - prev, atol=1e-6, rtol=0)
+
+
+# ------------------------------------------------------------- dispatch threads, the planner
+
+
+def _card_windows(dev, dtype, n=4):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    base = torch.rand(1, 128, 192 + 6 * (n + 2), 3, generator=gen, device=dev)
+    fr = [base[:, :, 6 * i:6 * i + 192].contiguous().to(dtype) for i in range(n + 2)]
+    ts = ([0.6, 1.0, 1.4], [0.8, 1.2])
+    return [(fr[k], fr[k + 1], fr[k + 2], ts[k % 2]) for k in range(n)]
+
+
+def test_two_dispatch_threads_on_one_card_match_one_thread(dev):
+    """The planner with two GMFSS replicas on one card (two dispatch
+    threads, two streams) against the serial chain on one thread, bf16:
+    within the bf16 window gate (the splat's f32 atomics add in any order,
+    so two runs need not agree in their last bits); every kernel of the path
+    launches."""
+    from drba_tpu_torch.models.gmfss import GMFSS
+    from drba_tpu_torch.parallel.batch import WindowPlanner
+
+    m = GMFSS(device=dev)
+    windows = _card_windows(dev, torch.bfloat16)
+    want, reuse = [], None
+    for w in windows:
+        out, reuse = m.inference_ts_drba(*w, reuse, linear=True)
+        want.append(out)
+    planner = WindowPlanner([dev, dev], m)
+    try:
+        before = _build.counts()
+        got = list(planner.run(windows))
+        torch.cuda.synchronize()
+        after = _build.counts()
+    finally:
+        planner.close()
+    for name in ("splat", "warp", "window_attention", "flash_attention", "transformer_layer"):
+        assert after[name] > before[name], name
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        d = torch.stack([(a.float() - b.float()).abs() for a, b in zip(g, w)])
+        assert float(d.mean()) <= 1e-2 and float((d > 1e-2).float().mean()) <= 5e-2
+
+
+def test_device_labels_cache_is_safe_across_streams(dev):
+    """A label tensor cached while its uploading stream is busy is whole
+    when another stream reads it at once: the upload is a blocking copy."""
+    import numpy as np
+
+    from drba_tpu_torch.ops.attention import device_labels
+
+    lab = np.arange(64 * 4099, dtype=np.int32).reshape(64, 4099)  # a shape nothing else caches
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        torch.cuda._sleep(500_000_000)  # s1 busy for a while
+        t = device_labels(lab, dev)
+    with torch.cuda.stream(s2):
+        got = t.clone()  # no wait on s1
+    torch.cuda.synchronize()
+    assert np.array_equal(got.cpu().numpy(), lab)
+
+
+def test_launch_counts_are_exact_under_two_threads(dev):
+    """Two threads launching the warp kernel at once, each on a stream of
+    its own, with the interpreter switching threads often: every launch is
+    counted."""
+    import sys
+    import threading
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    img = torch.rand(1, 16, 32, 3, generator=gen, device=dev)
+    flow = _flow(gen, 1, 16, 32, 3.0, dev)
+    backwarp(img, flow, backend="cuda")  # built and loaded
+    n, errors = 300, []
+
+    def launch():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                for _ in range(n):
+                    backwarp(img, flow, backend="cuda")
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        n0 = _build.WARP.launches
+        threads = [threading.Thread(target=launch) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads) and not errors
+        assert _build.WARP.launches - n0 == 2 * n
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+
+
+def test_planner_on_two_cards_matches_the_serial_chain():
+    """RIFE windows over two cards against the serial chain on card 0, f32;
+    the carry crosses once per group boundary (frames given as tensors on
+    card 0 are copied to card 1, and counted)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from drba_tpu_torch.config import F32
+    from drba_tpu_torch.models.rife import RIFE
+    from drba_tpu_torch.parallel.batch import WindowPlanner, exchange_accounting
+
+    torch.backends.cudnn.allow_tf32 = False
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    m = RIFE(config=F32, device=d0)
+    windows = _card_windows(d0, torch.float32)
+    want, reuse = [], None
+    for w in windows:
+        out, reuse = m.inference_ts_drba(*w, reuse, linear=True)
+        want.append(out)
+    planner = WindowPlanner([d0, d1], m)
+    try:
+        got = list(planner.run(windows))
+        acc = exchange_accounting(planner, windows)
+    finally:
+        planner.close()
+    assert [g[0].device for g in got] == [d0, d1, d0, d1]
+    for g, w in zip(got, want):
+        d = torch.stack([(a.to(d0) - b).abs() for a, b in zip(g, w)])
+        # f32: the splat's atomics in another order, through five IFNet stages
+        assert float(d.mean()) <= 1e-4 and float((d > 1e-2).float().mean()) <= 1e-3
+    assert acc["carries"] == [(0, 1)] and acc["frames"] == 3

@@ -17,7 +17,9 @@ Phases (any failure exits non-zero and prints no result):
      computes the same function, that call's time (used nowhere in the port);
      the splat as the paths' six softsplat calls (scatter and normalise
      launches), the layer's projection, window and tail also timed apart;
-     GMFSS_UNION's shapes (1080p padded to 1152x1920) checked and timed
+     GMFSS_UNION's shapes (1080p padded to 1152x1920) and the conv chain's
+     GMFSS steps (pre-PReLU, plain and final residuals: GridNet L0/L1,
+     heads and tail, MetricNet, FeatureNet level 1) checked and timed
      outside the summed rows;
   4. slices: ``run_pipeline`` on synthetic 1080p frames at 24 -> 60 fps in
      bf16, with a seed-0 random-weight RIFE (IFNet 4.26-heavy, full width), a
@@ -30,7 +32,10 @@ Phases (any failure exits non-zero and prints no result):
      are reset just before each run and read just after);
   5. windows: one window of each model on the kernel path against the plain
      path (f32 and bf16), the window time both ways, and a profile of one
-     kernel-path window with its launches per kernel;
+     kernel-path window with its launches per kernel; GMFSS's and
+     GMFSS_UNION's windows also timed with ``conv_backend="torch"`` alone
+     (every conv on cuDNN, as before the conv chain took their nets' convs),
+     in turns with the other two;
   6. resume: ``run_pipeline(skip_outputs=k)`` (RIFE at a window boundary and
      inside a window, GMFSS inside a window, RIFE ``-s`` just past a cut)
      against the uninterrupted run's tail: the written count is the plan
@@ -67,8 +72,8 @@ N_TIMING = 18
 
 # the kernels each path must launch ("scdet": RIFE with scene detection)
 PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain"),
-                "gmfss": ("splat", "warp", "window_attention", "flash_attention",
-                          "transformer_layer"),
+                "gmfss": ("splat", "warp", "conv_chain", "window_attention",
+                          "flash_attention", "transformer_layer"),
                 "gmfss_union": ("splat", "warp", "conv_chain", "window_attention",
                                 "flash_attention", "transformer_layer"),
                 "scdet": ("splat", "warp", "conv_chain")}
@@ -104,7 +109,8 @@ LIBRARY = {"splat": "none: no single call scatters with bilinear weights and nor
            "warp": "F.grid_sample on a precomputed normalised grid, both directions' images "
                    "stacked beforehand, at the k = 1 launches only (stage 4 C=19 and the merge "
                    "C=3); the tap-averaged k = 2/4/8 warps have none",
-           "conv_chain": "F.conv2d with bias (cuDNN), without the ResConv epilogue",
+           "conv_chain": "F.conv2d with bias (cuDNN), without the epilogue (ResConv, "
+                         "pre-PReLU, residual)",
            "window_attention": "F.scaled_dot_product_attention on the windows split "
                                "beforehand, boolean mask where masked; fastest backend",
            "flash_attention": "F.scaled_dot_product_attention, value zero-padded to 8 or 128 "
@@ -406,8 +412,60 @@ def phase_kernels(dev):
             record("conv_chain", err, kern, lambda: _step_plain(x, st), 10, dt,
                    bounds.conv3x3_work(n, h, w, c, c, x.element_size()),
                    (lambda: F.conv2d(nchw, st.w, st.b, padding=1), "F.conv2d (cuDNN)"), summed)
+    gmfss_conv_checks(dev, gen, record)
     attention_checks(dev, gen, record)
     return summary
+
+
+def gmfss_conv_checks(dev, gen, record):
+    """The conv chain's GMFSS steps at their 1080p shapes (N = T = 3 in
+    GridNet, 1 in MetricNet and FeatureNet), each one ``conv_chain`` step
+    with its epilogue, against its plain version in f32 and bf16; checked
+    and timed, not summed (row 3's sum stays on the RIFE shapes). The library call is ``F.conv2d`` with
+    bias (cuDNN) without the PReLU or the residual."""
+    import torch
+    import torch.nn.functional as F
+
+    from drba_tpu_torch import bounds
+    from drba_tpu_torch.ops.conv_chain import chain_step, conv_chain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # label: (n, h, w, cin, cout, pre-PReLU, residual: none | plain | input | extra)
+    for label, (n, h, w, cin, cout, pre, residual) in {
+            "gridnet L0 pre + extra": (3, H // 2, W // 2, 64, 64, True, "extra"),
+            "gridnet L1 pre + input": (3, H // 4, W // 4, 128, 128, True, "input"),
+            "gridnet head 12->64 pre": (3, H // 2, W // 2, 12, 64, True, "none"),
+            "gridnet head2 256->128 pre": (3, H // 4, W // 4, 256, 128, True, "none"),
+            "gridnet tail 64->256 pre": (3, H // 2, W // 2, 64, 256, True, "none"),
+            "metricnet in 14->64": (1, H // 2, W // 2, 14, 64, False, "none"),
+            "metricnet pre + plain res": (1, H // 2, W // 2, 64, 64, True, "plain"),
+            "metricnet out 64->2 pre": (1, H // 2, W // 2, 64, 2, True, "none"),
+            "featurenet L1 pre": (1, H // 2, W // 2, 64, 64, True, "none"),
+            "union head0 9->64 pre": (3, HU // 2, W // 2, 9, 64, True, "none"),
+            "union L0 pre + extra": (3, HU // 2, W // 2, 64, 64, True, "extra")}.items():
+        for dt in (f32, bf16):
+            bound = 1.0 / (9 * cin) ** 0.5
+            x = (torch.rand(n, h, w, cin, generator=gen, device=dev) * 2 - 1).to(dt)
+            res = (torch.rand(n, h, w, cout, generator=gen, device=dev) * 2 - 1).to(dt) \
+                if residual == "extra" else None
+            st = chain_step(
+                ((torch.rand(cout, cin, 3, 3, generator=gen, device=dev) * 2 - 1) * bound).to(dt),
+                ((torch.rand(cout, generator=gen, device=dev) * 2 - 1) * 0.05).to(dt),
+                pre_alpha=torch.tensor(0.25, device=dev).to(dt) if pre else None,
+                plain_res=residual == "plain")
+            mode = residual if residual in ("input", "extra") else "none"
+            kern = lambda: conv_chain(x, [st], mode, res, backend="cuda")
+            plain = lambda: conv_chain(x, [st], mode, res, backend="torch")
+            tol = (1e-4, 0.0, "f32 sums of 9*Cin terms in another order") if dt == f32 else \
+                (2e-2, 2e-2, "bf16 rounding of the conv output and of the residual add")
+            err = check_close(f"conv_chain {label} {tuple(x.shape)}->{cout} {dt}", kern(),
+                              plain(), *tol)
+            nchw = x.permute(0, 3, 1, 2)  # the NHWC data, channels_last
+            record("conv_chain", err, kern, plain, 10, dt,
+                   bounds.conv3x3_work(n, h, w, cin, cout, x.element_size(), beta=False,
+                                       alpha=pre, res=res is not None),
+                   (lambda: F.conv2d(nchw, st.w, st.b, padding=1), "F.conv2d (cuDNN)"),
+                   summed=False)
 
 
 def attention_checks(dev, gen, record):
@@ -703,7 +761,9 @@ def phase_slice(name, dev, scdet=False):
 def phase_window(name, dev, gpu_line):
     """One window of model ``name`` on the kernel path vs the plain path (bf16
     and f32), the window time both ways, and a profile of one kernel-path
-    window."""
+    window. GMFSS and GMFSS_UNION are also timed with ``conv_backend="torch"``
+    alone: every conv on cuDNN (the union's IFNet too), the other kernels
+    launched."""
     import torch
 
     from drba_tpu_torch.pipeline import calc_ts
@@ -712,11 +772,9 @@ def phase_window(name, dev, gpu_line):
     frames = synthetic_frames(3)
     tmap = TMapper(SRC_FPS, DST_FPS)
     ts2, ts3 = calc_ts(1, tmap, -1), calc_ts(0, tmap, -1)  # 24 -> 60 alternates T = 2, 3
-    plain_cfg = {"rife": dict(splat_backend="torch", warp_backend="torch", conv_backend="torch"),
-                 "gmfss": dict(splat_backend="torch", warp_backend="torch",
-                               attn_backend="torch"),
-                 "gmfss_union": dict(splat_backend="torch", warp_backend="torch",
-                                     conv_backend="torch", attn_backend="torch")}[name]
+    plain_cfg = dict(splat_backend="torch", warp_backend="torch", conv_backend="torch")
+    if name != "rife":
+        plain_cfg["attn_backend"] = "torch"
 
     for dname in ("bf16", "f32"):
         extra = {} if dname == "bf16" else {"compute_dtype": torch.float32}
@@ -740,18 +798,21 @@ def phase_window(name, dev, gpu_line):
                  f"share(>1e-2) {share:.3e} (tol {share_tol:g})")
         if dname != "bf16":
             continue
+        runs = [("plain", plain), ("kernel", m)]
+        if name != "rife":
+            runs.append(("cuDNN convs", make_model(name, dev, conv_backend="torch")))
         times = {}
-        for label, mm in (("plain", plain), ("kernel", m), ("kernel", m), ("plain", plain)):
+        for label, mm in runs + runs[::-1]:
             for ts in (ts2, ts3):
                 t = timed(lambda: mm.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True), 5)
                 times.setdefault((label, len(ts)), []).append(t)
-        for label in ("kernel", "plain"):
+        for label, _ in runs[::-1]:
             t2, t3 = (sum(times[(label, n)]) / 2 for n in (2, 3))
             print(f"window {name} bf16 1080p {label} path (steady state, reuse chained): T=2 "
                   f"{t2:.2f} ms, T=3 {t3:.2f} ms, {5e3 / (t2 + t3):.2f} fps over a T=2+3 "
                   f"pair  [{gpu_line}]")
         profile_window(name, lambda: m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True))
-        del m, plain
+        del m, plain, runs
         torch.cuda.empty_cache()
 
 

@@ -135,11 +135,14 @@ def warp_touched(px, py, h: int, w: int) -> int:
 
 
 def conv3x3_work(n: int, h: int, w: int, cin: int, cout: int, itemsize: int,
-                 beta: bool = True) -> Work:
+                 beta: bool = True, alpha: bool = False, res: bool = False) -> Work:
     """One 3x3 / pad-1 conv step (n, h, w, cin) -> (n, h, w, cout) with bias
-    (and the ResConv epilogue's beta), all in one type."""
-    params = (cout * cin * 9 + cout * (2 if beta else 1)) * itemsize
-    moved = n * h * w * (cin + cout) * itemsize + params
+    and, where given, the ResConv epilogue's beta, a pre-PReLU's one slope
+    and a residual tensor ``res`` that is not the step's input (an input
+    residual reads nothing more), all in one type. The PReLU and the adds do
+    no tensor-core work: the operations are the conv's."""
+    params = (cout * cin * 9 + cout * (2 if beta else 1) + (1 if alpha else 0)) * itemsize
+    moved = n * h * w * (cin + cout * (2 if res else 1)) * itemsize + params
     return Work(moved, {_pipe(itemsize): 2.0 * 9 * cin * cout * n * h * w})
 
 

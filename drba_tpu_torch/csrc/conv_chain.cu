@@ -1,36 +1,53 @@
-// 3x3 / stride-1 / pad-1 convolution (NHWC) with a fused bias and optional
-// ResConv epilogue y = leaky_relu(conv(x) * beta + x, 0.2): one step of a
-// conv chain.
+// 3x3 / stride-1 / pad-1 convolution (NHWC) with a fused bias and the
+// epilogues of one conv-chain step:
+//   * pre-PReLU: y = conv(prelu(x, alpha)) with one scalar slope alpha,
+//     applied to the conv's input (GridNet's and MetricNet's Sequential
+//     (PReLU, Conv) pairs);
+//   * ResConv: y = leaky_relu(conv(x) * beta + x, 0.2) (IFNet);
+//   * residual: y = y + res, where res is this step's un-activated input
+//     (MetricNet's plain residual), the chain's input (a final 'input'
+//     residual) or another tensor (a final 'extra' residual: GridNet's
+//     lattice sums).
 //
 // Replaces the TPU kernel conv_chain (drba_tpu/ops/conv_chain.py:349, body
-// _kernel :116) on the IFNet ResConv runs (drba_tpu/models/ifnet.py:203-264).
-// The TPU kernel packs narrow channels into 128 lanes and keeps a whole chain
-// in VMEM over row bands; neither constraint exists here. Both kernels below
-// are implicit GEMMs (M = output pixels, N = output channels, K = 9 taps x
-// input channels), one launch per chain step, for all channel counts and
-// every spatial size, with f32 accumulation and the epilogue fused.
+// _kernel :116) on the IFNet ResConv runs (drba_tpu/models/ifnet.py:203-264)
+// and on the GMFSS nets under conv_backend='pallas' (MetricNet, FeatureNet
+// level 1, GridNet L0/L1 and tail: drba_tpu/models/gmfss_nets.py:150-172,
+// 225-234, 387-467). The TPU kernel packs narrow channels into 128 lanes
+// and keeps a whole chain in VMEM over row bands; neither constraint exists
+// here. Both kernels below are implicit GEMMs (M = output pixels, N =
+// output channels, K = 9 taps x input channels), one launch per chain
+// step, for all channel counts and every spatial size, with f32
+// accumulation and the epilogues fused.
 //
 // bf16 (the main path): tensor cores through mma.sync m16n8k16 fed by
 // ldmatrix. What bounds it on this card: the large IFNet steps (c = 64 and
-// 32 at 1/4 and 1/2 resolution) by memory; the deep narrow ones (c = 192
-// and 128 at 1/16 and 1/8: 1530 and 6120 pixels at N = 3, K up to 1728) by
-// latency, since even split into 64-pixel x 32-channel blocks their grid
-// holds ~3 warps an SM, each waiting on its own ldmatrix -> mma chain
-// (split-K over warps is the next step). The design:
+// 32 at 1/4 and 1/2 resolution) and the GMFSS steps at 544x960 by memory;
+// the deep narrow ones (c = 192 and 128 at 1/16 and 1/8: 1530 and 6120
+// pixels at N = 3, K up to 1728) by latency, since even split into
+// 64-pixel x 32-channel blocks their grid holds ~3 warps an SM, each
+// waiting on its own ldmatrix -> mma chain (split-K over warps is the next
+// step). The design:
 //  * weights are packed once per model (ops/conv_chain.pack_weights) into
 //    (ceil(Cin/16), 9, Cout, 16): one K chunk of 16 input channels is 9
 //    contiguous runs of Cout 32-byte rows, the "col" B operand of the MMA
 //    as ldmatrix reads it. No block transposes weights;
 //  * a block covers a tile of 2*WM output rows x 16 columns and NB output
 //    channels: all Cout of its pixels up to 128 (each input patch staged
-//    once); wider layers (c = 192) and the steps with too few tiles for the
-//    card split Cout into 96-, 64- or 32-channel blocks and, first, halve
-//    the tile's rows. The host picks the first such plan that gives at
-//    least one block per SM;
+//    once); wider layers (c = 192, 256) and the steps with too few tiles
+//    for the card split Cout into 96-, 64- or 32-channel blocks (the last
+//    one masked where Cout is no multiple) and, first, halve the tile's
+//    rows. The host picks the first such plan that gives at least one
+//    block per SM;
 //  * per K chunk the (rows+2) x 18 x 16-channel input patch (zero outside
 //    the frame and past Cin) and the chunk's 9 x NB x 16 weights are copied
 //    by cp.async into a ring of 2-3 stages, so staging overlaps the MMAs of
-//    the chunks before it; one barrier per chunk;
+//    the chunks before it; one barrier per chunk. Cin that is no multiple
+//    of 8 (MetricNet's 14, GridNet's heads 12 and 9) is staged by plain
+//    loads instead;
+//  * the pre-PReLU runs once per staged element, in place on the landed
+//    patch, behind one more barrier per chunk (prelu(0) = 0, so the zero
+//    padding stays exact); a simple placement, not yet overlapped;
 //  * each warp owns 2 output rows x 16 columns x NB/WN channels. A tap's
 //    shifted window is only another row address for ldmatrix (rows are 32
 //    bytes, the two 16-byte halves swapped by bit 2 of the row index, so
@@ -38,8 +55,9 @@
 //  * accumulators stay in registers. The epilogue swaps the accumulators
 //    of each group of four n8 tiles across the lanes of a quad, so that
 //    each lane holds 8 consecutive channels of one pixel; bias and beta
-//    come from shared memory (staged once per block), the residual x is
-//    read and the output written as 16-byte vectors.
+//    come from shared memory (staged once per block), the residuals x and
+//    res are read and the output written as 16-byte vectors (one value at
+//    a time where Cout is no multiple of 8, as MetricNet's Cout = 2).
 // mma.sync rather than wgmma: the tile has to shrink to 64 pixels and 32
 // channels to fill the card at the small steps, and the shifted windows
 // are plain ldmatrix row addresses; wgmma's 64-row warpgroup tiles and
@@ -47,12 +65,14 @@
 //
 // f32: the FMA pipes (the tensor cores have no full-f32 mode), on the
 // PyTorch OIHW weights. Block tile 8 x 32 pixels x 32 channels, 256 threads
-// of 4 pixels x 8 channels each; patch and weights staged as f32, 96 FMAs
-// per 30 shared loads. Bound by FMA issue; not the main path.
+// of 4 pixels x 8 channels each; patch and weights staged as f32 (the
+// pre-PReLU applied as the patch is staged), 96 FMAs per 30 shared loads.
+// Bound by FMA issue; not the main path.
 //
-// Rounding follows the plain PyTorch chain in the storage dtype T: the conv
-// output with its bias is rounded to T, then y * beta, + x and the leaky
-// product are each rounded to T, as separate eager ops would.
+// Rounding follows the plain PyTorch chain in the storage dtype T: the
+// pre-PReLU's product is rounded to T; the conv output with its bias is
+// rounded to T, then y * beta, + x and the leaky product are each rounded
+// to T, and so is + res, as separate eager ops would.
 
 #include <atomic>
 
@@ -64,11 +84,18 @@ constexpr int kThreads = 256;
 constexpr int kCO = 32;  // f32: output channels per block
 constexpr int kCK = 16;  // input channels per shared-memory chunk
 
+// prelu(v) = v >= 0 ? v : v * alpha, the product rounded to T (NaN stays NaN)
+template <typename T>
+__device__ __forceinline__ float prelu(float v, float alpha) {
+  return v >= 0.f ? v : drba::round_to<T>(v * alpha);
+}
+
 // out[pix, co] from the f32 sum ``acc`` of conv(x) at that pixel and channel
 template <typename T>
 __device__ __forceinline__ void epilogue(float acc, const T* __restrict__ x,
                                          const T* __restrict__ bias,
-                                         const T* __restrict__ beta, T* __restrict__ out,
+                                         const T* __restrict__ beta,
+                                         const T* __restrict__ res, T* __restrict__ out,
                                          long long pix, int co, int cin, int cout) {
   float y = drba::round_to<T>(acc + drba::to_f32(bias[co]));
   if (beta != nullptr) {  // ResConv: cin == cout, the residual is this conv's input
@@ -76,6 +103,7 @@ __device__ __forceinline__ void epilogue(float acc, const T* __restrict__ x,
     const float u = drba::round_to<T>(t + drba::to_f32(x[pix * cin + co]));
     y = u >= 0.f ? u : drba::round_to<T>(u * 0.2f);
   }
+  if (res != nullptr) y = drba::round_to<T>(y + drba::to_f32(res[pix * cout + co]));
   out[pix * cout + co] = drba::from_f32<T>(y);
 }
 
@@ -135,15 +163,35 @@ struct MmaCfg {
 };
 
 struct ConvArgs {
-  const drba::bf16* x;     // (n, h, w, cin)
-  const drba::bf16* wp;    // packed (ceil(cin / 16), 9, cout, 16)
-  const drba::bf16* bias;  // (cout,)
-  const drba::bf16* beta;  // (cout,) or nullptr
-  drba::bf16* out;         // (n, h, w, cout)
+  const drba::bf16* x;      // (n, h, w, cin)
+  const drba::bf16* wp;     // packed (ceil(cin / 16), 9, cout, 16)
+  const drba::bf16* bias;   // (cout,)
+  const drba::bf16* beta;   // (cout,) or nullptr
+  const drba::bf16* alpha;  // the pre-PReLU's scalar slope, or nullptr
+  const drba::bf16* res;    // (n, h, w, cout) added last, or nullptr
+  drba::bf16* out;          // (n, h, w, cout)
   int h, w, cin, cout, tiles_w;
   bool vec_in;   // cin % 8 == 0 and x 16-byte aligned: cp.async of 8 channels
-  bool vec_out;  // cout % 8 == 0 and x, out 16-byte aligned: 16-byte epilogue
+  bool vec_out;  // cout % 8 == 0 and x, res, out 16-byte aligned: 16-byte epilogue
 };
+
+// the pre-PReLU in place on a staged patch of `bytes` bf16 bytes (a
+// multiple of 16), 8 values a thread per step
+template <int kThreads>
+__device__ __forceinline__ void prelu_patch(unsigned char* patch, int bytes, float alpha,
+                                            int tid) {
+  for (int i = tid; i < bytes / 16; i += kThreads) {
+    uint4 v = reinterpret_cast<uint4*>(patch)[i];
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h2[e]);
+      h2[e] = __floats2bfloat162_rn(prelu<drba::bf16>(f.x, alpha),
+                                    prelu<drba::bf16>(f.y, alpha));
+    }
+    reinterpret_cast<uint4*>(patch)[i] = v;
+  }
+}
 
 // thread `t` of a quad holds 2 channels (a float2) of each of 4 n8 tiles;
 // afterwards it holds the 8 channels of tile t: o[2r], o[2r+1] from lane r
@@ -186,6 +234,7 @@ conv3x3_mma_kernel(const ConvArgs a) {
   const int tx0 = (blockIdx.x % a.tiles_w) * kMTW;
   const drba::bf16* xn = a.x + static_cast<long long>(nb) * a.h * a.w * a.cin;
   const uint32_t s0 = smem_u32(smem);
+  const float alpha = a.alpha != nullptr ? drba::to_f32(*a.alpha) : 0.f;
 
   for (int i = tid; i < C::kNB; i += C::kThreads) {
     const int co = co0 + i;
@@ -252,6 +301,11 @@ conv3x3_mma_kernel(const ConvArgs a) {
     if (nx < nch) stage(nx * kCK, nx % C::kStages);
     cp_async_commit();
 
+    if (a.alpha != nullptr) {  // chunk c's patch is complete: activate it in place
+      prelu_patch<C::kThreads>(smem + (c % C::kStages) * C::kStageBytes, C::kPatchBytes,
+                               alpha, tid);
+      __syncthreads();
+    }
     const uint32_t patch = s0 + (c % C::kStages) * C::kStageBytes;
     const uint32_t wsm = patch + C::kPatchBytes;
 #pragma unroll
@@ -316,6 +370,13 @@ conv3x3_mma_kernel(const ConvArgs a) {
               y[e] = u >= 0.f ? u : drba::round_to<drba::bf16>(u * 0.2f);
             }
           }
+          if (a.res != nullptr) {
+            const uint4 rr = *reinterpret_cast<const uint4*>(a.res + pix * a.cout + co);
+            const drba::bf16* rv = reinterpret_cast<const drba::bf16*>(&rr);
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              y[e] = drba::round_to<drba::bf16>(y[e] + drba::to_f32(rv[e]));
+          }
           uint4 orow;
           drba::bf16* ov = reinterpret_cast<drba::bf16*>(&orow);
 #pragma unroll
@@ -325,8 +386,8 @@ conv3x3_mma_kernel(const ConvArgs a) {
 #pragma unroll
           for (int e = 0; e < 8; ++e)
             if (co + e < a.cout)
-              epilogue<drba::bf16>(o[e], a.x, a.bias, a.beta, a.out, pix, co + e, a.cin,
-                                   a.cout);
+              epilogue<drba::bf16>(o[e], a.x, a.bias, a.beta, a.res, a.out, pix, co + e,
+                                   a.cin, a.cout);
         }
       }
     }
@@ -402,6 +463,7 @@ constexpr int kTW = 32;  // output columns per block
 __global__ void __launch_bounds__(kThreads)
 conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ wt,
                    const float* __restrict__ bias, const float* __restrict__ beta,
+                   const float* __restrict__ alpha, const float* __restrict__ res,
                    float* __restrict__ out, int h, int w, int cin, int cout, int tiles_w) {
   __shared__ float s_in[kCK][kTH + 2][kTW + 2];
   __shared__ float s_w[kCK][9][kCO];
@@ -417,6 +479,7 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   const int pc = (pg & 7) * 4;  // first column in the tile
 
   const float* xn = x + static_cast<long long>(nb) * h * w * cin;
+  const float a_pre = alpha != nullptr ? *alpha : 0.f;
   float acc[4][8];
 #pragma unroll
   for (int p = 0; p < 4; ++p)
@@ -429,9 +492,11 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       const int p = i / kCK;
       const int r = p / (kTW + 2), col = p % (kTW + 2);
       const int gy = ty0 - 1 + r, gx = tx0 - 1 + col, ci = ci0 + c;
-      s_in[c][r][col] = (gy >= 0 && gy < h && gx >= 0 && gx < w && ci < cin)
-                            ? xn[(static_cast<long long>(gy) * w + gx) * cin + ci]
-                            : 0.f;
+      float v = (gy >= 0 && gy < h && gx >= 0 && gx < w && ci < cin)
+                    ? xn[(static_cast<long long>(gy) * w + gx) * cin + ci]
+                    : 0.f;
+      if (alpha != nullptr) v = prelu<float>(v, a_pre);
+      s_in[c][r][col] = v;
     }
     for (int i = tid; i < kCO * kCK * 9; i += kThreads) {
       const int tap = i % 9;
@@ -475,21 +540,22 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int co = co0 + cg * 8 + k;
-      if (co < cout) epilogue<float>(acc[p][k], x, bias, beta, out, pix, co, cin, cout);
+      if (co < cout) epilogue<float>(acc[p][k], x, bias, beta, res, out, pix, co, cin, cout);
     }
   }
 }
 
 }  // namespace
 
-// x (n,h,w,cin), bias (cout,), beta (cout,) or NULL, out (n,h,w,cout); all
-// in one dtype (f32|bf16), contiguous. bf16 reads the weights packed by
-// ops/conv_chain.pack_weights, wp (ceil(cin/16), 9, cout, 16), 16-byte
-// aligned; f32 reads wt (cout,cin,3,3). With beta, cin == cout (checked by
-// the caller). Returns cudaGetLastError().
+// x (n,h,w,cin), bias (cout,), beta (cout,) or NULL, alpha (1,) or NULL,
+// res (n,h,w,cout) or NULL, out (n,h,w,cout); all in one dtype (f32|bf16),
+// contiguous. bf16 reads the weights packed by ops/conv_chain.pack_weights,
+// wp (ceil(cin/16), 9, cout, 16), 16-byte aligned; f32 reads wt
+// (cout,cin,3,3). With beta, cin == cout and no alpha (checked by the
+// caller). Returns cudaGetLastError().
 extern "C" int drba_conv3x3(const void* x, const void* wt, const void* wp, const void* bias,
-                            const void* beta, void* out, int n, int h, int w, int cin,
-                            int cout, int dtype, void* stream) {
+                            const void* beta, const void* alpha, const void* res, void* out,
+                            int n, int h, int w, int cin, int cout, int dtype, void* stream) {
   if (static_cast<long long>(n) * h * w * cout == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == drba::kBF16) {
@@ -497,11 +563,14 @@ extern "C" int drba_conv3x3(const void* x, const void* wt, const void* wp, const
     if (wp == nullptr || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
     const bool x16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const bool res16 = reinterpret_cast<uintptr_t>(res) % 16 == 0;  // NULL is aligned
     const ConvArgs a{static_cast<const T*>(x), static_cast<const T*>(wp),
                      static_cast<const T*>(bias), static_cast<const T*>(beta),
+                     static_cast<const T*>(alpha), static_cast<const T*>(res),
                      static_cast<T*>(out), h, w, cin, cout, 0,
                      cin % 8 == 0 && x16,
-                     cout % 8 == 0 && x16 && reinterpret_cast<uintptr_t>(out) % 16 == 0};
+                     cout % 8 == 0 && x16 && res16 &&
+                         reinterpret_cast<uintptr_t>(out) % 16 == 0};
     return conv3x3_bf16(a, n, s);
   }
   if (dtype == drba::kF32) {
@@ -510,6 +579,7 @@ extern "C" int drba_conv3x3(const void* x, const void* wt, const void* wp, const
     conv3x3_fma_kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(wt),
         static_cast<const float*>(bias), static_cast<const float*>(beta),
+        static_cast<const float*>(alpha), static_cast<const float*>(res),
         static_cast<float*>(out), h, w, cin, cout, tiles_w);
     return static_cast<int>(cudaGetLastError());
   }

@@ -4,7 +4,8 @@ The same duck-typed API as ``models/rife.RIFE``; as in the JAX package, the T
 timesteps of a window are folded into the batch axis (one GridNet call per
 window) and integer timesteps pass the source frames through. Inputs are
 single frames (N = 1). The reuse chain carries a ``Reuse`` (flows, metrics,
-feature pyramids) from window to window.
+feature pyramids) from window to window. ``Config.conv_backend`` runs the
+nets' conv chains (models/gmfss_nets.py).
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_gmfss
 from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, pack_transformer_weights
 from drba_tpu_torch.models.gmfss_core import GmfssParams, Reuse, gmfss_inference, gmfss_reuse
-from drba_tpu_torch.models.gmfss_nets import FEATURENET_SPEC, GRIDNET_SPEC, METRICNET_SPEC
+from drba_tpu_torch.models.gmfss_nets import (FEATURENET_CHAIN, FEATURENET_SPEC,
+                                             GRIDNET_SPEC, METRICNET_CHAIN, METRICNET_SPEC,
+                                             gridnet_chain_convs, pack_chain_weights)
 
 
 def _select_reuse(left: torch.Tensor, a: Reuse, b: Reuse) -> Reuse:
@@ -39,8 +42,16 @@ def _select_integer_ts(out, ts, *frames):
     return out
 
 
+def pack_chain_sites(p: GmfssParams, union: bool = False) -> GmfssParams:
+    """MetricNet, FeatureNet and GridNet with the bf16 conv kernel's packed
+    weights (``.wp`` keys) that their chain sites read, built once per model."""
+    return p._replace(metricnet=pack_chain_weights(p.metricnet, METRICNET_CHAIN),
+                      feat_ext=pack_chain_weights(p.feat_ext, FEATURENET_CHAIN),
+                      fusionnet=pack_chain_weights(p.fusionnet, gridnet_chain_convs(union)))
+
+
 def _drba_window(p: GmfssParams, I0, I1, I2, ts, reuse10: Reuse, reuse12: Reuse, linear,
-                 backend="auto", drm_splat_scale=1.0):
+                 backend="auto", drm_splat_scale=1.0, conv_backend="auto"):
     """All T timesteps of one window, T folded into the batch axis; returns
     (T, 1, H, W, 3)."""
     T = ts.shape[0]
@@ -53,7 +64,8 @@ def _drba_window(p: GmfssParams, I0, I1, I2, ts, reuse10: Reuse, reuse12: Reuse,
     reuse = _select_reuse(left, reuse10, reuse12)
     t0 = torch.where(left, drm.drm1t_t01, drm.drm1t_t12).to(I1.dtype)
     t1 = torch.where(left, drm.drm0t_t01, drm.drm2t_t12).to(I1.dtype)
-    out = gmfss_inference(p, I1b, imgB, reuse, t0, t1, backend=backend)
+    out = gmfss_inference(p, I1b, imgB, reuse, t0, t1, backend=backend,
+                          conv_backend=conv_backend)
     return _select_integer_ts(out, ts, I0, I1, I2)[:, None]
 
 
@@ -71,12 +83,12 @@ def _tile_reuse(reuse: Reuse, T) -> Reuse:
                  tuple(map(tile, reuse.feat1)))
 
 
-def _ts_batch(p: GmfssParams, I0, I1, ts, reuse: Reuse, backend="auto"):
+def _ts_batch(p: GmfssParams, I0, I1, ts, reuse: Reuse, backend="auto", conv_backend="auto"):
     """Plain interpolation at T timesteps, T folded into the batch axis."""
     T = ts.shape[0]
     tcol = ts[:, None, None, None].to(I0.dtype)
     out = gmfss_inference(p, _tile(I0, T), _tile(I1, T), _tile_reuse(reuse, T), tcol, 1 - tcol,
-                          backend=backend)
+                          backend=backend, conv_backend=conv_backend)
     return _select_integer_ts(out, ts, I0, I1)[:, None]
 
 
@@ -85,7 +97,8 @@ class GMFSS:
     (CUDA unless the caller asks for another; raises when there is none).
 
     Parameters are cast to ``config.compute_dtype`` once, on the device;
-    GMFlow's transformer weights are packed for the layer kernels once, here.
+    GMFlow's transformer weights are packed for the layer kernels, and the
+    chain sites' conv weights for the conv kernel, once, here.
     """
 
     def __init__(self, weights: str | None = None, scale: float = 1.0,
@@ -100,7 +113,7 @@ class GMFSS:
                                   strict=config.strict_load)
             nets.append({k: v.to(self.device, config.compute_dtype) for k, v in params.items()})
         nets[0] = pack_transformer_weights(nets[0])
-        self.params = GmfssParams(*nets)
+        self.params = pack_chain_sites(GmfssParams(*nets))
         self.scale = scale
         self.pad_size = 64
         self.config = config
@@ -111,7 +124,8 @@ class GMFSS:
     def reuse(self, img0, img1, feat0=None) -> Reuse:
         return gmfss_reuse(self.params, img0, img1, self.scale, feat0=feat0,
                            warp_backend=self.config.warp_backend,
-                           attn_backend=self.config.attn_backend)
+                           attn_backend=self.config.attn_backend,
+                           conv_backend=self.config.conv_backend)
 
     def inference_ts(self, I0, I1, ts: Sequence[float], reuse=None, return_reuse=False):
         """Plain interpolation at timesteps in [0, 1]. ``reuse`` (an I0 -> I1
@@ -121,7 +135,8 @@ class GMFSS:
         if reuse is None:
             reuse = self.reuse(I0, I1)
         out = _ts_batch(self.params, I0, I1, self._ts(ts), reuse,
-                        backend=self.config.splat_backend)
+                        backend=self.config.splat_backend,
+                        conv_backend=self.config.conv_backend)
         frames = list(out.unbind(0))
         return (frames, reuse) if return_reuse else frames
 
@@ -131,7 +146,8 @@ class GMFSS:
         chain has it."""
         return gmfss_reuse(self.params, I1, I2, self.scale, feat0=feat1,
                            warp_backend=self.config.warp_backend,
-                           attn_backend=self.config.attn_backend).swapped()
+                           attn_backend=self.config.attn_backend,
+                           conv_backend=self.config.conv_backend).swapped()
 
     def drba_window(self, I0, I1, I2, ts, reuse10: Reuse | None, reuse21: Reuse,
                     linear: bool = False):
@@ -140,7 +156,8 @@ class GMFSS:
         ``reuse21`` this window's ``next_reuse(I1, I2)``."""
         reuse10 = self.reuse(I1, I0) if reuse10 is None else reuse10
         out = _drba_window(self.params, I0, I1, I2, self._ts(ts), reuse10, reuse21.swapped(),
-                           linear, self.config.splat_backend, self.config.drm_splat_scale)
+                           linear, self.config.splat_backend, self.config.drm_splat_scale,
+                           self.config.conv_backend)
         return list(out.unbind(0))
 
     def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):

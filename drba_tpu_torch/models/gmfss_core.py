@@ -43,17 +43,19 @@ class Reuse(NamedTuple):
 
 
 def gmfss_reuse(p: GmfssParams, img0, img1, scale: float, feat0=None, union: bool = False,
-                warp_backend: str = "auto", attn_backend: str = "auto") -> Reuse:
+                warp_backend: str = "auto", attn_backend: str = "auto",
+                conv_backend: str = "auto") -> Reuse:
     """Flows, metrics and feature pyramids of a frame pair (GMFSS.py:58-81).
 
     ``feat0`` may pass img0's feature pyramid from the previous window's
     chained reuse, which saves one FeatureNet pass. ``scale`` < 1 runs GMFlow
     on a downscaled half-resolution pair and rescales its flows. ``union``
-    takes the union MetricNet's bounded metrics.
+    takes the union MetricNet's bounded metrics. ``conv_backend`` runs
+    FeatureNet's and MetricNet's conv chains.
     """
     if feat0 is None:
-        feat0 = featurenet_apply(p.feat_ext, img0)
-    feat1 = featurenet_apply(p.feat_ext, img1)
+        feat0 = featurenet_apply(p.feat_ext, img0, conv_backend)
+    feat1 = featurenet_apply(p.feat_ext, img1, conv_backend)
     img0h, img1h = scale_by(img0, 0.5), scale_by(img1, 0.5)
     if scale != 1.0:
         imgf0, imgf1 = scale_by(img0h, scale), scale_by(img1h, scale)
@@ -69,7 +71,7 @@ def gmfss_reuse(p: GmfssParams, img0, img1, scale: float, feat0=None, union: boo
         flow01 = resize_bilinear(flow01, size) / scale
         flow10 = resize_bilinear(flow10, size) / scale
     metric0, metric1 = metricnet_apply(p.metricnet, img0h, img1h, flow01, flow10, union=union,
-                                       warp_backend=warp_backend)
+                                       warp_backend=warp_backend, conv_backend=conv_backend)
     return Reuse(flow01, flow10, metric0, metric1, feat0, feat1)
 
 
@@ -112,10 +114,11 @@ def _warp_pyramid2(img0h, img1h, feats0, feats1, Ft0, Ft1, Zt0, Zt1, extra0=None
 
 
 def gmfss_inference(p: GmfssParams, img0, img1, reuse: Reuse, timestep0, timestep1,
-                    backend: str = "auto"):
+                    backend: str = "auto", conv_backend: str = "auto"):
     """Model.inference (model_gmfss/GMFSS.py:83-190): splat both frames'
-    images and features to the timestep, fuse with GridNet. ``timestep0`` /
-    ``timestep1`` are per-pixel maps (N, H/2, W/2, 1) or broadcastable."""
+    images and features to the timestep, fuse with GridNet (its conv chains
+    on ``conv_backend``). ``timestep0`` / ``timestep1`` are per-pixel maps
+    (N, H/2, W/2, 1) or broadcastable."""
     F1t = timestep0 * reuse.flow01
     F2t = timestep1 * reuse.flow10
     Z1t = timestep0 * reuse.metric0
@@ -125,12 +128,13 @@ def gmfss_inference(p: GmfssParams, img0, img1, reuse: Reuse, timestep0, timeste
                                                       F1t, F2t, Z1t, Z2t, backend=backend)
     out = gridnet_apply(p.fusionnet, torch.cat([img0h, I1t, I2t, img1h], dim=-1),
                         torch.cat([f1[0], f2[0]], dim=-1), torch.cat([f1[1], f2[1]], dim=-1),
-                        torch.cat([f1[2], f2[2]], dim=-1))
+                        torch.cat([f1[2], f2[2]], dim=-1), conv_backend=conv_backend)
     return out.clamp(0.0, 1.0)
 
 
 def gmfss_union_inference(p: GmfssParams, img0, img1, reuse: Reuse, timestep0, timestep1, rife,
-                          enable_mask: bool = True, backend: str = "auto"):
+                          enable_mask: bool = True, backend: str = "auto",
+                          conv_backend: str = "auto"):
     """Union Model.inference (model_gmfss_union/GMFSS.py:80-155): GridNet fuses
     cat(I1t, rife, I2t), ``rife`` being the auxiliary RIFE's half-resolution
     frame. With per-pixel timestep maps and ``enable_mask``, the maps are
@@ -138,7 +142,7 @@ def gmfss_union_inference(p: GmfssParams, img0, img1, reuse: Reuse, timestep0, t
     direction's coverage is < 0.999, and wherever one direction's warped
     timestep exceeds the other's by more than 25x, that direction's image and
     features are replaced by the other's, at all three levels
-    (GMFSS.py:114-150).
+    (GMFSS.py:114-150). ``conv_backend``: as ``gmfss_inference``.
     """
     F1t = timestep0 * reuse.flow01
     F2t = timestep1 * reuse.flow10
@@ -167,5 +171,6 @@ def gmfss_union_inference(p: GmfssParams, img0, img1, reuse: Reuse, timestep0, t
 
     out = gridnet_apply(p.fusionnet, torch.cat([I1t, rife, I2t], dim=-1),
                         torch.cat([f1[0], f2[0]], dim=-1), torch.cat([f1[1], f2[1]], dim=-1),
-                        torch.cat([f1[2], f2[2]], dim=-1), union=True)
+                        torch.cat([f1[2], f2[2]], dim=-1), union=True,
+                        conv_backend=conv_backend)
     return out.clamp(0.0, 1.0)

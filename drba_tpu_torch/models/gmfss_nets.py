@@ -4,11 +4,20 @@ MetricNet's ``Tanh * 10`` tail (model_gmfss_union/MetricNet.py:41-42,63) and
 GridNet's 9-channel head ``residual_model_head0``
 (model_gmfss_union/FusionNet.py:59).
 
-The convs are cuDNN's, as the JAX package leaves them to XLA; MetricNet's
-four backward warps are the exact zeros-padding gather of ``ops/warp``
-(the hand-written warp kernel on a CUDA tensor). GridNet is the plain
-lattice; its tail runs ``conv_last`` on the low-resolution side of the pixel
-shuffle (``ops/shuffle.fold_conv_after_shuffle``).
+The sites drba_tpu sends through its conv-chain kernel under
+``conv_backend='pallas'`` run through ``ops/conv_chain`` (the hand-written
+conv kernel on a CUDA tensor, its plain version on a CPU tensor or with
+``conv_backend='torch'``): MetricNet's five convs as one chain, FeatureNet's
+level-1 conv with its pre-PReLU, and GridNet's L0 and L1 blocks with their
+residual sums and its tail's two convs. drba_tpu takes the chain only where
+its TPU column packing fits (``w % 16 == 0 and h % 4 == 0``); the port's
+kernel takes every shape, so these sites take the chain at every size.
+FeatureNet's levels 2-3, GridNet's stride-2 and transposed convs and its
+192-channel L2 stay on cuDNN, as in drba_tpu. MetricNet's four backward
+warps are the exact zeros-padding gather of ``ops/warp`` (the hand-written
+warp kernel on a CUDA tensor). GridNet's tail runs ``conv_last`` on the
+low-resolution side of the pixel shuffle
+(``ops/shuffle.fold_conv_after_shuffle``).
 """
 
 from __future__ import annotations
@@ -17,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from drba_tpu_torch.models.layers import Params, conv2d, conv_transpose2d, prelu
+from drba_tpu_torch.ops.conv_chain import ChainStep, pack_weights
+from drba_tpu_torch.ops.conv_chain import conv_chain as run_chain
 from drba_tpu_torch.ops.distance import flow_distance
 from drba_tpu_torch.ops.shuffle import fold_conv_after_shuffle, pixel_shuffle
 from drba_tpu_torch.ops.warp import backwarp
@@ -39,13 +50,36 @@ def build_metricnet_spec() -> dict:
 METRICNET_SPEC = build_metricnet_spec()
 
 
+def _step(p: Params, conv: str, pre: str | None = None, plain_res: bool = False) -> ChainStep:
+    """The ChainStep of conv ``conv``, with the PReLU ``pre`` on its input;
+    its packed weights where the model packed them (``pack_chain_weights``)."""
+    return ChainStep(w=p[f"{conv}.weight"], b=p[f"{conv}.bias"], wp=p.get(f"{conv}.wp"),
+                     pre_alpha=None if pre is None else p[f"{pre}.weight"], plain_res=plain_res)
+
+
+def pack_chain_weights(p: Params, convs) -> dict:
+    """``p`` plus the bf16 conv kernel's packed weights (ops/conv_chain.
+    pack_weights) of the chain-site convs ``convs`` (``METRICNET_CHAIN``,
+    ``FEATURENET_CHAIN``, ``gridnet_chain_convs``) under ``{conv}.wp``,
+    built once per model."""
+    return {**p, **{f"{c}.wp": pack_weights(p[f"{c}.weight"]) for c in convs}}
+
+
+# the convs of MetricNet's one chain
+METRICNET_CHAIN = ("metric_in", "metric_net1.1", "metric_net2.1", "metric_net3.1",
+                   "metric_out.1")
+
+
 def metricnet_apply(p: Params, img0, img1, flow01, flow10, union: bool = False,
-                    warp_backend: str = "auto"):
+                    warp_backend: str = "auto", conv_backend: str = "auto"):
     """MetricNet.forward (model_gmfss/MetricNet.py:44-65) -> (metric0, metric1);
     ``union`` bounds the metrics to (-10, 10) by ``tanh`` in float32.
 
     The two image warps and the forward/backward consistency check's two flow
     warps (gmflow/geometry.py:87-108) run as one two-sample zeros-padding warp.
+    The five convs run as one chain (14 -> 64; three 64 -> 64 steps with the
+    pre-PReLU and the plain residual; 64 -> 2 with the pre-PReLU), on
+    ``conv_backend``.
     """
     n = img0.shape[0]
     pk1 = torch.cat([img1, flow10.to(img1.dtype)], dim=-1)
@@ -74,10 +108,10 @@ def metricnet_apply(p: Params, img0, img1, flow01, flow10, union: bool = False,
 
     x = torch.cat([img0, img1, -m0, -m1, norm_flow(flow01), norm_flow(flow10), fwd_occ,
                    bwd_occ], dim=-1)
-    feat = conv2d(p, "metric_in", x, padding=1)
-    for i in (1, 2, 3):
-        feat = conv2d(p, f"metric_net{i}.1", prelu(p, f"metric_net{i}.0", feat), padding=1) + feat
-    out = conv2d(p, "metric_out.1", prelu(p, "metric_out.0", feat), padding=1)
+    steps = [_step(p, "metric_in")]
+    steps += [_step(p, f"metric_net{i}.1", f"metric_net{i}.0", plain_res=True) for i in (1, 2, 3)]
+    steps.append(_step(p, "metric_out.1", "metric_out.0"))
+    out = run_chain(x, steps, backend=conv_backend)
     if union:
         out = torch.tanh(out.float()).to(out.dtype) * 10
     return out[..., 0:1], out[..., 1:2]
@@ -99,14 +133,21 @@ def build_featurenet_spec() -> dict:
 
 
 FEATURENET_SPEC = build_featurenet_spec()
+# the conv of FeatureNet's one chain
+FEATURENET_CHAIN = ("block1.3",)
 
 
-def featurenet_apply(p: Params, x):
-    """3-level pyramid at 1/2, 1/4, 1/8 (model_gmfss/FeatureNet.py:29-34)."""
+def featurenet_apply(p: Params, x, conv_backend: str = "auto"):
+    """3-level pyramid at 1/2, 1/4, 1/8 (model_gmfss/FeatureNet.py:29-34).
+    Level 1's second conv runs as a one-step chain with its pre-PReLU, on
+    ``conv_backend``."""
     outs = []
     for i in (1, 2, 3):
         x = conv2d(p, f"block{i}.1", prelu(p, f"block{i}.0", x), stride=2, padding=1)
-        x = conv2d(p, f"block{i}.3", prelu(p, f"block{i}.2", x), stride=1, padding=1)
+        if i == 1:
+            x = run_chain(x, [_step(p, "block1.3", "block1.2")], backend=conv_backend)
+        else:
+            x = conv2d(p, f"block{i}.3", prelu(p, f"block{i}.2", x), stride=1, padding=1)
         outs.append(x)
     return tuple(outs)
 
@@ -182,31 +223,63 @@ def _seq_block(p: Params, prefix, x, stride=1, transpose=False):
     return conv2d(p, f"{prefix}.3", prelu(p, f"{prefix}.2", y), stride=1, padding=1)
 
 
-def gridnet_apply(p: Params, x, x1, x2, x3, union: bool = False):
+# GridNet's chain sites: the L0/L1 seq blocks (each one two-step chain, with
+# the head ``_head0``), the stride-2 and transposed blocks (their trailing
+# conv a one-step chain) and the tail's two convs
+_GRIDNET_SEQ = ("residual_model_head1", "residual_model_head2", "residual_model_01",
+                "residual_model_04", "residual_model_05", "residual_model_11",
+                "residual_model_14", "residual_model_15")
+_GRIDNET_STRIDED = ("downsample_model_10", "downsample_model_11", "upsample_model_14",
+                    "upsample_model_04", "upsample_model_15", "upsample_model_05")
+_GRIDNET_TAIL = ("residual_model_tail.conv_before_upsample.0", "residual_model_tail.upsample.0")
+
+
+def gridnet_chain_convs(union: bool = False) -> tuple[str, ...]:
+    """The convs GridNet's chain sites run (``gridnet_apply``)."""
+    return (tuple(f"{b}.{j}" for b in (_head0(union),) + _GRIDNET_SEQ for j in (1, 3))
+            + tuple(f"{b}.3" for b in _GRIDNET_STRIDED) + _GRIDNET_TAIL)
+
+
+def gridnet_apply(p: Params, x, x1, x2, x3, union: bool = False, conv_backend: str = "auto"):
     """GridNet lattice (model_gmfss/FusionNet.py:106-145); ``union`` names the
-    head as the union network does."""
-    X00 = _seq_block(p, _head0(union), x) + _seq_block(p, "residual_model_head1", x1)
-    X01 = _seq_block(p, "residual_model_01", X00) + X00
-    X10 = (_seq_block(p, "downsample_model_10", X00, stride=2)
-           + _seq_block(p, "residual_model_head2", x2))
+    head as the union network does.
+
+    The L0 (64-channel) and L1 (128-channel) blocks run on the conv chain, on
+    ``conv_backend`` (drba_tpu's ``_gridnet_fused`` without its TPU column
+    packing): each seq block one chain carrying its lattice sum as the final
+    residual; the stride-2 and transposed convs on cuDNN, each followed by
+    its trailing conv as a one-step chain carrying the lattice sum; the
+    tail's two convs as one chain. L2 (192 channels) stays on cuDNN. The
+    sums add the same terms in the same order as FusionNet.py.
+    """
+    def seq(prefix, src, residual="none", res=None):
+        # _seq_block (PReLU, conv, PReLU, conv) as one two-step chain
+        steps = [_step(p, f"{prefix}.1", f"{prefix}.0"), _step(p, f"{prefix}.3", f"{prefix}.2")]
+        return run_chain(src, steps, residual, res, conv_backend)
+
+    def strided_plus(name, src, other, transpose=False):
+        a = prelu(p, f"{name}.0", src)
+        if transpose:
+            t = conv_transpose2d(p, f"{name}.1", a, stride=2, padding=1)
+        else:
+            t = conv2d(p, f"{name}.1", a, stride=2, padding=1)
+        return run_chain(t, [_step(p, f"{name}.3", f"{name}.2")], "extra", other, conv_backend)
+
+    X00 = seq("residual_model_head1", x1, "extra", seq(_head0(union), x))
+    X01 = seq("residual_model_01", X00, "input")
+    X10 = strided_plus("downsample_model_10", X00, seq("residual_model_head2", x2))
     X20 = (_seq_block(p, "downsample_model_20", X10, stride=2)
            + _seq_block(p, "residual_model_head3", x3))
-    X11 = ((_seq_block(p, "residual_model_11", X10) + X10)
-           + _seq_block(p, "downsample_model_11", X01, stride=2))
+    X11 = strided_plus("downsample_model_11", X01, seq("residual_model_11", X10, "input"))
     X21 = ((_seq_block(p, "residual_model_21", X20) + X20)
            + _seq_block(p, "downsample_model_21", X11, stride=2))
     X24 = _seq_block(p, "residual_model_24", X21) + X21
     X25 = _seq_block(p, "residual_model_25", X24) + X24
-    X14 = (_seq_block(p, "upsample_model_14", X24, transpose=True)
-           + (_seq_block(p, "residual_model_14", X11) + X11))
-    X04 = (_seq_block(p, "upsample_model_04", X14, transpose=True)
-           + (_seq_block(p, "residual_model_04", X01) + X01))
-    X15 = (_seq_block(p, "upsample_model_15", X25, transpose=True)
-           + (_seq_block(p, "residual_model_15", X14) + X14))
-    X05 = (_seq_block(p, "upsample_model_05", X15, transpose=True)
-           + (_seq_block(p, "residual_model_05", X04) + X04))
-
-    t = conv2d(p, "residual_model_tail.conv_before_upsample.0", X05, padding=1)
-    t = prelu(p, "residual_model_tail.conv_before_upsample.1", t)
-    t = conv2d(p, "residual_model_tail.upsample.0", t, padding=1)
+    X14 = strided_plus("upsample_model_14", X24, seq("residual_model_14", X11, "input"), True)
+    X04 = strided_plus("upsample_model_04", X14, seq("residual_model_04", X01, "input"), True)
+    X15 = strided_plus("upsample_model_15", X25, seq("residual_model_15", X14, "input"), True)
+    X05 = strided_plus("upsample_model_05", X15, seq("residual_model_05", X04, "input"), True)
+    t = run_chain(X05, [_step(p, _GRIDNET_TAIL[0]),
+                        _step(p, _GRIDNET_TAIL[1], "residual_model_tail.conv_before_upsample.1")],
+                  backend=conv_backend)
     return _tail_out(p, t)

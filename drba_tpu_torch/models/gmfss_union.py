@@ -20,7 +20,8 @@ from drba_tpu_torch.config import DEFAULT, Config, model_device
 from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_gmfss, calc_drm_rife_auxiliary
 from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, pack_transformer_weights
-from drba_tpu_torch.models.gmfss import _select_integer_ts, _select_reuse, _tile, _tile_reuse
+from drba_tpu_torch.models.gmfss import (_select_integer_ts, _select_reuse, _tile, _tile_reuse,
+                                         pack_chain_sites)
 from drba_tpu_torch.models.gmfss_core import (GmfssParams, Reuse, gmfss_reuse,
                                               gmfss_union_inference)
 from drba_tpu_torch.models.gmfss_nets import FEATURENET_SPEC, GRIDNET_UNION_SPEC, METRICNET_SPEC
@@ -60,7 +61,8 @@ def _drba_window(p: GmfssParams, rife_params, I0, I1, I2, ts, reuse10: Reuse, re
     ts_map = resize_bilinear(drm_rife, (I1s.shape[1], I1s.shape[2])).to(I1s.dtype)
     rife, _ = ifnet_apply(rife_params, I1s, IBs, ts_map, scale_list, warp_backend=warp_backend,
                           conv_backend=conv_backend)
-    out = gmfss_union_inference(p, I1b, imgB, reuse, t0, t1, rife, backend=backend)
+    out = gmfss_union_inference(p, I1b, imgB, reuse, t0, t1, rife, backend=backend,
+                                conv_backend=conv_backend)
     return _select_integer_ts(out, ts, I0, I1, I2)[:, None]
 
 
@@ -75,7 +77,8 @@ def _ts_batch(p: GmfssParams, rife_params, I0, I1, ts, reuse: Reuse, scale_list,
                           conv_backend=conv_backend)
     tcol = ts[:, None, None, None].to(I0.dtype)
     out = gmfss_union_inference(p, _tile(I0, T), _tile(I1, T), _tile_reuse(reuse, T), tcol,
-                                1 - tcol, rife, enable_mask=False, backend=backend)
+                                1 - tcol, rife, enable_mask=False, backend=backend,
+                                conv_backend=conv_backend)
     return _select_integer_ts(out, ts, I0, I1)[:, None]
 
 
@@ -88,7 +91,7 @@ class GMFSS_UNION:
     (``rife.pkl``) ``seed + 4``. Parameters are cast to
     ``config.compute_dtype`` once, on the device; GMFlow's transformer
     weights and the IFNet's ResConv weights are packed for their kernels
-    once, here.
+    once, here, and so are the GMFSS nets' chain sites' conv weights.
     """
 
     def __init__(self, weights: str | None = None, scale: float = 1.0,
@@ -100,10 +103,10 @@ class GMFSS_UNION:
                                   strict=config.strict_load)
             return {k: v.to(self.device, config.compute_dtype) for k, v in params.items()}
 
-        self.params = GmfssParams(
+        self.params = pack_chain_sites(GmfssParams(
             pack_transformer_weights(load("flownet.pkl", GMFLOW_SPEC, 0)),
             load("metric.pkl", METRICNET_SPEC, 1), load("feat.pkl", FEATURENET_SPEC, 2),
-            load("fusionnet.pkl", GRIDNET_UNION_SPEC, 3))
+            load("fusionnet.pkl", GRIDNET_UNION_SPEC, 3)), union=True)
         self.rife_params = pack_resconv_weights(load("rife.pkl", IFNET_SPEC, 4))
         self.scale = scale
         self.scale_list = tuple(s / scale for s in (16.0, 8.0, 4.0, 2.0, 1.0))
@@ -116,7 +119,8 @@ class GMFSS_UNION:
     def reuse(self, img0, img1, feat0=None) -> Reuse:
         return gmfss_reuse(self.params, img0, img1, self.scale, feat0=feat0, union=True,
                            warp_backend=self.config.warp_backend,
-                           attn_backend=self.config.attn_backend)
+                           attn_backend=self.config.attn_backend,
+                           conv_backend=self.config.conv_backend)
 
     def inference_ts(self, I0, I1, ts: Sequence[float], reuse=None, return_reuse=False):
         """Plain interpolation at timesteps in [0, 1]. ``reuse`` (an I0 -> I1
@@ -138,7 +142,8 @@ class GMFSS_UNION:
         chain has it."""
         return gmfss_reuse(self.params, I1, I2, self.scale, feat0=feat1, union=True,
                            warp_backend=self.config.warp_backend,
-                           attn_backend=self.config.attn_backend).swapped()
+                           attn_backend=self.config.attn_backend,
+                           conv_backend=self.config.conv_backend).swapped()
 
     def drba_window(self, I0, I1, I2, ts, reuse10: Reuse | None, reuse21: Reuse,
                     linear: bool = False):

@@ -269,7 +269,8 @@ def exchange_accounting(planner: WindowPlanner, windows) -> dict:
         ledger = planner._ledger
     finally:
         planner._carry, planner._ledger = saved, None
-    carries = [e for e in ledger if e[0] == "carry"]
+    # the dispatch threads append in the order they run: sort by boundary
+    carries = sorted((e for e in ledger if e[0] == "carry"), key=lambda e: (e[1], e[2]))
     frames = [e for e in ledger if e[0] == "frame"]
     return {"carries": [(e[1], e[2]) for e in carries],
             "carry_tensors": sum(e[3] for e in carries),

@@ -172,6 +172,45 @@ def test_conv_chain_kernel_matches_plain(dev, dtype, n, cin, cout, beta):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,pre,residual", [
+    (64, 64, True, "none"), (64, 64, True, "plain"), (64, 64, True, "input"),
+    (64, 64, True, "extra"), (128, 128, True, "input"), (14, 64, False, "none"),
+    (12, 64, True, "none"), (9, 64, True, "extra"), (64, 2, True, "none"),
+    (64, 256, True, "none"), (256, 128, True, "extra")])
+def test_conv_chain_gmfss_epilogues_match_plain(dev, dtype, cin, cout, pre, residual):
+    """The GMFSS steps' epilogues on the kernel: the pre-PReLU (a negative
+    slope on a patch that straddles the frame's zero padding), the plain
+    residual, the chain's input as the final residual (two steps, so that it
+    is not the last step's input) and an extra residual; at GMFSS's widths
+    that are no multiple of the kernel's tiles: Cin 14 / 12 / 9 (staged
+    without cp.async), Cout 2 (unvectorised store) and 256 (96-channel
+    blocks, the last partly masked); on a 19 x 37 map, N = 2."""
+    gen = torch.Generator(device=dev).manual_seed(cin + cout)
+    x = (torch.rand(2, 19, 37, cin, generator=gen, device=dev) * 2 - 1).to(dtype)
+    res = (torch.rand(2, 19, 37, cout, generator=gen, device=dev) * 2 - 1).to(dtype)
+    alpha = torch.tensor(-0.3, device=dev).to(dtype) if pre else None
+    steps, c = [], cin
+    for _ in range(2 if residual == "input" else 1):
+        bound = 1.0 / (9 * c) ** 0.5
+        steps.append(chain_step(
+            ((torch.rand(cout, c, 3, 3, generator=gen, device=dev) * 2 - 1) * bound).to(dtype),
+            ((torch.rand(cout, generator=gen, device=dev) * 2 - 1) * 0.05).to(dtype),
+            pre_alpha=alpha, plain_res=residual == "plain"))
+        c = cout
+    mode = residual if residual in ("input", "extra") else "none"
+    r = res if residual == "extra" else None
+    n0 = _build.CONV.launches
+    got = conv_chain(x, steps, mode, r, backend="cuda")
+    assert _build.CONV.launches == n0 + len(steps)
+    want = conv_chain(x, steps, mode, r, backend="torch")
+    # f32: sums of 9*C products in another order; bf16: the PReLU product
+    # rounds alike on both sides, the conv output and the residual add round
+    # to bf16 at possibly other ulps (values up to ~3)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_conv_kernel_bf16_without_packed_weights_raises(dev):
     from drba_tpu_torch.ops.conv_chain import conv3x3_cuda
 
@@ -367,8 +406,10 @@ def test_layer_kernels_without_packed_weights_raise(dev):
 
 def test_gmfss_window_launch_counts(dev):
     """One T=3 window with the reuse chained: one GMFlow pass (24 layers, a
-    projection and a tail launch each) and four softsplats (the DRM
-    alignment, three pyramid levels), two splat launches each."""
+    projection and a tail launch each), four softsplats (the DRM
+    alignment, three pyramid levels), two splat launches each, and 32 conv
+    chain steps: FeatureNet's level 1 for I2 (1), MetricNet (5), GridNet's
+    L0 (14) and L1 (12) steps."""
     from drba_tpu_torch.models.gmfss import GMFSS
 
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -381,6 +422,7 @@ def test_gmfss_window_launch_counts(dev):
     after = _build.counts()
     assert after["transformer_layer"] - before["transformer_layer"] == 48
     assert after["splat"] - before["splat"] == 8
+    assert after["conv_chain"] - before["conv_chain"] == 32
 
 
 def test_gmfss_window_kernel_path_matches_plain(dev):
@@ -395,13 +437,13 @@ def test_gmfss_window_kernel_path_matches_plain(dev):
     for cfg, mean_tol in ((F32, 1e-4), (DEFAULT, 1e-2)):
         m = GMFSS(config=cfg, device=dev)
         plain = GMFSS(config=cfg.replace(splat_backend="torch", warp_backend="torch",
-                                         attn_backend="torch"), device=dev)
+                                         attn_backend="torch", conv_backend="torch"), device=dev)
         frames = [f.to(cfg.compute_dtype) for f in fr]
         before = _build.counts()
         got, _ = m.inference_ts_drba(*frames, [0.7, 1.1], None, linear=True)
         after = _build.counts()
-        for name in ("splat", "warp", "window_attention", "flash_attention",
-                     "transformer_layer"):
+        for name in ("splat", "warp", "conv_chain", "window_attention",
+                     "flash_attention", "transformer_layer"):
             assert after[name] > before[name], name
         want, _ = plain.inference_ts_drba(*frames, [0.7, 1.1], None, linear=True)
         for g, w in zip(got, want):

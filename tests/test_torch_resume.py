@@ -10,7 +10,8 @@ Against drba_tpu, the resumed tail equals its *uninterrupted* run within
 1e-4; drba_tpu's own resume restarts the chain at the first computed window,
 so its resumed tail is not its uninterrupted run's (a documented gap of the
 reference). The segmented writer, the manifest and ``--resume`` run through
-``cli.main`` with cv2 (no ffmpeg here).
+``cli.main`` with cv2 (no ffmpeg here), and so does the folder batch of
+``drba_tpu_torch.demo``.
 """
 
 import json
@@ -409,6 +410,25 @@ def test_hw_flag_writes_a_file(tmp_path):
     out = str(tmp_path / "hw.mp4")
     assert _cli(inp, out, "-hw").frames_out == 10
     assert len(_read_video(out)) == 10
+
+
+def test_demo_interpolates_every_clip_of_a_folder(tmp_path):
+    """``python -m drba_tpu_torch.demo``: each video of the folder through
+    ``cli.main`` (times mode), written as ``<name>_2x.mp4``; other files
+    are left alone."""
+    from drba_tpu_torch import demo
+
+    inp, out = tmp_path / "clips", tmp_path / "out"
+    inp.mkdir()
+    _make_video(str(inp / "a.mp4"), n_frames=6)
+    _make_video(str(inp / "b.avi"), n_frames=4)
+    (inp / "notes.txt").write_text("not a clip")
+    stats = demo.main(["--input_dir", str(inp), "--output_dir", str(out), "-m", "rife",
+                       "-t", "2", "--device", "cpu", "--weights", str(tmp_path / "none")])
+    assert [s.frames_out for s in stats] == [12, 8]
+    assert sorted(os.listdir(out)) == ["a_2x.mp4", "b_2x.mp4"]
+    assert len(_read_video(str(out / "a_2x.mp4"))) == 12
+    assert len(_read_video(str(out / "b_2x.mp4"))) == 8
 
 
 # ------------------------------------------------------------------------------- debug helpers

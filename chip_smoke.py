@@ -19,8 +19,10 @@ Phases (any failure exits non-zero and prints no result):
      launches), the layer's projection, window and tail also timed apart;
      GMFSS_UNION's shapes (1080p padded to 1152x1920) and the conv chain's
      GMFSS steps (pre-PReLU, plain and final residuals: GridNet L0/L1,
-     heads and tail, MetricNet, FeatureNet level 1) checked and timed
-     outside the summed rows;
+     heads, head1's first step and tail, MetricNet, FeatureNet level 1)
+     checked and timed outside the summed rows; each conv shape on the
+     design its plan gives (printed), and in bf16 also on the other design
+     that takes it (mma.sync, wgmma), against the plain version;
   4. slices: ``run_pipeline`` on synthetic 1080p frames at 24 -> 60 fps in
      bf16, with a seed-0 random-weight RIFE (IFNet 4.26-heavy, full width), a
      seed-0 GMFSS (GMFlow, MetricNet, FeatureNet, GridNet, full width), a
@@ -32,7 +34,8 @@ Phases (any failure exits non-zero and prints no result):
      are reset just before each run and read just after);
   5. windows: one window of each model on the kernel path against the plain
      path (f32 and bf16), the window time both ways, and a profile of one
-     kernel-path window with its launches per kernel; GMFSS's and
+     kernel-path window with its launches per kernel and its conv launches
+     by design (the profiler's kernel names) against the plan's; GMFSS's and
      GMFSS_UNION's windows also timed with ``conv_backend="torch"`` alone
      (every conv on cuDNN, as before the conv chain took their nets' convs),
      in turns with the other two;
@@ -58,10 +61,12 @@ computes in bf16, where TF32 does not apply.
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 H, W = 1088, 1920          # 1080p padded to RIFE's and GMFSS's multiple of 64
 HU = 1152                  # 1080p padded to GMFSS_UNION's multiple of 128
@@ -248,7 +253,7 @@ def phase_kernels(dev):
     import torch.nn.functional as F
 
     from drba_tpu_torch import bounds
-    from drba_tpu_torch.ops.conv_chain import _step_plain, chain_step, conv3x3_cuda
+    from drba_tpu_torch.ops.conv_chain import _step_plain, chain_step, conv3x3_cuda, conv3x3_path
     from drba_tpu_torch.ops.softsplat import softsplat
     from drba_tpu_torch.ops.warp import backwarp, backwarp2, sample_positions
     from drba_tpu_torch.ops.warp_cuda import warp_cuda
@@ -406,8 +411,13 @@ def phase_kernels(dev):
             tol = (1e-4, 0.0, "f32 sums of 9*C terms in another order") if dt == f32 else \
                 (2e-2, 2e-2, "bf16 rounding of conv output and of 3 epilogue ops")
             kern = lambda: conv3x3_cuda(x, st.w, st.b, st.beta, st.wp)
-            err = check_close(f"conv_chain step {tuple(x.shape)} {dt}", kern(),
-                              _step_plain(x, st), *tol)
+            want = _step_plain(x, st)
+            err = check_close(f"conv_chain step {tuple(x.shape)} {dt} "
+                              f"[{conv3x3_path(n, h, w, c, c, dt)}]", kern(), want, *tol)
+            for path in other_designs(n, h, w, c, c, dt):
+                err = max(err, check_close(
+                    f"conv_chain step {tuple(x.shape)} {dt} [{path}, forced]",
+                    conv3x3_cuda(x, st.w, st.b, st.beta, st.wp, path=path), want, *tol))
             nchw = x.permute(0, 3, 1, 2)  # the NHWC data, channels_last
             record("conv_chain", err, kern, lambda: _step_plain(x, st), 10, dt,
                    bounds.conv3x3_work(n, h, w, c, c, x.element_size()),
@@ -415,6 +425,19 @@ def phase_kernels(dev):
     gmfss_conv_checks(dev, gen, record)
     attention_checks(dev, gen, record)
     return summary
+
+
+def other_designs(n, h, w, cin, cout, dt):
+    """The bf16 conv designs that take this shape besides the plan's: each
+    is held against the plain version too (not timed)."""
+    import torch
+
+    from drba_tpu_torch.ops.conv_chain import conv3x3_path, wgmma_takes
+
+    if dt != torch.bfloat16:
+        return []
+    plan = conv3x3_path(n, h, w, cin, cout, dt)
+    return [p for p in ("mma", "wgmma") if p != plan and (p == "mma" or wgmma_takes(cin, cout))]
 
 
 def gmfss_conv_checks(dev, gen, record):
@@ -427,7 +450,7 @@ def gmfss_conv_checks(dev, gen, record):
     import torch.nn.functional as F
 
     from drba_tpu_torch import bounds
-    from drba_tpu_torch.ops.conv_chain import chain_step, conv_chain
+    from drba_tpu_torch.ops.conv_chain import chain_step, conv3x3_cuda, conv3x3_path, conv_chain
 
     f32, bf16 = torch.float32, torch.bfloat16
     # label: (n, h, w, cin, cout, pre-PReLU, residual: none | plain | input | extra)
@@ -435,6 +458,7 @@ def gmfss_conv_checks(dev, gen, record):
             "gridnet L0 pre + extra": (3, H // 2, W // 2, 64, 64, True, "extra"),
             "gridnet L1 pre + input": (3, H // 4, W // 4, 128, 128, True, "input"),
             "gridnet head 12->64 pre": (3, H // 2, W // 2, 12, 64, True, "none"),
+            "gridnet head1 128->64 pre": (3, H // 2, W // 2, 128, 64, True, "none"),
             "gridnet head2 256->128 pre": (3, H // 4, W // 4, 256, 128, True, "none"),
             "gridnet tail 64->256 pre": (3, H // 2, W // 2, 64, 256, True, "none"),
             "metricnet in 14->64": (1, H // 2, W // 2, 14, 64, False, "none"),
@@ -458,8 +482,17 @@ def gmfss_conv_checks(dev, gen, record):
             plain = lambda: conv_chain(x, [st], mode, res, backend="torch")
             tol = (1e-4, 0.0, "f32 sums of 9*Cin terms in another order") if dt == f32 else \
                 (2e-2, 2e-2, "bf16 rounding of the conv output and of the residual add")
-            err = check_close(f"conv_chain {label} {tuple(x.shape)}->{cout} {dt}", kern(),
-                              plain(), *tol)
+            want = plain()
+            err = check_close(f"conv_chain {label} {tuple(x.shape)}->{cout} {dt} "
+                              f"[{conv3x3_path(n, h, w, cin, cout, dt)}]", kern(), want, *tol)
+            # the other designs at this shape: one step, its residual the
+            # operand the chain hands the kernel
+            r = x if residual in ("plain", "input") else res
+            for path in other_designs(n, h, w, cin, cout, dt):
+                err = max(err, check_close(
+                    f"conv_chain {label} {tuple(x.shape)}->{cout} {dt} [{path}, forced]",
+                    conv3x3_cuda(x, st.w, st.b, None, st.wp, st.pre_alpha, r, path=path),
+                    want, *tol))
             nchw = x.permute(0, 3, 1, 2)  # the NHWC data, channels_last
             record("conv_chain", err, kern, plain, 10, dt,
                    bounds.conv3x3_work(n, h, w, cin, cout, x.element_size(), beta=False,
@@ -825,18 +858,42 @@ def profile_window(name, fn):
 
     from drba_tpu_torch import _build
 
+    conv_chain = importlib.import_module("drba_tpu_torch.ops.conv_chain")
+
     fn()
     torch.cuda.synchronize()
+    # the design the plan gives each conv launch of the profiled call
+    planned = Counter()
+    conv3x3 = conv_chain.conv3x3_cuda
+
+    def planning_conv3x3(x, w, *a, **k):
+        planned[k.get("path") or conv_chain.conv3x3_path(*x.shape, w.shape[0], x.dtype)] += 1
+        return conv3x3(x, w, *a, **k)
+
+    conv_chain.conv3x3_cuda = planning_conv3x3
     _build.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        conv_chain.conv3x3_cuda = conv3x3
     print(f"launches in one {name} kernel-path window T=3: {_build.counts()}")
     # device kernels are the entries with device time and no host time of their own
     kernels = [e for e in prof.key_averages()
                if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    # the conv kernel's launches by design (device kernel names under the
+    # conv3x3_ prefix of DEVICE_KERNELS) against the plan's
+    ran = {p: sum(e.count for e in kernels if f"::conv3x3_{p}_kernel" in e.key)
+           for p in ("fma", "mma", "wgmma")}
+    print(f"conv launches in one {name} window T=3 by design: ran {ran}, planned "
+          f"{dict(planned)}")
+    if any(ran[p] != planned.get(p, 0) for p in ran) or \
+            sum(ran.values()) != _build.counts()["conv_chain"]:
+        fail(f"{name} window: conv kernels by design {ran} differ from the plan "
+             f"{dict(planned)} or from the launch count {_build.counts()['conv_chain']}")
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile {name} kernel-path window T=3: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / wall:.1f}%), top device kernels:")

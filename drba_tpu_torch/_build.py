@@ -183,8 +183,8 @@ SPLAT = Kernel("splat", "splat.cu", {
 })
 # img0, img1, flow, out; n, h, w, c, k, zeros, flow stride, flow offset 1; 2 dtypes; stream
 WARP = Kernel("warp", "warp.cu", {"drba_warp": [_P] * 4 + [_I] * 10 + [_P]})
-# x, w (OIHW), packed w, bias, beta, alpha, res, out; n, h, w, cin, cout, dtype; stream
-CONV = Kernel("conv_chain", "conv_chain.cu", {"drba_conv3x3": [_P] * 8 + [_I] * 6 + [_P]})
+# x, w (OIHW), packed w, bias, beta, alpha, res, out; n, h, w, cin, cout, dtype, path; stream
+CONV = Kernel("conv_chain", "conv_chain.cu", {"drba_conv3x3": [_P] * 8 + [_I] * 7 + [_P]})
 # q, k, v, out, labels; b, h, w, kk; 4 token strides; 2 label strides; half; dtype; stream
 WINDOW = Kernel("window_attention", "attention.cu",
                 {"drba_window_attention": [_P] * 5 + [_I] * 12 + [_P]})

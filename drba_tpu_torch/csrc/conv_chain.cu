@@ -15,23 +15,66 @@
 // level 1, GridNet L0/L1 and tail: drba_tpu/models/gmfss_nets.py:150-172,
 // 225-234, 387-467). The TPU kernel packs narrow channels into 128 lanes
 // and keeps a whole chain in VMEM over row bands; neither constraint exists
-// here. Both kernels below are implicit GEMMs (M = output pixels, N =
+// here. The kernels below are implicit GEMMs (M = output pixels, N =
 // output channels, K = 9 taps x input channels), one launch per chain
-// step, for all channel counts and every spatial size, with f32
-// accumulation and the epilogues fused.
+// step, with f32 accumulation and the epilogues fused. The C entry runs
+// the design the caller names (ops/conv_chain.conv3x3_path plans it from
+// the shape) and refuses one the shape does not fit.
 //
-// bf16 (the main path): tensor cores through mma.sync m16n8k16 fed by
-// ldmatrix. What bounds it on this card: the large IFNet steps (c = 64 and
-// 32 at 1/4 and 1/2 resolution) and the GMFSS steps at 544x960 by memory;
-// the deep narrow ones (c = 192 and 128 at 1/16 and 1/8: 1530 and 6120
-// pixels at N = 3, K up to 1728) by latency, since even split into
-// 64-pixel x 32-channel blocks their grid holds ~3 warps an SM, each
-// waiting on its own ldmatrix -> mma chain (split-K over warps is the next
-// step). The design:
-//  * weights are packed once per model (ops/conv_chain.pack_weights) into
-//    (ceil(Cin/16), 9, Cout, 16): one K chunk of 16 input channels is 9
-//    contiguous runs of Cout 32-byte rows, the "col" B operand of the MMA
-//    as ldmatrix reads it. No block transposes weights;
+// The weights of both bf16 designs are packed once per model
+// (ops/conv_chain.pack_weights) into (ceil(Cin/16), 9, Cout, 16): one K
+// chunk of 16 input channels is 9 contiguous runs of Cout 32-byte rows.
+// With the two 16-byte halves of each row swapped where bit 2 of the row
+// index is set (as mma.sync's staging writes them, and as a TMA box with
+// the 32-byte swizzle lands), those rows are byte for byte wgmma's K-major
+// B operand with the 32-byte swizzle, so neither design transposes weights.
+//
+// bf16, large steps ("wgmma": Cin a multiple of 16, Cout of 64 up to 256;
+// the plan sends the GMFSS nets' 64-256-channel steps at 544x960 and
+// 272x480, and RIFE's 64-channel step, whose weights fit resident). What
+// bounds them on this card: the tensor cores at Cin 128 and Cout 256
+// (0.12-0.47 ms at 989 TFLOP/s), memory at 64 -> 64 (0.18 ms for an L0
+// step's 600 MB). What held the mma.sync design back there: each of its
+// 12 240 blocks staged the whole weight tensor again (more bytes from L2
+// than the step's activations), Cout above 128 restaged each patch, and
+// 16-channel chunks gave short K loops with a prologue and drain a block.
+// The design:
+//  * persistent blocks, one an SM, each two pairs of (producer warp,
+//    consumer warpgroup) with a ring of stages a pair; a pair walks its
+//    own tiles of MT rows x 64 columns, so one pair's epilogue overlaps the
+//    other's wgmmas;
+//  * the block keeps its NB output channels' weights (all K) in shared
+//    memory for its life: NB = 128 where those fit (<= 144 KB: Cin 64),
+//    else 64; Cout splits into Cout / NB groups of blocks, each group
+//    restaging only the patches (Cout 256: two groups, where mma.sync
+//    restaged every patch three times). Where even 64 channels do not fit
+//    (Cin > 128), the weights stream with each K chunk (slower than
+//    mma.sync at GridNet's 256 -> 128 head, so the plan keeps it there);
+//  * one producer lane loads each 16-channel K chunk's patch by TMA: two
+//    boxes of 8 channels x 66 x (MT + 2) pixels, zero outside the frame
+//    (the pad-1 border for free), completing the stage's mbarrier. The
+//    loader is a handful of instructions a chunk, where per-thread
+//    cp.async copies with their addressing and mbarrier arrivals measured
+//    slower than the wgmmas they fed;
+//  * A from shared memory with no swizzle: pixels of 16 bytes in a row of
+//    the patch, the chunk's two 8-channel halves a box apart, so the
+//    tap's shift is only the descriptor's start (16 bytes a pixel); B the
+//    resident (or staged) rows above. 9 taps x MT wgmma m64nNBk16 a chunk,
+//    one chunk's group in flight while the next is issued;
+//  * the pre-PReLU runs on the landed patch in place, bf16 pairs at a
+//    time (the product rounded as prelu<bf16>), behind one barrier of the
+//    warpgroup's 128 threads;
+//  * the epilogue works on the accumulator layout: each lane rounds, adds
+//    and stores bf16 pairs of its channels (bias and beta read once a
+//    block; res loaded while the last chunk's wgmmas run).
+//
+// bf16, small and narrow steps ("mma": RIFE's deep ResConvs, Cin 9/12/14,
+// Cout 2, GridNet's 256 -> 128 head): tensor cores through mma.sync
+// m16n8k16 fed by ldmatrix. What bounds it on this card: the deep narrow
+// steps (c = 192 and 128 at 1/16 and 1/8: 1530 and 6120 pixels at N = 3,
+// K up to 1728) by latency, since even split into 64-pixel x 32-channel
+// blocks their grid holds ~3 warps an SM, each waiting on its own ldmatrix
+// -> mma chain (split-K over warps is the next step). The design:
 //  * a block covers a tile of 2*WM output rows x 16 columns and NB output
 //    channels: all Cout of its pixels up to 128 (each input patch staged
 //    once); wider layers (c = 192, 256) and the steps with too few tiles
@@ -47,7 +90,7 @@
 //    loads instead;
 //  * the pre-PReLU runs once per staged element, in place on the landed
 //    patch, behind one more barrier per chunk (prelu(0) = 0, so the zero
-//    padding stays exact); a simple placement, not yet overlapped;
+//    padding stays exact);
 //  * each warp owns 2 output rows x 16 columns x NB/WN channels. A tap's
 //    shifted window is only another row address for ldmatrix (rows are 32
 //    bytes, the two 16-byte halves swapped by bit 2 of the row index, so
@@ -58,10 +101,10 @@
 //    come from shared memory (staged once per block), the residuals x and
 //    res are read and the output written as 16-byte vectors (one value at
 //    a time where Cout is no multiple of 8, as MetricNet's Cout = 2).
-// mma.sync rather than wgmma: the tile has to shrink to 64 pixels and 32
-// channels to fill the card at the small steps, and the shifted windows
-// are plain ldmatrix row addresses; wgmma's 64-row warpgroup tiles and
-// shared-memory descriptors are a later step.
+// Why two designs: wgmma's 64-row warpgroup tiles and resident weights
+// need enough 64-column tiles to fill 132 SMs twice and Cout in blocks of
+// 64; the deep narrow steps have neither (6120 pixels, Cout 192 = 3 x 64
+// but too few tiles), and odd widths cannot be TMA boxes of 16 bytes.
 //
 // f32: the FMA pipes (the tensor cores have no full-f32 mode), on the
 // PyTorch OIHW weights. Block tile 8 x 32 pixels x 32 channels, 256 threads
@@ -74,9 +117,13 @@
 // rounded to T, then y * beta, + x and the leaky product are each rounded
 // to T, and so is + res, as separate eager ops would.
 
+#include <cuda.h>
+
 #include <atomic>
+#include <mutex>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -455,6 +502,362 @@ int conv3x3_bf16(ConvArgs a, int n, cudaStream_t s) {
   return launch_plan(a, n, wm, nb, dev, s);
 }
 
+// ------------------------------------------- bf16: wgmma, persistent blocks
+
+constexpr int kWCols = 64;                    // output columns of a tile row: one m64
+constexpr int kWPatchW = kWCols + 2;          // patch columns
+constexpr int kWThreads = 320;                // 2 consumer warpgroups + 2 producer warps
+constexpr int kWMaxResident = 9 * 128 * 64 * 2;  // the most weight bytes a block keeps
+constexpr int kWSmemLimit = 232448;           // shared memory a block may use
+constexpr int kWMaxStages = 8;
+
+// NB output channels a block, MT output rows (one m64 tile each) a
+// warpgroup tile, weights resident (RES) or streamed with each K chunk
+template <int NB, int MT, bool RES>
+struct WgCfg {
+  static constexpr int kBox = (MT + 2) * kWPatchW * 16;  // one 8-channel half of a patch
+  static constexpr int kHalf = (kBox + 127) / 128 * 128;  // its stride: TMA writes 128-aligned
+  static constexpr int kWChunk = 9 * NB * 32;             // a 16-channel K chunk's weights
+  static constexpr int kStage = (((RES ? 0 : kWChunk) + 2 * kHalf) + 255) / 256 * 256;
+  static int stages(int cin) {  // ring stages per warpgroup that fit beside the weights
+    const int fixed = 1024 + (RES ? (cin / 16) * kWChunk : 0) + 64 * 8;
+    const int s = (kWSmemLimit - fixed) / (2 * kStage);
+    return s < kWMaxStages ? s : kWMaxStages;
+  }
+  static int smem(int cin, int stages) {
+    return 1024 + (RES ? (cin / 16) * kWChunk : 0) + 2 * stages * kStage + (4 * stages + 1) * 8;
+  }
+};
+
+// one box of a 4-d tensor map into shared memory, signalled on `bar`
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// two bf16 values as one 32-bit word (lo in the low half)
+__device__ __forceinline__ uint32_t bf16x2_bits(drba::bf16 lo, drba::bf16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 bf16x2_f2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+// both values rounded to bf16 and back
+__device__ __forceinline__ float2 round2(float2 v) {
+  return __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+}
+// prelu of two bf16 values with the slope pair alpha2: the product rounded
+// to bf16 (bf16x2 multiply, exact before its one rounding) where a value is
+// below zero (sign set, magnitude non-zero), the value itself elsewhere, as
+// prelu<bf16> (NaN stays NaN)
+__device__ __forceinline__ uint32_t prelu2(uint32_t v, uint32_t alpha2) {
+  const __nv_bfloat162 prod = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                      *reinterpret_cast<const __nv_bfloat162*>(&alpha2));
+  const uint32_t nz = ((v & 0x7fff7fffu) + 0x7fff7fffu) & 0x80008000u;  // magnitude > 0
+  const uint32_t m = ((v & nz) >> 15) * 0xffffu;                         // negative halves
+  return (*reinterpret_cast<const uint32_t*>(&prod) & m) | (v & ~m);
+}
+// the pre-PReLU in place on `bytes` (a multiple of 16) of a staged patch,
+// by the 128 threads of a warpgroup
+__device__ __forceinline__ void prelu_patch2(unsigned char* patch, int bytes, uint32_t alpha2,
+                                             int tid) {
+  for (int i = tid; i < bytes / 16; i += 128) {
+    uint4 v = reinterpret_cast<uint4*>(patch)[i];
+    v.x = prelu2(v.x, alpha2);
+    v.y = prelu2(v.y, alpha2);
+    v.z = prelu2(v.z, alpha2);
+    v.w = prelu2(v.w, alpha2);
+    reinterpret_cast<uint4*>(patch)[i] = v;
+  }
+}
+
+// Persistent, warp-specialised: warps 0-7 are two consumer warpgroups,
+// warps 8 and 9 their producers. Pair p (producer warp p, warpgroup p)
+// walks the tiles blockIdx.x * 2 + p, + 2 * gridDim.x, ... of output
+// channel block blockIdx.y; a tile is MT rows x 64 columns of one image.
+// One lane of the producer loads each 16-channel K chunk's patch (two TMA
+// boxes of 8 channels x 66 x (MT + 2) pixels, zero outside the frame) and,
+// streamed, the chunk's weights (one box, 32-byte swizzle) into its pair's
+// ring; the stage's full mbarrier completes when their bytes land. The
+// warpgroup runs the 9 taps x MT wgmma m64nNBk16 on it (A: the patch at the
+// tap's shifted start, B: the weights), keeps one chunk's wgmmas in flight
+// and frees the stage before it when they are done. Resident weights are
+// loaded once and signalled on their own mbarrier.
+template <int NB, int MT, bool RES>
+__global__ void __launch_bounds__(kWThreads, 1)
+conv3x3_wgmma_kernel(const ConvArgs a, const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tw, int n, int bands, int stages) {
+  using C = WgCfg<NB, MT, RES>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const int nch = a.cin / 16;
+  const uint32_t wres = base;  // resident weights (chunk, tap, NB rows of 32 bytes)
+  const uint32_t ring = base + (RES ? nch * C::kWChunk : 0);
+  const uint32_t bars = ring + 2 * stages * C::kStage;
+  const uint32_t wbar = bars + 4 * stages * 8;  // the resident weights have landed
+  // full / empty mbarrier of stage s of pair p
+  auto full = [&](int p, int s) { return bars + (p * stages + s) * 8; };
+  auto empty = [&](int p, int s) { return bars + ((2 + p) * stages + s) * 8; };
+  auto stage_at = [&](int p, int s) { return ring + (p * stages + s) * C::kStage; };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int p = 0; p < 2; ++p)
+      for (int s = 0; s < stages; ++s) {
+        drba::mbar_init(full(p, s), 1);   // the producer's expect_tx
+        drba::mbar_init(empty(p, s), 4);  // one lane of each of the warpgroup's warps
+      }
+    drba::mbar_init(wbar, 1);
+    drba::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int co0 = blockIdx.y * NB;
+  const int tiles = n * bands * a.tiles_w;  // < 2^31: the host checks
+  const int step = 2 * gridDim.x;
+
+  if (warp >= 8) {  // ------------------------------------------- producers
+    const int p = warp - 8;
+    if (lane != 0) return;
+    if (RES && p == 0) {  // the block's weights, once: (chunk, tap, NB rows)
+      drba::mbar_expect_tx(wbar, nch * C::kWChunk);
+      for (int c = 0; c < nch; ++c) tma_load4(wres + c * C::kWChunk, &tw, wbar, 0, co0, 0, c);
+    }
+    int k = 0;
+    for (int t = blockIdx.x * 2 + p; t < tiles; t += step) {
+      const int cb = t % a.tiles_w, rest = t / a.tiles_w;
+      const int band = rest % bands, nb = rest / bands;
+      const int ty0 = band * MT, tx0 = cb * kWCols;
+      for (int c = 0; c < nch; ++c, ++k) {
+        const int s = k % stages;
+        drba::mbar_wait(empty(p, s), ((k / stages) & 1) ^ 1);
+        const uint32_t st = stage_at(p, s), bar = full(p, s);
+        drba::mbar_expect_tx(bar, 2 * C::kBox + (RES ? 0 : C::kWChunk));
+        if (!RES) tma_load4(st, &tw, bar, 0, co0, 0, c);
+        const uint32_t patch = st + (RES ? 0 : C::kWChunk);
+        tma_load4(patch, &tx, bar, c * 16, tx0 - 1, ty0 - 1, nb);
+        tma_load4(patch + C::kHalf, &tx, bar, c * 16 + 8, tx0 - 1, ty0 - 1, nb);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------- consumers
+  const int p = warp >> 2, wtid = tid & 127, wq = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint32_t alpha2 = a.alpha != nullptr ? bf16x2_bits(*a.alpha, *a.alpha) : 0u;
+  // this lane's output channels: co0 + 8 j + 2 t4, + 1 of each n8 tile j;
+  // their bias and ResConv beta as bf16 pairs, read once
+  uint32_t bias[NB / 8], beta[NB / 8];
+#pragma unroll
+  for (int j = 0; j < NB / 8; ++j) {
+    const int co = co0 + 8 * j + 2 * t4;
+    bias[j] = bf16x2_bits(a.bias[co], a.bias[co + 1]);
+    beta[j] = a.beta != nullptr ? bf16x2_bits(a.beta[co], a.beta[co + 1]) : 0u;
+  }
+  if (RES) drba::mbar_wait(wbar, 0);
+  int s = 0;         // ring stage of the next chunk
+  uint32_t ph = 0;   // and the parity of its fill
+  for (int t = blockIdx.x * 2 + p; t < tiles; t += step) {
+    const int cb = t % a.tiles_w, rest = t / a.tiles_w;
+    const int band = rest % bands, nb = rest / bands;
+    const int ty0 = band * MT, tx0 = cb * kWCols;
+
+    float acc[MT][NB / 2];
+    int prev = 0;
+    for (int c = 0; c < nch; ++c) {
+      drba::mbar_wait(full(p, s), ph);
+      const uint32_t st = stage_at(p, s);
+      const uint32_t patch = st + (RES ? 0 : C::kWChunk);
+      if (a.alpha != nullptr) {  // activate the landed patch in place
+        for (int h = 0; h < 2; ++h)
+          prelu_patch2(sbase + (patch - base) + h * C::kHalf, C::kBox, alpha2, wtid);
+        drba::fence_async_smem();
+        drba::named_bar_sync(1 + p, 128);
+      }
+      // A: 64 patch pixels from the tap's shifted start (16 bytes a pixel,
+      // the channel halves kHalf apart); B: the tap's NB x 32-byte rows
+      const uint64_t da = drba::gmma_desc(patch, C::kHalf, 128, drba::kNoSwizzle);
+      const uint64_t db =
+          drba::gmma_desc(RES ? wres + c * C::kWChunk : st, 16, 256, drba::kSwizzle32);
+#pragma unroll
+      for (int r = 0; r < MT; ++r) drba::fence_regs(acc[r]);
+      drba::wgmma_fence();
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+#pragma unroll
+        for (int r = 0; r < MT; ++r) {
+          // descriptors hold addresses in 16-byte units in their low bits
+          const uint64_t dat = da + ((r + dy) * kWPatchW + dx);
+          const uint64_t dbt = db + tap * NB * 2;
+          if constexpr (NB == 64)
+            drba::wgmma_m64n64_ss<0>(acc[r], dat, dbt, c > 0 || tap > 0);
+          else
+            drba::wgmma_m64n128_ss<0>(acc[r], dat, dbt, c > 0 || tap > 0);
+        }
+      }
+      drba::wgmma_commit();
+      drba::wgmma_wait<1>();  // chunk c - 1's products are done: free its stage
+      if (c > 0 && lane == 0) drba::mbar_arrive(empty(p, prev));
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    // the epilogue, from the accumulator layout (wgmma.cuh): lane (g, t4)
+    // of warp wq holds pixels 16 wq + g and + 8 of each row, channels 8 j +
+    // 2 t4, + 1 of each n8 tile j, stored as bf16 pairs. res is loaded
+    // while the last chunk's products run.
+    uint32_t rv[MT][2][NB / 8];
+#pragma unroll
+    for (int r = 0; r < MT; ++r)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int oy = ty0 + r, ox = tx0 + 16 * wq + g + 8 * hh;
+        const long long pix = (static_cast<long long>(nb) * a.h + oy) * a.w + ox;
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j) {
+          rv[r][hh][j] = 0u;
+          if (a.res != nullptr && oy < a.h && ox < a.w)
+            rv[r][hh][j] = *reinterpret_cast<const uint32_t*>(a.res + pix * a.cout + co0 +
+                                                              8 * j + 2 * t4);
+        }
+      }
+    drba::wgmma_wait<0>();
+    if (lane == 0) drba::mbar_arrive(empty(p, prev));
+#pragma unroll
+    for (int r = 0; r < MT; ++r) drba::fence_regs(acc[r]);
+#pragma unroll
+    for (int r = 0; r < MT; ++r)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int oy = ty0 + r, ox = tx0 + 16 * wq + g + 8 * hh;
+        if (oy >= a.h || ox >= a.w) continue;
+        const long long pix = (static_cast<long long>(nb) * a.h + oy) * a.w + ox;
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j) {
+          const int co = co0 + 8 * j + 2 * t4;
+          const float2 b2 = bf16x2_f2(bias[j]);
+          float2 y = round2(make_float2(acc[r][4 * j + 2 * hh] + b2.x,
+                                        acc[r][4 * j + 2 * hh + 1] + b2.y));
+          if (a.beta != nullptr) {  // ResConv: cin == cout, x at the same channels
+            const float2 xv =
+                bf16x2_f2(*reinterpret_cast<const uint32_t*>(a.x + pix * a.cin + co));
+            const float2 be = bf16x2_f2(beta[j]);
+            const float2 tb = round2(make_float2(y.x * be.x, y.y * be.y));
+            const float2 u = round2(make_float2(tb.x + xv.x, tb.y + xv.y));
+            const float2 lk = round2(make_float2(u.x * 0.2f, u.y * 0.2f));
+            y = make_float2(u.x >= 0.f ? u.x : lk.x, u.y >= 0.f ? u.y : lk.y);
+          }
+          if (a.res != nullptr) {
+            const float2 rf = bf16x2_f2(rv[r][hh][j]);
+            y = round2(make_float2(y.x + rf.x, y.y + rf.y));
+          }
+          *reinterpret_cast<__nv_bfloat162*>(a.out + pix * a.cout + co) =
+              __floats2bfloat162_rn(y.x, y.y);
+        }
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled, found once through the runtime's entry-point
+// query (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  });
+  return fn;
+}
+
+// a bf16 4-d tensor map, dims and box innermost first, strides in bytes of dims 1-3
+bool tensor_map(CUtensorMap* m, const void* ptr, const cuuint64_t (&dims)[4],
+                const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn != nullptr &&
+         fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NB, int MT, bool RES>
+int launch_wgmma(ConvArgs a, int n, int dev, cudaStream_t s) {
+  using C = WgCfg<NB, MT, RES>;
+  auto kernel = conv3x3_wgmma_kernel<NB, MT, RES>;
+  static std::atomic<bool> smem_set[kMaxDevices] = {};
+  if (dev >= kMaxDevices || !smem_set[dev]) {  // as launch_mma: the most any shape needs
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemLimit);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < kMaxDevices) smem_set[dev] = true;
+  }
+  const int stages = C::stages(a.cin);
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 132;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  a.tiles_w = static_cast<int>(drba::cdiv(a.w, kWCols));
+  const int bands = static_cast<int>(drba::cdiv(a.h, MT));
+  const int cblocks = a.cout / NB;
+  const long long tiles = static_cast<long long>(n) * bands * a.tiles_w;
+  if (tiles >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  // x (n, h, w, cin): boxes of 8 channels x 66 x (MT + 2) pixels of one
+  // image; the packed weights (cin / 16, 9, cout, 16): a chunk's 9 x NB rows
+  CUtensorMap tx, tw;
+  const cuuint64_t row = 2ull * a.cin;
+  if (!tensor_map(&tx, a.x, {static_cast<cuuint64_t>(a.cin), static_cast<cuuint64_t>(a.w),
+                             static_cast<cuuint64_t>(a.h), static_cast<cuuint64_t>(n)},
+                  {row, row * a.w, row * a.w * a.h}, {8, kWPatchW, MT + 2, 1},
+                  CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tensor_map(&tw, a.wp, {16, static_cast<cuuint64_t>(a.cout), 9,
+                              static_cast<cuuint64_t>(a.cin / 16)},
+                  {32, 32ull * a.cout, 288ull * a.cout}, {16, NB, 9, 1},
+                  CU_TENSOR_MAP_SWIZZLE_32B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long gx = (sms + cblocks - 1) / cblocks;
+  if (gx > (tiles + 1) / 2) gx = (tiles + 1) / 2;
+  const dim3 grid(static_cast<unsigned>(gx), cblocks);
+  kernel<<<grid, kWThreads, C::smem(a.cin, stages), s>>>(a, tx, tw, n, bands, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma design's shape rules: bf16 with 16-byte rows (vec_in,
+// vec_out), Cin a multiple of 16, Cout a multiple of 64 up to 256. Output
+// channels a block: 128 where those weights fit resident, else 64 where
+// they do, else 128 (or 64) streamed with each K chunk.
+int conv3x3_wgmma(const ConvArgs& a, int n, cudaStream_t s) {
+  if (!a.vec_in || !a.vec_out || a.cin % 16 != 0 || a.cout % 64 != 0 || a.cout > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const long long wbytes = 9ll * a.cin * 2;  // per output channel
+  if (a.cout % 128 == 0 && wbytes * 128 <= kWMaxResident)
+    return launch_wgmma<128, 1, true>(a, n, dev, s);
+  if (wbytes * 64 <= kWMaxResident) return launch_wgmma<64, 2, true>(a, n, dev, s);
+  if (a.cout % 128 == 0) return launch_wgmma<128, 1, false>(a, n, dev, s);
+  return launch_wgmma<64, 2, false>(a, n, dev, s);
+}
+
 // ------------------------------------------------------------------ f32: FMA
 
 constexpr int kTH = 8;   // output rows per block
@@ -552,13 +955,20 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 // contiguous. bf16 reads the weights packed by ops/conv_chain.pack_weights,
 // wp (ceil(cin/16), 9, cout, 16), 16-byte aligned; f32 reads wt
 // (cout,cin,3,3). With beta, cin == cout and no alpha (checked by the
-// caller). Returns cudaGetLastError().
+// caller). path (ops/conv_chain.conv3x3_path): 0 the f32 FMA kernel, 1 the
+// bf16 mma.sync kernel, 2 the bf16 wgmma kernel; a path that does not take
+// the dtype, or whose shape rules the call fails, is refused
+// (cudaErrorInvalidValue) and nothing runs. Returns cudaGetLastError().
 extern "C" int drba_conv3x3(const void* x, const void* wt, const void* wp, const void* bias,
                             const void* beta, const void* alpha, const void* res, void* out,
-                            int n, int h, int w, int cin, int cout, int dtype, void* stream) {
+                            int n, int h, int w, int cin, int cout, int dtype, int path,
+                            void* stream) {
+  const bool f32 = dtype == drba::kF32 && path == 0;
+  const bool bf = dtype == drba::kBF16 && (path == 1 || path == 2);
+  if (!f32 && !bf) return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(n) * h * w * cout == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == drba::kBF16) {
+  if (bf) {
     using T = drba::bf16;
     if (wp == nullptr || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -571,17 +981,14 @@ extern "C" int drba_conv3x3(const void* x, const void* wt, const void* wp, const
                      cin % 8 == 0 && x16,
                      cout % 8 == 0 && x16 && res16 &&
                          reinterpret_cast<uintptr_t>(out) % 16 == 0};
-    return conv3x3_bf16(a, n, s);
+    return path == 2 ? conv3x3_wgmma(a, n, s) : conv3x3_bf16(a, n, s);
   }
-  if (dtype == drba::kF32) {
-    const int tiles_w = static_cast<int>(drba::cdiv(w, kTW));
-    const dim3 grid(drba::cdiv(h, kTH) * tiles_w, drba::cdiv(cout, kCO), n);
-    conv3x3_fma_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wt),
-        static_cast<const float*>(bias), static_cast<const float*>(beta),
-        static_cast<const float*>(alpha), static_cast<const float*>(res),
-        static_cast<float*>(out), h, w, cin, cout, tiles_w);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_w = static_cast<int>(drba::cdiv(w, kTW));
+  const dim3 grid(drba::cdiv(h, kTH) * tiles_w, drba::cdiv(cout, kCO), n);
+  conv3x3_fma_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wt),
+      static_cast<const float*>(bias), static_cast<const float*>(beta),
+      static_cast<const float*>(alpha), static_cast<const float*>(res),
+      static_cast<float*>(out), h, w, cin, cout, tiles_w);
+  return static_cast<int>(cudaGetLastError());
 }

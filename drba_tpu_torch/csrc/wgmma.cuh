@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the tensor-core kernels (attention.cu,
-// attn_layer.cu): cp.async copies into shared memory, the proxy fence,
-// wgmma synchronisation, shared-memory matrix descriptors with the 128-byte
-// swizzle, and the bf16 wgmma shapes the kernels issue (sm_90a only).
+// attn_layer.cu, conv_chain.cu): cp.async copies into shared memory, the
+// proxy fence, mbarriers, wgmma synchronisation, shared-memory matrix
+// descriptors, and the bf16 wgmma shapes the kernels issue (sm_90a only).
 //
 // Accumulator layout of a wgmma m64nN tile (f32, N/2 registers a thread):
 // warp w of the warpgroup, lane = 4 g4 + t4, holds rows 16 w + g4 and
@@ -51,6 +51,42 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N committed wgmma groups of this warpgroup are pending
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers (shared::cta): init with an arrival count, plain arrive, the
+// arrive that also expects `bytes` of bulk (TMA) copies, and the wait for
+// the phase of a parity to complete
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// barrier `id` (1..15) over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 // keep the compiler from moving accumulator accesses across wgmma
 template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
@@ -71,6 +107,19 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+// the same for the other layouts: kNoSwizzle (K-major: 8-row core
+// matrices of 16-byte rows, 128 contiguous bytes each; lbo the stride of
+// the two core matrices along K, sbo that of 8-row groups) and kSwizzle32
+// (K-major rows of 32 bytes whose 16-byte halves swap at bit 2 of the row
+// index, 256-byte aligned atoms of 8 rows; sbo their stride, lbo unused)
+enum GmmaLayout : uint64_t { kNoSwizzle = 0, kSwizzle32 = 3 };
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              GmmaLayout layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
 }
 
 #define DRBA_WG_D32                                                                        \

@@ -12,9 +12,13 @@ work and have no counterpart: the kernel takes any channel count.
 ``conv_chain(x, steps, residual, res)`` runs one hand-written kernel launch
 per step (csrc/conv_chain.cu) for CUDA tensors, and chained ``F.conv2d``
 calls with the same epilogues for CPU tensors (or ``backend='torch'``). The
-bf16 kernel reads its weights packed by ``pack_weights``, once, where a
+bf16 kernels read their weights packed by ``pack_weights``, once, where a
 model builds its parameters (models/ifnet.pack_resconv_weights,
-models/gmfss_nets.pack_chain_weights; ``chain_step`` elsewhere).
+models/gmfss_nets.pack_chain_weights; ``chain_step`` elsewhere). Each step
+takes one of three kernel designs, as ``conv3x3_path`` plans it from the
+shape: ``"fma"`` (f32), ``"mma"`` (bf16 on mma.sync, the small and narrow
+steps) or ``"wgmma"`` (bf16 on wgmma with persistent blocks, the large
+steps).
 """
 
 from __future__ import annotations
@@ -27,6 +31,53 @@ import torch.nn.functional as F
 from drba_tpu_torch._build import CONV, check_cuda_input, dtype_code, stream_of, use_kernel
 
 RESIDUALS = ("none", "input", "extra")
+# the kernel designs of csrc/conv_chain.cu, by the code its C entry takes
+PATHS = ("fma", "mma", "wgmma")
+# the fewest warpgroup tiles (64 columns x its rows) for the wgmma design:
+# 8 for each of the H100's 2 x 132 warpgroups. Below that, each block's
+# one-time weight load and the launch's tensor maps outweigh its tiles
+# (RIFE's 64-channel step at 3 x 136 x 240, 816 tiles, measured slower
+# than mma.sync on the H100)
+WGMMA_MIN_TILES = 16 * 132
+# the most weight bytes a wgmma block keeps in shared memory
+WGMMA_RESIDENT_BYTES = 9 * 128 * 64 * 2
+
+
+def wgmma_blocks(cin: int, cout: int) -> tuple[int, int, bool]:
+    """(output channels a block, output rows a warpgroup tile, weights
+    resident) of the wgmma design at this width, as
+    csrc/conv_chain.cu:conv3x3_wgmma picks them: 128 channels and one row
+    where those weights fit resident (147 456 bytes), else 64 channels and
+    two rows where they do, else the weights streamed with each K chunk."""
+    wbytes = 9 * cin * 2
+    if cout % 128 == 0 and wbytes * 128 <= WGMMA_RESIDENT_BYTES:
+        return 128, 1, True
+    if wbytes * 64 <= WGMMA_RESIDENT_BYTES:
+        return 64, 2, True
+    return (128, 1, False) if cout % 128 == 0 else (64, 2, False)
+
+
+def wgmma_takes(cin: int, cout: int) -> bool:
+    """The wgmma design's shape rules: Cin a multiple of 16, Cout a
+    multiple of 64 up to 256 (and bf16 with 16-byte aligned tensors)."""
+    return cin % 16 == 0 and cin >= 16 and cout % 64 == 0 and 0 < cout <= 256
+
+
+def conv3x3_path(n: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype) -> str:
+    """The kernel design a step of this shape takes: ``"fma"`` for f32;
+    ``"wgmma"`` for bf16 steps with Cin a multiple of 16 and at least 64,
+    Cout a multiple of 64 up to 256, weights that fit resident in a block
+    (``wgmma_blocks``) and ``WGMMA_MIN_TILES`` tiles; ``"mma"`` for the
+    other bf16 steps (RIFE's ResConvs, Cin 9/12/14, Cout 2, and GridNet's
+    256 -> 128 head, where the wgmma design streams its weights and
+    measured slower than mma.sync on the H100)."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    if not (wgmma_takes(cin, cout) and cin >= 64):
+        return "mma"
+    nb, rows, resident = wgmma_blocks(cin, cout)
+    tiles = n * -(-h // rows) * -(-w // 64) * (cout // nb)
+    return "wgmma" if resident and tiles >= WGMMA_MIN_TILES else "mma"
 
 
 class ChainStep(NamedTuple):
@@ -114,11 +165,13 @@ def _step_plain(x: torch.Tensor, s: ChainStep, res: torch.Tensor | None = None) 
 def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  beta: torch.Tensor | None = None, wp: torch.Tensor | None = None,
                  alpha: torch.Tensor | None = None,
-                 res: torch.Tensor | None = None) -> torch.Tensor:
+                 res: torch.Tensor | None = None, path: str | None = None) -> torch.Tensor:
     """One chain step on the kernel: x (N,H,W,Cin) -> (N,H,W,Cout), all one
     dtype. bf16 reads ``wp`` (``pack_weights(w)``), f32 reads ``w``.
     ``alpha``: the pre-PReLU's slope (one value); ``res``: (N,H,W,Cout)
-    added last."""
+    added last. ``path``: the kernel design (``PATHS``); None takes
+    ``conv3x3_path``'s plan. A design that does not take the dtype or the
+    shape raises."""
     check_cuda_input("x", x, ndim=4)
     n, h, wd, cin = x.shape
     cout = w.shape[0]
@@ -140,14 +193,25 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"the ResConv epilogue needs Cin == Cout, got {cin} -> {cout}")
     if beta is not None and alpha is not None:
         raise ValueError("the pre-PReLU does not combine with the ResConv epilogue")
+    path = conv3x3_path(n, h, wd, cin, cout, x.dtype) if path is None else path
+    if path not in PATHS:
+        raise ValueError(f"path={path!r}; valid: {', '.join(PATHS)}")
+    if (path == "fma") != (x.dtype == torch.float32):
+        raise ValueError(f"the {path} kernel does not take {x.dtype}")
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    if path == "wgmma":
+        if not wgmma_takes(cin, cout):
+            raise ValueError(f"the wgmma kernel takes Cin a multiple of 16 and Cout a multiple "
+                             f"of 64 up to 256, got {cin} -> {cout}")
+        if any(t is not None and t.data_ptr() % 16 for t in (x, res, out)):
+            raise ValueError("the wgmma kernel reads and writes 16-byte aligned tensors")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     CONV.launch(x.data_ptr(), w.data_ptr(), ptr(wp), b.data_ptr(), ptr(beta), ptr(alpha),
-                ptr(res), out.data_ptr(), n, h, wd, cin, cout, dtype_code(x), stream_of(x),
-                device=x.device)
+                ptr(res), out.data_ptr(), n, h, wd, cin, cout, dtype_code(x),
+                PATHS.index(path), stream_of(x), device=x.device)
     return out
 
 

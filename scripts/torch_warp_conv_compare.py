@@ -1,29 +1,35 @@
 #!/usr/bin/env python3
 """Time other builds of ``csrc/warp.cu`` and ``csrc/conv_chain.cu`` against the
-package's, in turns, at the RIFE 1080p path shapes, on one NVIDIA GPU.
+package's, in turns, at the 1080p path shapes, on one NVIDIA GPU.
 
     git show <rev>:drba_tpu_torch/csrc/warp.cu > .chip_check/warp_old.cu
     git show <rev>:drba_tpu_torch/csrc/conv_chain.cu > .chip_check/conv_chain_old.cu
-    python3 scripts/torch_warp_conv_compare.py .chip_check/warp_old.cu \\
-        .chip_check/conv_chain_old.cu
+    python3 scripts/torch_warp_conv_compare.py [--warp .chip_check/warp_old.cu] \
+        [--conv .chip_check/conv_chain_old.cu]
 
 The other sources are built with the package's nvcc flags next to
-themselves and called through their own C entries, in the interface they
-had before the two-direction warp and the packed conv weights: the warp
-takes one image and a 2-channel flow, the conv the OIHW weights. The warp
-is timed at the RIFE path's five launches of a T=3 window, which the old
-build ran as that path did: the tap warps on stacked inputs, stage 4 and
-the merge as two one-direction launches each (inputs made once, outside
-the timing). Per shape, bf16: the two outputs' largest difference, then
-CUDA-event times in turns (old, new, new, old; 10 calls each after 2
-warm-ups), the bound (drba_tpu_torch/bounds.py) and, where one PyTorch call
-computes the same function, its time (``F.grid_sample`` at the k = 1 warps,
-``F.conv2d`` with bias on cuDNN for the conv). The last line of the output
-is the table as one JSON object. Imports no JAX.
+themselves and called through their own C entries, in the interface each
+had: the warp before the two-direction warp (one image and a 2-channel
+flow), the conv as it stood before the plan of designs (the packed weights
+and the eight-pointer entry without a design code: e.g. ``git show
+a63d220:drba_tpu_torch/csrc/conv_chain.cu``). The warp is timed at the RIFE
+path's five launches of a T=3 window, which the old build ran as that path
+did: the tap warps on stacked inputs, stage 4 and the merge as two
+one-direction launches each (inputs made once, outside the timing). The
+conv at one ResConv step of each IFNet block (N = 3, summed; block 0 at N =
+1 apart) and at each GMFSS and GMFSS_UNION chain step with its epilogue,
+each shape printed with the design the plan gives it. Per shape, bf16: the
+two outputs' largest difference, then CUDA-event times in turns (old, new,
+new, old; 10 calls each after 2 warm-ups), the bound
+(drba_tpu_torch/bounds.py) and, where one PyTorch call computes the same
+function, its time (``F.grid_sample`` at the k = 1 warps, ``F.conv2d`` with
+bias on cuDNN for the conv, without the epilogue). The last line of the
+output is the table as one JSON object. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -34,6 +40,23 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 H, W = 1088, 1920
+HU = 1152  # GMFSS_UNION's pad of 128
+# the GMFSS and GMFSS_UNION chain steps: label -> (n, h, w, cin, cout,
+# pre-PReLU, residual: none | plain | input | extra)
+GMFSS_STEPS = {
+    "gridnet L0 pre + extra": (3, H // 2, W // 2, 64, 64, True, "extra"),
+    "gridnet L1 pre + input": (3, H // 4, W // 4, 128, 128, True, "input"),
+    "gridnet head 12->64 pre": (3, H // 2, W // 2, 12, 64, True, "none"),
+    "gridnet head1 128->64 pre": (3, H // 2, W // 2, 128, 64, True, "none"),
+    "gridnet head2 256->128 pre": (3, H // 4, W // 4, 256, 128, True, "none"),
+    "gridnet tail 64->256 pre": (3, H // 2, W // 2, 64, 256, True, "none"),
+    "metricnet in 14->64": (1, H // 2, W // 2, 14, 64, False, "none"),
+    "metricnet pre + plain res": (1, H // 2, W // 2, 64, 64, True, "plain"),
+    "metricnet out 64->2 pre": (1, H // 2, W // 2, 64, 2, True, "none"),
+    "featurenet L1 pre": (1, H // 2, W // 2, 64, 64, True, "none"),
+    "union head0 9->64 pre": (3, HU // 2, W // 2, 9, 64, True, "none"),
+    "union L0 pre + extra": (3, HU // 2, W // 2, 64, 64, True, "extra"),
+}
 
 
 def build_other(src: Path):
@@ -56,16 +79,24 @@ def main() -> None:
 
     from chip_smoke import cmd_line, smooth_flow, timed
     from drba_tpu_torch import _build, bounds
-    from drba_tpu_torch.ops.conv_chain import chain_step, conv3x3_cuda
+    from drba_tpu_torch.ops.conv_chain import chain_step, conv3x3_cuda, conv3x3_path
     from drba_tpu_torch.ops.warp import backwarp, backwarp2, sample_positions
 
-    if len(sys.argv) != 3 or not torch.cuda.is_available():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--warp", type=Path, help="another build's warp.cu (one-direction entry)")
+    ap.add_argument("--conv", type=Path, help="another build's conv_chain.cu (eight-pointer "
+                    "entry without a design code)")
+    args = ap.parse_args()
+    if not (args.warp or args.conv) or not torch.cuda.is_available():
         sys.exit(__doc__)
     P, I = ctypes.c_void_p, ctypes.c_int
-    old_warp = build_other(Path(sys.argv[1]).resolve())
-    old_warp.drba_warp.argtypes = [P, P, P] + [I] * 8 + [P]
-    old_conv = build_other(Path(sys.argv[2]).resolve())
-    old_conv.drba_conv3x3.argtypes = [P] * 5 + [I] * 6 + [P]
+    old_warp = old_conv = None
+    if args.warp:
+        old_warp = build_other(args.warp.resolve())
+        old_warp.drba_warp.argtypes = [P, P, P] + [I] * 8 + [P]
+    if args.conv:
+        old_conv = build_other(args.conv.resolve())
+        old_conv.drba_conv3x3.argtypes = [P] * 8 + [I] * 6 + [P]
     gpu = cmd_line(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"])
     print(gpu)
@@ -99,13 +130,14 @@ def main() -> None:
     # them as the path ran it: the taps on the stacked inputs (made once,
     # outside the timing), stage 4 and the merge as two one-direction
     # launches. Extras: one direction at the two k = 1 shapes (B = T = 3).
-    for label, (b, c, k, two) in {"tap k=2 C=19": (3, 19, 2, True),
+    warps = {} if old_warp is None else {"tap k=2 C=19": (3, 19, 2, True),
                                   "tap k=4 C=19": (3, 19, 4, True),
                                   "tap k=8 C=19": (3, 19, 8, True),
                                   "stage 4 C=19": (3, 19, 1, True),
                                   "merge C=3": (3, 3, 1, True),
                                   "one direction C=19": (3, 19, 1, False),
-                                  "one direction C=3": (3, 3, 1, False)}.items():
+                                  "one direction C=3": (3, 3, 1, False)}
+    for label, (b, c, k, two) in warps.items():
         a = torch.rand(b, H, W, c, generator=gen, device=dev).to(bf16)
         flow = smooth_flow(gen, b, H, W, 16.0, dev, bf16)
         lib = None
@@ -135,27 +167,46 @@ def main() -> None:
                       f"warp {label} ({2 * b if two else b},{H},{W},{c})", fo, fn, work, lib))
 
     # conv: one ResConv step of each IFNet block at 1080p (N = T = 3), and
-    # block 0 at N = 1 (the flow pass of _calc_flow)
-    for n, c, h, w in ((3, 192, 17, 30), (3, 128, 34, 60), (3, 96, 68, 120), (3, 64, 136, 240),
-                       (3, 32, 272, 480), (1, 192, 17, 30)):
-        bound = 1.0 / (9 * c) ** 0.5
-        x = (torch.rand(n, h, w, c, generator=gen, device=dev) * 2 - 1).to(bf16)
-        st = chain_step(((torch.rand(c, c, 3, 3, generator=gen, device=dev) * 2 - 1)
+    # block 0 at N = 1 (the flow pass of _calc_flow); then each GMFSS and
+    # GMFSS_UNION chain step with its epilogue
+    convs = {} if old_conv is None else {
+        f"ifnet resconv ({n},{h},{w},{c})": (n, h, w, c, c, False, "beta")
+        for n, c, h, w in ((3, 192, 17, 30), (3, 128, 34, 60), (3, 96, 68, 120),
+                           (3, 64, 136, 240), (3, 32, 272, 480), (1, 192, 17, 30))}
+    if old_conv is not None:
+        convs.update(GMFSS_STEPS)
+    for label, (n, h, w, cin, cout, pre, residual) in convs.items():
+        bound = 1.0 / (9 * cin) ** 0.5
+        x = (torch.rand(n, h, w, cin, generator=gen, device=dev) * 2 - 1).to(bf16)
+        extra = (torch.rand(n, h, w, cout, generator=gen, device=dev) * 2 - 1).to(bf16) \
+            if residual == "extra" else None
+        st = chain_step(((torch.rand(cout, cin, 3, 3, generator=gen, device=dev) * 2 - 1)
                          * bound).to(bf16),
-                        ((torch.rand(c, generator=gen, device=dev) * 2 - 1) * 0.05).to(bf16),
-                        (1 + 0.2 * torch.randn(c, generator=gen, device=dev)).to(bf16))
-        out = torch.empty_like(x)
-        fo = (lambda x=x, st=st, out=out, n=n, h=h, w=w, c=c: (check(old_conv.drba_conv3x3(
-            x.data_ptr(), st.w.data_ptr(), st.b.data_ptr(), st.beta.data_ptr(), out.data_ptr(),
-            n, h, w, c, c, 1, stream())), out)[1])
-        fn = (lambda x=x, st=st: conv3x3_cuda(x, st.w, st.b, st.beta, st.wp))
+                        ((torch.rand(cout, generator=gen, device=dev) * 2 - 1) * 0.05).to(bf16),
+                        (1 + 0.2 * torch.randn(cout, generator=gen, device=dev)).to(bf16)
+                        if residual == "beta" else None,
+                        pre_alpha=torch.tensor(0.25, device=dev).to(bf16) if pre else None)
+        res = {"plain": x, "input": x, "extra": extra}.get(residual)
+        out = torch.empty(n, h, w, cout, dtype=bf16, device=dev)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        fo = (lambda x=x, st=st, res=res, out=out, n=n, h=h, w=w, cin=cin, cout=cout:
+              (check(old_conv.drba_conv3x3(x.data_ptr(), st.w.data_ptr(), st.wp.data_ptr(),
+                                           st.b.data_ptr(), ptr(st.beta), ptr(st.pre_alpha),
+                                           ptr(res), out.data_ptr(), n, h, w, cin, cout, 1,
+                                           stream())), out)[1])
+        fn = (lambda x=x, st=st, res=res: conv3x3_cuda(x, st.w, st.b, st.beta, st.wp,
+                                                       st.pre_alpha, res))
         nchw = x.permute(0, 3, 1, 2)
         lib = (lambda x=nchw, st=st: F.conv2d(x, st.w, st.b, padding=1), "F.conv2d (cuDNN)")
-        cases.append(("conv" if n == 3 else "conv (extra)", f"conv step ({n},{h},{w},{c})", fo,
-                      fn, bounds.conv3x3_work(n, h, w, c, c, 2), lib))
+        group = "conv" if label.startswith("ifnet") and n == 3 else \
+            ("conv (extra)" if label.startswith("ifnet") else "conv (gmfss)")
+        path = conv3x3_path(n, h, w, cin, cout, bf16)
+        cases.append((group, f"conv {label} ({n},{h},{w},{cin})->{cout} [{path}]", fo, fn,
+                      bounds.conv3x3_work(n, h, w, cin, cout, 2, beta=residual == "beta",
+                                          alpha=pre, res=residual == "extra"), lib))
 
     rows = []
-    print(f"{'shape (bf16)':<52} {'max|old-new|':>12} {'old ms':>8} {'new ms':>8} "
+    print(f"{'shape (bf16)':<72} {'max|old-new|':>12} {'old ms':>8} {'new ms':>8} "
           f"{'old/new':>7} {'bound ms':>9} {'new share':>9} {'lib ms':>8} {'new/lib':>8}")
     for group, label, fo, fn, work, lib in cases:
         diff = float((fo().float() - fn().float()).abs().max())
@@ -169,10 +220,12 @@ def main() -> None:
                      "new_ms": t_new, "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_lib,
                      "library": lib[1] if lib else None})
         lib_txt = f"{t_lib:8.4f} {t_new / t_lib:8.2f}" if lib else f"{'-':>8} {'-':>8}"
-        print(f"{label:<52} {diff:12.3e} {t_old:8.4f} {t_new:8.4f} {t_old / t_new:7.2f} "
+        print(f"{label:<72} {diff:12.3e} {t_old:8.4f} {t_new:8.4f} {t_old / t_new:7.2f} "
               f"{b_ms:9.4f} {b_ms / t_new:9.1%} {lib_txt}  [{b_by}]")
-    for group in ("warp", "conv"):
+    for group in ("warp", "conv", "conv (gmfss)"):
         sel = [r for r in rows if r["group"] == group]
+        if not sel:
+            continue
         old, new = sum(r["old_ms"] for r in sel), sum(r["new_ms"] for r in sel)
         bnd = sum(r["bound_ms"] for r in sel)
         libs = [r for r in sel if r["library_ms"] is not None]

@@ -222,6 +222,94 @@ def test_conv_kernel_bf16_without_packed_weights_raises(dev):
     assert _build.CONV.launches == n0
 
 
+def _conv_step(gen, dev, cin, cout, pre=False, plain=False, beta=False):
+    bound = 1.0 / (9 * cin) ** 0.5
+    bf = torch.bfloat16
+    return chain_step(
+        ((torch.rand(cout, cin, 3, 3, generator=gen, device=dev) * 2 - 1) * bound).to(bf),
+        ((torch.rand(cout, generator=gen, device=dev) * 2 - 1) * 0.05).to(bf),
+        (1 + 0.2 * torch.randn(cout, generator=gen, device=dev)).to(bf) if beta else None,
+        pre_alpha=torch.tensor(-0.3, device=dev).to(bf) if pre else None, plain_res=plain)
+
+
+@pytest.mark.parametrize("hw", [(19, 37), (17, 70)])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("cin,cout,epilogue", [
+    (ci, co, e) for ci, co in ((64, 64), (128, 128), (128, 64), (256, 128), (64, 256))
+    for e in ("none", "prelu", "plain", "input", "extra", "beta")
+    if ci == co or e in ("none", "prelu", "extra")])
+def test_conv_wgmma_kernel_matches_plain(dev, hw, n, cin, cout, epilogue):
+    """The wgmma design, forced with path="wgmma", against the plain step on
+    ragged maps (no multiple of its 64-column tile or its rows), with every
+    epilogue: the pre-PReLU (a negative slope on a patch that straddles the
+    frame's zero padding), the plain residual, the chain's input and an
+    extra tensor as the final residual, and the ResConv beta (Cin ==
+    Cout). Resident weights (64 -> 64, 128 -> 128 and 128 -> 64 in blocks
+    of 64 channels, 64 -> 256 in two blocks of 128) and streamed ones
+    (256 -> 128)."""
+    from drba_tpu_torch.ops.conv_chain import _step_plain, conv3x3_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(cin * 7 + cout + n)
+    h, w = hw
+    x = (torch.rand(n, h, w, cin, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    extra = (torch.rand(n, h, w, cout, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    st = _conv_step(gen, dev, cin, cout, pre=epilogue in ("prelu", "plain", "input", "extra"),
+                    plain=epilogue == "plain", beta=epilogue == "beta")
+    res = {"plain": x, "input": x, "extra": extra}.get(epilogue)
+    n0 = _build.CONV.launches
+    got = conv3x3_cuda(x, st.w, st.b, st.beta, st.wp, st.pre_alpha, res, path="wgmma")
+    assert _build.CONV.launches == n0 + 1
+    want = _step_plain(x, st, res)
+    # the conv output with its bias, and each epilogue op, round to bf16 on
+    # both sides, possibly at other ulps (sums of 9 * Cin products in
+    # another order); values up to ~3
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 64), (64, 256)])
+def test_conv_wgmma_and_mma_kernels_agree(dev, cin, cout):
+    """Both bf16 designs at a shape both take (Cin a multiple of 16, Cout of
+    64), with the pre-PReLU and an extra residual: f32 sums of the same
+    products in another order, then the same roundings."""
+    from drba_tpu_torch.ops.conv_chain import conv3x3_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(cin + cout)
+    x = (torch.rand(3, 40, 130, cin, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    res = (torch.rand(3, 40, 130, cout, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+    st = _conv_step(gen, dev, cin, cout, pre=True)
+    args = (x, st.w, st.b, None, st.wp, st.pre_alpha, res)
+    a, b = conv3x3_cuda(*args, path="wgmma"), conv3x3_cuda(*args, path="mma")
+    # at most one bf16 ulp of the conv output (values up to ~3: 2^-6)
+    torch.testing.assert_close(a.float(), b.float(), atol=1.6e-2, rtol=0)
+
+
+def test_conv_wgmma_refuses_shapes_it_does_not_take(dev):
+    """The wrapper refuses the wgmma design for a width outside its rules
+    and for f32; the C entry refuses it as well when called directly (no
+    fallback: nothing runs and the launch raises)."""
+    from drba_tpu_torch.ops.conv_chain import PATHS, conv3x3_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    for cin, cout in ((12, 64), (64, 96), (64, 2)):
+        x = torch.zeros(1, 20, 70, cin, dtype=bf, device=dev)
+        st = _conv_step(gen, dev, cin, cout)
+        with pytest.raises(ValueError, match="wgmma"):
+            conv3x3_cuda(x, st.w, st.b, wp=st.wp, path="wgmma")
+        out = torch.empty(1, 20, 70, cout, dtype=bf, device=dev)
+        n0 = _build.CONV.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.CONV.launch(x.data_ptr(), st.w.data_ptr(), st.wp.data_ptr(), st.b.data_ptr(),
+                               None, None, None, out.data_ptr(), 1, 20, 70, cin, cout, 1,
+                               PATHS.index("wgmma"), torch.cuda.current_stream(dev).cuda_stream,
+                               device=dev)
+        assert _build.CONV.launches == n0
+    x = torch.zeros(1, 20, 70, 64, device=dev)
+    w = torch.zeros(64, 64, 3, 3, device=dev)
+    with pytest.raises(ValueError, match="does not take"):
+        conv3x3_cuda(x, w, torch.zeros(64, device=dev), path="wgmma")
+
+
 def test_rife_1080p_window_kernel_path_matches_plain(dev):
     """The 1080p window on the kernel path against the plain path, in f32 and
     bf16, with the same seed-0 model; every kernel of the RIFE path launches."""

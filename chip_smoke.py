@@ -31,23 +31,32 @@ Phases (any failure exits non-zero and prints no result):
      alone is colour-inverted (two cuts); checks the output count against
      the plan, every frame finite at the model's padded size, the cuts, and
      that each kernel of the path was launched during its run (launch counts
-     are reset just before each run and read just after);
+     are reset just before each run and read just after); the steady-state
+     windows replay their captured CUDA graph (``graphs.py``), whose
+     replays count the launches their capture recorded;
   5. windows: one window of each model on the kernel path against the plain
-     path (f32 and bf16), the window time both ways, and a profile of one
-     kernel-path window with its launches per kernel and its conv launches
-     by design (the profiler's kernel names) against the plan's; GMFSS's and
-     GMFSS_UNION's windows also timed with ``conv_backend="torch"`` alone
-     (every conv on cuDNN, as before the conv chain took their nets' convs),
-     in turns with the other two;
-  6. resume: ``run_pipeline(skip_outputs=k)`` (RIFE at a window boundary and
-     inside a window, GMFSS inside a window, RIFE ``-s`` just past a cut)
+     path (f32 and bf16), the window time both ways (each through its
+     graph), and a profile of one kernel-path window's eager pieces
+     (``next_reuse`` + ``drba_window``) with its launches per kernel and its
+     conv launches by design (the profiler's kernel names) against the
+     plan's; GMFSS's and GMFSS_UNION's windows also timed with
+     ``conv_backend="torch"`` alone (every conv on cuDNN, as before the conv
+     chain took their nets' convs), in turns with the other two; the graphed
+     window (``inference_ts_drba``) against its eager pieces within the
+     gates (f32 and bf16), and, in bf16 at T = 2 and 3, both timed in turns
+     (CUDA events), their wall, host and device-busy time per window and
+     idle share, and each graph's memory pool;
+  6. resume: ``run_pipeline(skip_outputs=k)`` through the graphs (RIFE at
+     a window boundary and inside a window, GMFSS inside a window, RIFE
+     ``-s`` just past a cut)
      against the uninterrupted run's tail: the written count is the plan
      less k, fewer kernel launches than the uninterrupted run, and the
      frames bitwise where two uninterrupted runs are, else within the bf16
      gate; the segmented writer (cv2 or ffmpeg) is left to the CPU tests;
   7. devices: ``run_pipeline_parallel`` over two replicas on the one card
-     (two dispatch threads and streams) for the four slices and an 18-frame
-     GMFSS stream, against the serial run (count, frames within the bf16
+     (two dispatch threads and streams, the windows' eager pieces) for the
+     four slices and an 18-frame GMFSS stream, against the serial run
+     (graphed; count, frames within the bf16
      gate, every kernel of the path launched), both timed in turns;
      ``exchange_accounting`` of one GMFSS group; eight GMFSS windows alone
      through the serial chain and the planner over one and two replicas.
@@ -729,7 +738,7 @@ def phase_slice(name, dev, scdet=False):
     returns the launch counts of that run."""
     import torch
 
-    from drba_tpu_torch import _build
+    from drba_tpu_torch import _build, graphs
     from drba_tpu_torch.pipeline import planned_outputs, run_pipeline
 
     path = "scdet" if scdet else name
@@ -774,6 +783,12 @@ def phase_slice(name, dev, scdet=False):
           f"{checked['frames']} frames checked finite, wall {wall:.2f} s "
           "(first run, includes warm-up)")
     print(f"slice {path}: kernel launches during the run: {counts}")
+    entries = graphs.state(model).entries
+    print(f"slice {path}: window graphs " + ", ".join(
+        f"T={key[0]} {e.replays} replays, pool {e.pool_bytes / 2**20:.1f} MiB"
+        for key, e in entries.items()))
+    if not any(e.replays for e in entries.values()):
+        fail(f"{path}: no window replayed a captured graph")
     if stats.frames_out != plan or len(io.written) != plan:
         fail(f"{path}: frames_out {stats.frames_out} / written {len(io.written)} != plan {plan}")
     if scdet and stats.scene_cuts != 2:
@@ -791,12 +806,21 @@ def phase_slice(name, dev, scdet=False):
     return counts
 
 
+def eager_window(m, I0, I1, I2, ts, reuse):
+    """The eager pieces ``inference_ts_drba`` runs as one graph on the card:
+    ``next_reuse`` (with the chain's features), then ``drba_window``."""
+    nxt = m.next_reuse(I1, I2, reuse.feat0 if hasattr(reuse, "feat0") else reuse[2])
+    return m.drba_window(I0, I1, I2, ts, reuse, nxt, linear=True), nxt
+
+
 def phase_window(name, dev, gpu_line):
     """One window of model ``name`` on the kernel path vs the plain path (bf16
     and f32), the window time both ways, and a profile of one kernel-path
-    window. GMFSS and GMFSS_UNION are also timed with ``conv_backend="torch"``
-    alone: every conv on cuDNN (the union's IFNet too), the other kernels
-    launched."""
+    window's eager pieces. GMFSS and GMFSS_UNION are also timed with
+    ``conv_backend="torch"`` alone: every conv on cuDNN (the union's IFNet
+    too), the other kernels launched. The graphed window against its eager
+    pieces (both dtypes), and in bf16 both timed and profiled
+    (``graph_vs_eager``)."""
     import torch
 
     from drba_tpu_torch.pipeline import calc_ts
@@ -817,8 +841,13 @@ def phase_window(name, dev, gpu_line):
         size = padded_size(m)
         I0, I1, I2 = (to_inp(f, size, m.config.compute_dtype, dev) for f in frames)
         reuse = m._calc_flow(I1, I0) if name == "rife" else m.reuse(I1, I0)
+        # the plain path's eager pieces (no graph of its own: in f32 the
+        # plain window's graph would not fit beside the kernel path's), then
+        # the kernel path's first call, which runs the window eagerly and
+        # captures its T=3 graph
+        out_p = torch.stack(eager_window(plain, I0, I1, I2, ts3, reuse)[0])
+        torch.cuda.empty_cache()
         out_k = torch.stack(m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)[0])
-        out_p = torch.stack(plain.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)[0])
         if not torch.isfinite(out_k).all():
             fail(f"{name} window {dname}: non-finite output")
         d = (out_k.float() - out_p.float()).abs()
@@ -829,32 +858,126 @@ def phase_window(name, dev, gpu_line):
         if mean > mean_tol or share > share_tol:
             fail(f"{name} {dname} window kernel vs plain: mean {mean:.3e} (tol {mean_tol:g}), "
                  f"share(>1e-2) {share:.3e} (tol {share_tol:g})")
-        if dname != "bf16":
-            continue
-        runs = [("plain", plain), ("kernel", m)]
-        if name != "rife":
-            runs.append(("cuDNN convs", make_model(name, dev, conv_backend="torch")))
-        times = {}
-        for label, mm in runs + runs[::-1]:
-            for ts in (ts2, ts3):
-                t = timed(lambda: mm.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True), 5)
-                times.setdefault((label, len(ts)), []).append(t)
-        for label, _ in runs[::-1]:
-            t2, t3 = (sum(times[(label, n)]) / 2 for n in (2, 3))
-            print(f"window {name} bf16 1080p {label} path (steady state, reuse chained): T=2 "
-                  f"{t2:.2f} ms, T=3 {t3:.2f} ms, {5e3 / (t2 + t3):.2f} fps over a T=2+3 "
-                  f"pair  [{gpu_line}]")
-        profile_window(name, lambda: m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True))
-        del m, plain, runs
+        # the call above captured the T=3 graph; this one replays it
+        out_g = torch.stack(m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)[0])
+        out_e = torch.stack(eager_window(m, I0, I1, I2, ts3, reuse)[0])
+        d = (out_g.float() - out_e.float()).abs()
+        mx, mean, share = float(d.max()), float(d.mean()), float((d > 1e-2).float().mean())
+        print(f"window {name} {dname} (T={len(ts3)}): graph replay vs eager pieces "
+              f"max_abs {mx:.3e}  mean_abs {mean:.3e}  share(>1e-2) {share:.3e}")
+        if not torch.isfinite(out_g).all() or mean > mean_tol or share > share_tol:
+            fail(f"{name} {dname} graph vs eager: mean {mean:.3e} (tol {mean_tol:g}), "
+                 f"share(>1e-2) {share:.3e} (tol {share_tol:g})")
+        if dname == "bf16":
+            runs = [("plain", plain), ("kernel", m)]
+            if name != "rife":
+                runs.append(("cuDNN convs", make_model(name, dev, conv_backend="torch")))
+            time_paths(name, runs, (I0, I1, I2), reuse, (ts2, ts3), gpu_line)
+            del runs
+            eager_kernels = profile_window(name, lambda: eager_window(m, I0, I1, I2, ts3, reuse))
+            graph_vs_eager(name, m, (I0, I1, I2), reuse, (ts2, ts3), eager_kernels, gpu_line)
+        # each model's graphs hold their memory pools until the model goes
+        del m, plain
         torch.cuda.empty_cache()
 
 
-def profile_window(name, fn):
-    """Device time by op for one call of ``fn`` (torch.profiler), the
-    device's busy share of that call's wall time, and the launches of each
-    hand-written kernel in the call."""
+def time_paths(name, runs, frames, reuse, ts_pair, gpu_line):
+    """Steady-state windows of each (label, model) of ``runs`` through its
+    graphs, at T = 2 and 3, in turns (CUDA events)."""
+    times = {}
+    for label, mm in runs + runs[::-1]:
+        for ts in ts_pair:
+            t = timed(lambda: mm.inference_ts_drba(*frames, ts, reuse, linear=True), 5)
+            times.setdefault((label, len(ts)), []).append(t)
+    for label, _ in runs[::-1]:
+        t2, t3 = (sum(times[(label, n)]) / 2 for n in (2, 3))
+        print(f"window {name} bf16 1080p {label} path (graphed, steady state, reuse "
+              f"chained): T=2 {t2:.2f} ms, T=3 {t3:.2f} ms, {5e3 / (t2 + t3):.2f} fps over "
+              f"a T=2+3 pair  [{gpu_line}]")
+
+
+def profile_call(fn, warm: bool = True):
+    """One call of ``fn`` under torch.profiler, after a warm call where
+    ``warm``: (wall ms of the call with its synchronise, device-busy ms,
+    device kernels). Device kernels are the entries with device time and no
+    host time of their own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    return wall, sum(e.self_device_time_total for e in kernels) / 1e3, kernels
+
+
+def own_launches(kernels) -> int:
+    """Launches of the hand-written kernels among profiled device kernels."""
+    return sum(e.count for e in kernels if any(f"::{n}" in e.key for n in DEVICE_KERNELS))
+
+
+def graph_vs_eager(name, m, frames, reuse, ts_pair, eager_kernels, gpu_line):
+    """One steady-state window through the graph (``inference_ts_drba``,
+    a replay) and through its eager pieces, bf16, at T = 2 and 3: ms a
+    window back to back (CUDA events, in turns), then per single window its
+    wall (host clock around the call and a synchronise), its host time (the
+    call's return), its device-busy time (torch.profiler) and idle share
+    (1 - busy / wall); and each captured graph's memory pool."""
+    import torch
+
+    from drba_tpu_torch import graphs
+
+    ways = {"graph": lambda ts: m.inference_ts_drba(*frames, ts, reuse, linear=True),
+            "eager": lambda ts: eager_window(m, *frames, ts, reuse)}
+    ev = {}
+    for way in ("graph", "eager", "eager", "graph"):  # each side twice, in turns
+        for ts in ts_pair:
+            ev.setdefault((way, len(ts)), []).append(timed(lambda: ways[way](ts), 5))
+    for ts in ts_pair:
+        for way, fn in ways.items():
+            host, wall = [], []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(ts)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                host.append((t1 - t0) * 1e3)
+                wall.append((time.perf_counter() - t0) * 1e3)
+            p_wall, busy, kernels = profile_call(lambda: fn(ts))
+            wall_ms, host_ms = sum(wall) / len(wall), sum(host) / len(host)
+            ev_ms = sum(ev[(way, len(ts))]) / 2
+            print(f"window {name} bf16 1080p T={len(ts)} {way}: {ev_ms:.2f} ms a window back to "
+                  f"back (CUDA events, in turns); one window: wall {wall_ms:.2f} ms, host "
+                  f"{host_ms:.2f} ms, device busy {busy:.2f} ms, idle "
+                  f"{100 * (1 - busy / wall_ms):.1f}% (profiled call: wall {p_wall:.2f} ms, "
+                  f"idle {100 * (1 - busy / p_wall):.1f}%)  [{gpu_line}]")
+            if way == "graph" and len(ts) == 3:
+                print(f"profile {name} graph replay T=3: the profiler reports "
+                      f"{own_launches(kernels)} launches of the hand-written kernels (eager "
+                      f"pieces: {own_launches(eager_kernels)}); top device kernels:")
+                for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+                    print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+                          f"{e.key[:90]}")
+    for key, e in graphs.state(m).entries.items():
+        print(f"window {name} graph T={key[0]} {key[1][1]}x{key[1][2]} {key[2]}: pool "
+              f"{e.pool_bytes} bytes ({e.pool_bytes / 2**20:.1f} MiB), launches a replay "
+              f"{dict(e.launches)}")
+
+
+def profile_window(name, fn):
+    """Device time by op for one call of ``fn`` (the eager pieces of a
+    window) under torch.profiler, the device's busy share of that call's
+    wall time, the launches of each hand-written kernel in the call, and
+    its conv launches by design against the plan's; returns the profiled
+    device kernels."""
+    import torch
 
     from drba_tpu_torch import _build
 
@@ -873,17 +996,11 @@ def profile_window(name, fn):
     conv_chain.conv3x3_cuda = planning_conv3x3
     _build.reset_counts()
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+        wall, busy, kernels = profile_call(fn, warm=False)
     finally:
         conv_chain.conv3x3_cuda = conv3x3
-    print(f"launches in one {name} kernel-path window T=3: {_build.counts()}")
-    # device kernels are the entries with device time and no host time of their own
-    kernels = [e for e in prof.key_averages()
-               if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    counts = _build.counts()
+    print(f"launches in one {name} kernel-path window T=3 (eager pieces): {counts}")
     # the conv kernel's launches by design (device kernel names under the
     # conv3x3_ prefix of DEVICE_KERNELS) against the plan's
     ran = {p: sum(e.count for e in kernels if f"::conv3x3_{p}_kernel" in e.key)
@@ -891,12 +1008,11 @@ def profile_window(name, fn):
     print(f"conv launches in one {name} window T=3 by design: ran {ran}, planned "
           f"{dict(planned)}")
     if any(ran[p] != planned.get(p, 0) for p in ran) or \
-            sum(ran.values()) != _build.counts()["conv_chain"]:
+            sum(ran.values()) != counts["conv_chain"]:
         fail(f"{name} window: conv kernels by design {ran} differ from the plan "
-             f"{dict(planned)} or from the launch count {_build.counts()['conv_chain']}")
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profile {name} kernel-path window T=3: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / wall:.1f}%), top device kernels:")
+             f"{dict(planned)} or from the launch count {counts['conv_chain']}")
+    print(f"profile {name} kernel-path window T=3 (eager pieces): wall {wall:.2f} ms, device "
+          f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%), top device kernels:")
     # the twelve largest, then the rest of the hand-written kernels and the
     # memsets (the splat zeroes its accumulator with one)
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
@@ -904,6 +1020,7 @@ def profile_window(name, fn):
            if any(f"::{n}" in e.key for n in DEVICE_KERNELS) or "Memset" in e.key]
     for e in ranked[:12] + own:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return kernels
 
 
 def frames_vs(label, got, want):

@@ -10,16 +10,23 @@ Every C entry returns ``cudaGetLastError()`` after its launch and
 :meth:`Kernel.launch` raises if it is not 0. There is no fallback: a missing
 ``nvcc``, a failed build or a failed launch raises. Each launch runs with
 its tensors' device current (:meth:`Kernel.launch`'s ``device``).
+
+The counts (:func:`counts`) are launches the card ran: a launch made while
+a CUDA graph captures (inside :func:`recording` on that thread) is recorded
+apart and not counted, and each replay of the graph adds what its capture
+recorded (:func:`add_counts`; ``graphs.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -99,7 +106,8 @@ class Kernel:
     first is the default of :meth:`launch`. Several kernels may share a
     source (one library). ``launches`` counts successful launches through
     :meth:`launch` only, over all entries; the count is exact when several
-    threads launch (the multi-device planner's dispatch threads).
+    threads launch (the multi-device planner's dispatch threads). A launch
+    inside :func:`recording` goes to that thread's record instead.
     """
 
     def __init__(self, name: str, source: str, entries: dict):
@@ -168,12 +176,17 @@ class Kernel:
                 rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {rc}")
+        record = getattr(_RECORDING, "record", None)
+        if record is not None:
+            record[self.name] += 1
+            return
         with self._lock:
             self.launches += 1
 
 
 _BUILD_LOCKS: dict = {}
 _BUILD_LOGS: dict = {}
+_RECORDING = threading.local()
 
 SPLAT = Kernel("splat", "splat.cu", {
     # ten, flow, metric, acc; n, h, w, c, mode; 3 dtypes; stream
@@ -230,6 +243,28 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+@contextlib.contextmanager
+def recording():
+    """Launches on this thread inside the block go to the yielded Counter
+    (kernel name -> launches) instead of the counts: a CUDA graph's capture
+    records its kernels without running them."""
+    outer = getattr(_RECORDING, "record", None)
+    _RECORDING.record = record = Counter()
+    try:
+        yield record
+    finally:
+        _RECORDING.record = outer
+
+
+def add_counts(record: dict) -> None:
+    """Count the launches of ``record`` (a graph replay runs what its
+    capture recorded)."""
+    for k in KERNELS:
+        if record.get(k.name):
+            with k._lock:
+                k.launches += record[k.name]
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -8,7 +8,9 @@ drba_tpu/drm.py).
     time, with hole fill where the splatted coverage is < 0.999.
 
 Timesteps may be one float or a (T,) vector; a vector gives (T*N, H, W, 1)
-maps folded over the leading axis.
+maps folded over the leading axis. The nonlinear retime's bisection
+schedule is host control flow: for a vector on the card it is built from
+the caller's host values (``t_host``), never read back from the card.
 """
 
 from __future__ import annotations
@@ -73,14 +75,28 @@ def _retime(drm: torch.Tensor, t: float, linear: bool) -> torch.Tensor:
     return drm * t * 2 if linear else get_drm_t(drm, t)
 
 
-def _retime_batched(drm: torch.Tensor, ts: torch.Tensor, linear: bool) -> torch.Tensor:
-    """Retime one (N,H,W,1) map at T timesteps -> (T*N,H,W,1) folded maps."""
+def _host_values(ts: torch.Tensor, ts_host) -> np.ndarray:
+    """The host values of the (T,) timesteps ``ts``: ``ts_host`` where the
+    caller has them, else a CPU ``ts``'s own; a card's ``ts`` is not read back."""
+    if ts_host is not None:
+        return np.asarray(ts_host, np.float32)
+    if ts.device.type != "cpu":
+        raise ValueError("the nonlinear retime needs the timesteps' host values (t_host) "
+                         "for timesteps on the card")
+    return ts.numpy()
+
+
+def _retime_batched(drm: torch.Tensor, ts: torch.Tensor, linear: bool,
+                    ts_host=None) -> torch.Tensor:
+    """Retime one (N,H,W,1) map at T timesteps -> (T*N,H,W,1) folded maps;
+    the nonlinear schedule from ``ts_host`` (see :func:`_host_values`)."""
     T = ts.shape[0]
     n, h, w, _ = drm.shape
     if linear:
         out = drm[None] * ts.to(drm.device, torch.float32)[:, None, None, None, None] * 2
     else:
-        out = torch.stack([get_drm_t(drm, float(t), f32_schedule=True) for t in ts.tolist()])
+        out = torch.stack([get_drm_t(drm, float(t), f32_schedule=True)
+                           for t in _host_values(ts, ts_host)])
     return out.reshape(T * n, h, w, 1)
 
 
@@ -133,17 +149,18 @@ class DrmRife(NamedTuple):
 
 
 def calc_drm_rife(t, flow10: torch.Tensor, flow12: torch.Tensor, linear: bool = False,
-                  backend: str = "auto", splat_scale: float = 1.0) -> DrmRife:
+                  backend: str = "auto", splat_scale: float = 1.0, t_host=None) -> DrmRife:
     """DRM timestep maps for the RIFE (backward-warp) path (drm.py:65-107).
 
-    ``t``: a float, or a (T,) f32 tensor giving (T*N, H, W, 1) folded maps.
+    ``t``: a float, or a (T,) f32 tensor giving (T*N, H, W, 1) folded maps;
+    ``t_host``: its host values (needed for a nonlinear ``t`` on the card).
     ``backend`` selects the splat (Config.splat_backend).
     """
     drm10, drm12 = _ratio_maps(flow10, flow12, eps=1e-4)
     if _is_batched_t(t):
         T = t.shape[0]
-        drm_t0 = _retime_batched(drm10, t, linear)
-        drm_t1 = _retime_batched(drm12, t, linear)
+        drm_t0 = _retime_batched(drm10, t, linear, t_host)
+        drm_t1 = _retime_batched(drm12, t, linear, t_host)
         flow10 = _tile_t(flow10, T)
         flow12 = _tile_t(flow12, T)
     else:
@@ -168,18 +185,19 @@ class DrmGmfss(NamedTuple):
 def calc_drm_gmfss(t, flow10: torch.Tensor, flow12: torch.Tensor,
                    metric10: torch.Tensor | None, metric12: torch.Tensor | None,
                    linear: bool = False, backend: str = "auto",
-                   splat_scale: float = 1.0) -> DrmGmfss:
+                   splat_scale: float = 1.0, t_host=None) -> DrmGmfss:
     """DRM timestep maps for the GMFSS (forward-warp) path (drm.py:209-258).
 
-    ``t``: a float, or a (T,) f32 tensor giving (T*N, H, W, 1) folded maps.
+    ``t``: a float, or a (T,) f32 tensor giving (T*N, H, W, 1) folded maps;
+    ``t_host``: its host values (needed for a nonlinear ``t`` on the card).
     With both metrics the alignment splats are metric-weighted ('soft'),
     otherwise plain averages.
     """
     drm10, drm12 = _ratio_maps(flow10, flow12, eps=0.0)
     if _is_batched_t(t):
         T = t.shape[0]
-        drm1t_t01 = _retime_batched(drm12, t, linear)
-        drm1t_t12 = _retime_batched(drm10, t, linear)
+        drm1t_t01 = _retime_batched(drm12, t, linear, t_host)
+        drm1t_t12 = _retime_batched(drm10, t, linear, t_host)
         flow10 = _tile_t(flow10, T)
         flow12 = _tile_t(flow12, T)
         metric10 = None if metric10 is None else _tile_t(metric10, T)
@@ -200,18 +218,19 @@ def calc_drm_gmfss(t, flow10: torch.Tensor, flow12: torch.Tensor,
 def calc_drm_rife_auxiliary(t, flow10: torch.Tensor, flow12: torch.Tensor,
                             metric10: torch.Tensor | None, metric12: torch.Tensor | None,
                             linear: bool = False, backend: str = "auto",
-                            splat_scale: float = 1.0) -> DrmRife:
+                            splat_scale: float = 1.0, t_host=None) -> DrmRife:
     """DRM timestep maps for the auxiliary RIFE inside GMFSS_UNION
     (drm.py:158-195; drba_tpu/drm.py:261-298): :func:`calc_drm_rife` with
     metric-weighted ('soft') alignment splats when both metrics are given.
 
-    ``t``: a float, or a (T,) f32 tensor giving (T*N, H, W, 1) folded maps.
+    ``t``: a float, or a (T,) f32 tensor giving (T*N, H, W, 1) folded maps;
+    ``t_host``: its host values (needed for a nonlinear ``t`` on the card).
     """
     drm10, drm12 = _ratio_maps(flow10, flow12, eps=1e-4)
     if _is_batched_t(t):
         T = t.shape[0]
-        drm_t0 = _retime_batched(drm10, t, linear)
-        drm_t1 = _retime_batched(drm12, t, linear)
+        drm_t0 = _retime_batched(drm10, t, linear, t_host)
+        drm_t1 = _retime_batched(drm12, t, linear, t_host)
         flow10 = _tile_t(flow10, T)
         flow12 = _tile_t(flow12, T)
         metric10 = None if metric10 is None else _tile_t(metric10, T)

@@ -19,10 +19,16 @@ the global correlation and global propagation through
 kernels read the weights ``pack_transformer_weights`` packs once. The
 backbone and upsampler convs are cuDNN's, as the JAX package leaves them to
 XLA.
+
+The constants a pass adds (position embedding, ImageNet mean and std) are
+uploaded once per shape and device and cached, and the correlation's
+constants are made on the card, so that a pass makes no host-to-device copy
+(a captured window may hold none: ``graphs.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -143,13 +149,25 @@ def sine_position_embedding(h: int, w: int, num_feats: int = FEATURE_CHANNELS //
     return np.concatenate([pos_y, pos_x], axis=-1)
 
 
+@functools.lru_cache(maxsize=32)
+def _device_constant(name: str, shape: tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
+    """A constant of this module on ``device``, made and uploaded once per
+    (name, shape, dtype, device). The upload is a blocking copy, so the
+    cached tensor has landed before any stream reads it."""
+    if name == "position":  # shape (h, w, k): one window's embedding tiled k x k
+        h, w, k = shape
+        value = np.tile(sine_position_embedding(h // k, w // k), (k, k, 1))
+    else:
+        value = {"mean": IMAGENET_MEAN, "std": IMAGENET_STD}[name]
+    return torch.from_numpy(value).to(device, dtype)
+
+
 def add_position(feature0, feature1, attn_splits: int):
     """feature_add_position (gmflow/utils.py:74-94): the embedding of one
     window's size, added to every window (tiled over the map)."""
     b, h, w, c = feature0.shape
-    k = attn_splits
-    pos = np.tile(sine_position_embedding(h // k, w // k), (k, k, 1))
-    pos = torch.from_numpy(pos).to(feature0.device, feature0.dtype)
+    pos = _device_constant("position", (h, w, attn_splits), feature0.dtype,
+                           str(feature0.device))
     return feature0 + pos, feature1 + pos
 
 
@@ -247,18 +265,19 @@ def local_correlation_flow(feature0, feature1, radius: int):
     f1p = F.pad(feature1.float(), (0, 0, r, r, r, r))
     gx = torch.arange(w, device=feature0.device)[None, None, :]
     gy = torch.arange(h, device=feature0.device)[None, :, None]
-    corrs, valids, offsets = [], [], []
+    corrs, valids = [], []
     for dy in range(-r, r + 1):
         for dx in range(-r, r + 1):
             shifted = f1p[:, dy + r:dy + r + h, dx + r:dx + r + w, :]
             corrs.append((f0 * shifted).sum(dim=-1) / math.sqrt(c))
             valids.append(((gx + dx >= 0) & (gx + dx < w) & (gy + dy >= 0) & (gy + dy < h))
                           .expand(b, h, w))
-            offsets.append((dx, dy))
-    corr = torch.where(torch.stack(valids, dim=-1), torch.stack(corrs, dim=-1),
-                       torch.tensor(-1e4, device=feature0.device))
+    corr = torch.where(torch.stack(valids, dim=-1), torch.stack(corrs, dim=-1), -1e4)
     prob = torch.softmax(corr, dim=-1)
-    off = torch.tensor(offsets, dtype=torch.float32, device=feature0.device)
+    # the offsets (dx, dy) in the loop's order, dy outer, made on the card
+    n = 2 * r + 1
+    d = torch.arange(-r, r + 1, dtype=torch.float32, device=feature0.device)
+    off = torch.stack([d[None, :].expand(n, n), d[:, None].expand(n, n)], dim=-1).reshape(-1, 2)
     return torch.matmul(prob, off).to(feature0.dtype)
 
 
@@ -306,8 +325,8 @@ def convex_upsample(p: Params, flow, feature):
 
 
 def normalize_img(img):
-    mean = torch.from_numpy(IMAGENET_MEAN).to(img.device, img.dtype)
-    std = torch.from_numpy(IMAGENET_STD).to(img.device, img.dtype)
+    mean, std = (_device_constant(name, (3,), img.dtype, str(img.device))
+                 for name in ("mean", "std"))
     return (img - mean) / std
 
 

@@ -5,15 +5,19 @@ timesteps of a window are folded into the batch axis (one GridNet call per
 window) and integer timesteps pass the source frames through. Inputs are
 single frames (N = 1). The reuse chain carries a ``Reuse`` (flows, metrics,
 feature pyramids) from window to window. ``Config.conv_backend`` runs the
-nets' conv chains (models/gmfss_nets.py).
+nets' conv chains (models/gmfss_nets.py). On a CUDA device a window with a
+reuse runs ``next_reuse`` and its timesteps as one captured graph
+(``graphs.py``; ``_fused_window``).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
+from drba_tpu_torch import graphs
 from drba_tpu_torch.config import DEFAULT, Config, model_device
 from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_gmfss
@@ -50,14 +54,15 @@ def pack_chain_sites(p: GmfssParams, union: bool = False) -> GmfssParams:
                       fusionnet=pack_chain_weights(p.fusionnet, gridnet_chain_convs(union)))
 
 
-def _drba_window(p: GmfssParams, I0, I1, I2, ts, reuse10: Reuse, reuse12: Reuse, linear,
-                 backend="auto", drm_splat_scale=1.0, conv_backend="auto"):
+def _drba_window(p: GmfssParams, I0, I1, I2, ts, ts_host, reuse10: Reuse, reuse12: Reuse,
+                 linear, backend="auto", drm_splat_scale=1.0, conv_backend="auto"):
     """All T timesteps of one window, T folded into the batch axis; returns
-    (T, 1, H, W, 3)."""
+    (T, 1, H, W, 3). ``ts_host``: the host values of ``ts``."""
     T = ts.shape[0]
     tt = torch.where(ts < 1, 1 - ts, ts - 1)
     drm = calc_drm_gmfss(tt, reuse10.flow01, reuse12.flow01, reuse10.metric0, reuse12.metric0,
-                         linear=linear, backend=backend, splat_scale=drm_splat_scale)
+                         linear=linear, backend=backend, splat_scale=drm_splat_scale,
+                         t_host=np.where(ts_host < 1, 1 - ts_host, ts_host - 1))
     left = (ts < 1)[:, None, None, None]
     imgB = torch.where(left, I0, I2)
     I1b = I1.expand((T,) + tuple(I1.shape[1:]))
@@ -119,7 +124,7 @@ class GMFSS:
         self.config = config
 
     def _ts(self, ts) -> torch.Tensor:
-        return torch.as_tensor(list(ts), dtype=torch.float32).to(self.device)
+        return graphs.timesteps(self, ts)
 
     def reuse(self, img0, img1, feat0=None) -> Reuse:
         return gmfss_reuse(self.params, img0, img1, self.scale, feat0=feat0,
@@ -149,22 +154,35 @@ class GMFSS:
                            attn_backend=self.config.attn_backend,
                            conv_backend=self.config.conv_backend).swapped()
 
+    def _window(self, I0, I1, I2, ts, ts_host, reuse10, reuse21, linear):
+        return _drba_window(self.params, I0, I1, I2, ts, ts_host, reuse10, reuse21.swapped(),
+                            linear, self.config.splat_backend, self.config.drm_splat_scale,
+                            self.config.conv_backend)
+
+    def _fused_window(self, I0, I1, I2, ts, ts_host, reuse10, linear):
+        """``next_reuse`` and the timesteps of a window on the chain's reuse:
+        what one captured graph runs -> ((T, 1, H, W, 3), next reuse)."""
+        nxt = self.next_reuse(I1, I2, feat1=reuse10.feat0)
+        return self._window(I0, I1, I2, ts, ts_host, reuse10, nxt, linear), nxt
+
     def drba_window(self, I0, I1, I2, ts, reuse10: Reuse | None, reuse21: Reuse,
                     linear: bool = False):
         """The window's timesteps, unfused from its GMFlow pass: ``reuse10``
         is the chain's I1 -> I0 reuse (None starts the chain with that pass),
         ``reuse21`` this window's ``next_reuse(I1, I2)``."""
         reuse10 = self.reuse(I1, I0) if reuse10 is None else reuse10
-        out = _drba_window(self.params, I0, I1, I2, self._ts(ts), reuse10, reuse21.swapped(),
-                           linear, self.config.splat_backend, self.config.drm_splat_scale,
-                           self.config.conv_backend)
-        return list(out.unbind(0))
+        host = graphs.host_timesteps(ts)
+        return list(self._window(I0, I1, I2, self._ts(host), host, reuse10, reuse21,
+                                 linear).unbind(0))
 
     def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
         """DRM-adjusted interpolation over a 3-frame window; ``ts`` in
         [0.5, 1.5). Returns (frames, reuse) with the reuse of (I2, I1) for the
-        next window."""
+        next window. On a CUDA device the GMFlow pass and the timesteps
+        replay one captured graph (``graphs.run_window``)."""
         reuse10 = self.reuse(I1, I0) if reuse is None else reuse
+        if len(ts) and self.device.type == "cuda":
+            return graphs.run_window(self, I0, I1, I2, ts, reuse10, linear)
         nxt = self.next_reuse(I1, I2, feat1=reuse10.feat0)
         if len(ts) == 0:
             return [], nxt

@@ -7,15 +7,19 @@ its per-pixel timestep, and its frame is the middle 3 channels of the union
 GridNet's 9-channel head (model_gmfss_union/GMFSS.py:152). ``pad_size`` is 128
 so that the half-resolution IFNet still sees frames divisible by 64. The same
 duck-typed API as ``models/gmfss.GMFSS``; the T timesteps of a window are
-folded into the batch axis.
+folded into the batch axis. On a CUDA device a window with a reuse runs
+``next_reuse`` and its timesteps as one captured graph (``graphs.py``;
+``_fused_window``).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
+from drba_tpu_torch import graphs
 from drba_tpu_torch.config import DEFAULT, Config, model_device
 from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_gmfss, calc_drm_rife_auxiliary
@@ -34,19 +38,21 @@ def _half(x, T):
     return _tile(scale_by(x, 0.5), T)
 
 
-def _drba_window(p: GmfssParams, rife_params, I0, I1, I2, ts, reuse10: Reuse, reuse12: Reuse,
-                 scale_list, linear, backend="auto", warp_backend="auto", drm_splat_scale=1.0,
-                 conv_backend="auto"):
+def _drba_window(p: GmfssParams, rife_params, I0, I1, I2, ts, ts_host, reuse10: Reuse,
+                 reuse12: Reuse, scale_list, linear, backend="auto", warp_backend="auto",
+                 drm_splat_scale=1.0, conv_backend="auto"):
     """All T timesteps of one window, T folded into the batch axis; returns
-    (T, 1, H, W, 3)."""
+    (T, 1, H, W, 3). ``ts_host``: the host values of ``ts``."""
     T = ts.shape[0]
     tt = torch.where(ts < 1, 1 - ts, ts - 1)
+    tt_host = np.where(ts_host < 1, 1 - ts_host, ts_host - 1)
     flow10, flow12 = reuse10.flow01, reuse12.flow01
     metric10, metric12 = reuse10.metric0, reuse12.metric0
     drm_g = calc_drm_gmfss(tt, flow10, flow12, metric10, metric12, linear=linear,
-                           backend=backend, splat_scale=drm_splat_scale)
+                           backend=backend, splat_scale=drm_splat_scale, t_host=tt_host)
     drm_r = calc_drm_rife_auxiliary(tt, flow10, flow12, metric10, metric12, linear=linear,
-                                    backend=backend, splat_scale=drm_splat_scale)
+                                    backend=backend, splat_scale=drm_splat_scale,
+                                    t_host=tt_host)
     left = (ts < 1)[:, None, None, None]
     imgB = torch.where(left, I0, I2)
     I1b = _tile(I1, T)
@@ -114,7 +120,7 @@ class GMFSS_UNION:
         self.config = config
 
     def _ts(self, ts) -> torch.Tensor:
-        return torch.as_tensor(list(ts), dtype=torch.float32).to(self.device)
+        return graphs.timesteps(self, ts)
 
     def reuse(self, img0, img1, feat0=None) -> Reuse:
         return gmfss_reuse(self.params, img0, img1, self.scale, feat0=feat0, union=True,
@@ -145,23 +151,36 @@ class GMFSS_UNION:
                            attn_backend=self.config.attn_backend,
                            conv_backend=self.config.conv_backend).swapped()
 
+    def _window(self, I0, I1, I2, ts, ts_host, reuse10, reuse21, linear):
+        return _drba_window(self.params, self.rife_params, I0, I1, I2, ts, ts_host, reuse10,
+                            reuse21.swapped(), self.scale_list, linear,
+                            self.config.splat_backend, self.config.warp_backend,
+                            self.config.drm_splat_scale, self.config.conv_backend)
+
+    def _fused_window(self, I0, I1, I2, ts, ts_host, reuse10, linear):
+        """``next_reuse`` and the timesteps of a window on the chain's reuse:
+        what one captured graph runs -> ((T, 1, H, W, 3), next reuse)."""
+        nxt = self.next_reuse(I1, I2, feat1=reuse10.feat0)
+        return self._window(I0, I1, I2, ts, ts_host, reuse10, nxt, linear), nxt
+
     def drba_window(self, I0, I1, I2, ts, reuse10: Reuse | None, reuse21: Reuse,
                     linear: bool = False):
         """The window's timesteps, unfused from its GMFlow pass: ``reuse10``
         is the chain's I1 -> I0 reuse (None starts the chain with that pass),
         ``reuse21`` this window's ``next_reuse(I1, I2)``."""
         reuse10 = self.reuse(I1, I0) if reuse10 is None else reuse10
-        out = _drba_window(self.params, self.rife_params, I0, I1, I2, self._ts(ts), reuse10,
-                           reuse21.swapped(), self.scale_list, linear, self.config.splat_backend,
-                           self.config.warp_backend, self.config.drm_splat_scale,
-                           self.config.conv_backend)
-        return list(out.unbind(0))
+        host = graphs.host_timesteps(ts)
+        return list(self._window(I0, I1, I2, self._ts(host), host, reuse10, reuse21,
+                                 linear).unbind(0))
 
     def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
         """DRM-adjusted interpolation over a 3-frame window; ``ts`` in
         [0.5, 1.5). Returns (frames, reuse) with the reuse of (I2, I1) for the
-        next window."""
+        next window. On a CUDA device the GMFlow pass and the timesteps
+        replay one captured graph (``graphs.run_window``)."""
         reuse10 = self.reuse(I1, I0) if reuse is None else reuse
+        if len(ts) and self.device.type == "cuda":
+            return graphs.run_window(self, I0, I1, I2, ts, reuse10, linear)
         nxt = self.next_reuse(I1, I2, feat1=reuse10.feat0)
         if len(ts) == 0:
             return [], nxt

@@ -84,7 +84,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact GELU ``0.5 * x * erfc(-x * sqrt(1/2))`` with jax.nn.gelu's
     rounding points: the argument and 0.5 * x in x's dtype, erfc in f32 and
     rounded to x's dtype, their product in x's dtype."""
-    arg = -x * _SQRT_HALF[x.dtype].to(x.device)
+    arg = -x * _SQRT_HALF[x.dtype]  # a CPU scalar: no copy to the card
     e = torch.special.erfc(arg.float()).to(x.dtype)
     return (0.5 * x) * e
 

@@ -6,7 +6,9 @@ Uniform model API:
   * ``inference_ts_drba(I0, I1, I2, ts, reuse, linear) -> ([frames], reuse)``,
     the composition of ``next_reuse(I1, I2)`` (the window's flow pass,
     reversed: the next window's reuse) and ``drba_window`` (its timesteps),
-    which the multi-device planner (``parallel/batch.py``) runs apart
+    which the multi-device planner (``parallel/batch.py``) runs apart; on a
+    CUDA device, with a reuse, the two run as one captured graph
+    (``graphs.py``; ``_fused_window``)
 
 As in the JAX package, the T timesteps of a window are folded into the batch
 axis, so one IFNet call serves the whole window; integer timesteps pass the
@@ -19,8 +21,10 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
+from drba_tpu_torch import graphs
 from drba_tpu_torch.config import DEFAULT, Config, model_device
 from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_rife
@@ -46,8 +50,7 @@ def _calc_flow(params, a, b, scale0: float, f0=None, f1=None, splat_backend: str
     both = torch.cat([flow[..., 0:2], flow[..., 2:4]], dim=0)
     w, mask = softsplat(both, both, None, "avg", backend=splat_backend, return_coverage=True)
     h, wd = a.shape[1], a.shape[2]
-    sentinel = torch.tensor(float(max(h, wd)), dtype=w.dtype, device=w.device)
-    inv = torch.where(mask < 0.999, sentinel, -w)
+    inv = torch.where(mask < 0.999, float(max(h, wd)), -w)
     return inv[:n] * 2, inv[n:] * 2, f0, f1
 
 
@@ -67,18 +70,20 @@ def _tile(x, T):
     return _fold(x[None].expand((T,) + tuple(x.shape)))
 
 
-def _drba_window(params, I0, I1, I2, ts, flow10, flow12, f0, f1, f2, scale_list, linear,
-                 splat_backend="auto", warp_backend="auto", drm_splat_scale=1.0,
+def _drba_window(params, I0, I1, I2, ts, ts_host, flow10, flow12, f0, f1, f2, scale_list,
+                 linear, splat_backend="auto", warp_backend="auto", drm_splat_scale=1.0,
                  conv_backend="auto"):
     """All timesteps of one 3-frame window, T folded into the batch axis.
 
-    ``ts`` is a (T,) f32 tensor on the frames' device; returns (T, N, H, W, 3).
+    ``ts`` is a (T,) f32 tensor on the frames' device, ``ts_host`` its host
+    values (the nonlinear retime's schedule); returns (T, N, H, W, 3).
     """
     T = ts.shape[0]
     n, h, w, _ = I1.shape
     tt = torch.where(ts < 1, 1 - ts, ts - 1)
     drm = calc_drm_rife(tt, flow10, flow12, linear=linear, backend=splat_backend,
-                        splat_scale=drm_splat_scale)
+                        splat_scale=drm_splat_scale,
+                        t_host=np.where(ts_host < 1, 1 - ts_host, ts_host - 1))
     d01 = drm.drm_t1_t01.reshape(T, n, h, w, 1)
     d12 = drm.drm_t1_t12.reshape(T, n, h, w, 1)
     left = (ts < 1)[:, None, None, None, None]
@@ -123,7 +128,7 @@ class RIFE:
         self.config = config
 
     def _ts(self, ts) -> torch.Tensor:
-        return torch.as_tensor(list(ts), dtype=torch.float32).to(self.device)
+        return graphs.timesteps(self, ts)
 
     def _calc_flow(self, a, b, f0=None, f1=None):
         return _calc_flow(self.params, a, b, self.scale_list[0], f0=f0, f1=f1,
@@ -151,27 +156,41 @@ class RIFE:
         flow12, flow21, f1, f2 = self._calc_flow(I1, I2, f0=f1)
         return flow21, flow12, f2, f1
 
+    def _window(self, I0, I1, I2, ts, ts_host, reuse10, reuse21, linear):
+        flow10, _flow01, f1, f0 = reuse10
+        _flow21, flow12, f2, _ = reuse21
+        return _drba_window(self.params, I0, I1, I2, ts, ts_host, flow10, flow12, f0, f1, f2,
+                            self.scale_list, linear, self.config.splat_backend,
+                            self.config.warp_backend, self.config.drm_splat_scale,
+                            self.config.conv_backend)
+
+    def _fused_window(self, I0, I1, I2, ts, ts_host, reuse, linear):
+        """``next_reuse`` and the timesteps of a window on the chain's reuse:
+        what one captured graph runs -> ((T, N, H, W, 3), next reuse)."""
+        nxt = self.next_reuse(I1, I2, f1=reuse[2])
+        return self._window(I0, I1, I2, ts, ts_host, reuse, nxt, linear), nxt
+
     def drba_window(self, I0, I1, I2, ts, reuse10, reuse21, linear: bool = False):
         """The window's timesteps, unfused from its flow pass: ``reuse10`` is
         the chain's (flow10, flow01, f1, f0) (None starts the chain with the
         I1 -> I0 pass), ``reuse21`` this window's ``next_reuse(I1, I2)``."""
-        flow10, _flow01, f1, f0 = self._calc_flow(I1, I0) if reuse10 is None else reuse10
-        _flow21, flow12, f2, _ = reuse21
-        out = _drba_window(self.params, I0, I1, I2, self._ts(ts), flow10, flow12, f0, f1, f2,
-                           self.scale_list, linear, self.config.splat_backend,
-                           self.config.warp_backend, self.config.drm_splat_scale,
-                           self.config.conv_backend)
-        return list(out.unbind(0))
+        reuse10 = self._calc_flow(I1, I0) if reuse10 is None else reuse10
+        host = graphs.host_timesteps(ts)
+        return list(self._window(I0, I1, I2, self._ts(host), host, reuse10, reuse21,
+                                 linear).unbind(0))
 
     def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
         """DRM-adjusted interpolation over a 3-frame window.
 
         ``ts`` values lie in [0.5, 1.5) (window time, centred on I1). Returns
         (frames, reuse); reuse carries the I1<->I2 flows and encoder features
-        to the next window.
+        to the next window. On a CUDA device the flow pass and the timesteps
+        replay one captured graph (``graphs.run_window``).
         """
         if reuse is None:
             reuse = self._calc_flow(I1, I0)
+        if len(ts) and self.device.type == "cuda":
+            return graphs.run_window(self, I0, I1, I2, ts, reuse, linear)
         nxt = self.next_reuse(I1, I2, f1=reuse[2])
         if len(ts) == 0:
             return [], nxt

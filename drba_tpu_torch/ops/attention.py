@@ -84,8 +84,7 @@ def _window_nhwc_plain(q, k, v, k_splits, labels, with_mask):
     s = split_windows(torch.cat([q, k, v], dim=0), kk).reshape(3, b * kk * kk, wh * ww, c)
     dead = None
     if with_mask:
-        lab = torch.as_tensor(np.asarray(labels, np.int32).reshape(kk * kk, wh * ww),
-                              device=q.device)
+        lab = device_labels(np.asarray(labels).reshape(kk * kk, wh * ww), q.device)
         dead = _rid_dead(lab).repeat(b, 1, 1)
     out = _attention_plain(s[0], s[1], s[2], dead, q.dtype)
     return merge_windows(out.reshape(b * kk * kk, wh, ww, c), kk)

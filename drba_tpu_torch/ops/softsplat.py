@@ -62,8 +62,11 @@ def _splat_plain(ten: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         iy = y0i + dy
         wgt = (wx if dx else 1 - wx) * (wy if dy else 1 - wy)
         valid = finite & (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
-        idx = (iy * w + ix + batch_off)[valid]
-        out.index_add_(0, idx, src[valid.reshape(-1)] * wgt[valid][:, None])
+        # dropped corners add an exact 0 at row 0: no boolean mask, whose
+        # nonzero() would read the card back (a captured window holds none)
+        idx = torch.where(valid, iy * w + ix + batch_off, 0).reshape(-1)
+        val = torch.where(valid[..., None], src.reshape(n, h, w, c) * wgt[..., None], 0.0)
+        out.index_add_(0, idx, val.reshape(-1, c))
     return out.reshape(n, h, w, c)
 
 

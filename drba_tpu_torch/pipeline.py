@@ -339,7 +339,9 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
     ``max_frames`` stops reading after that many input frames. With
     ``profile`` a wall-clock report per stage (``window``, ``emit-wait``,
     ``prefetch-wait``, ``scdet``, ``finish``) is attached to the stats;
-    kernels launch asynchronously, so ``window`` measures the host's dispatch.
+    kernels launch asynchronously, so ``window`` measures the host's dispatch
+    (on a CUDA device, of a steady-state window: its graph's copies and
+    replay; ``utils/profiling.py``).
     """
     stats = PipelineStats()
     t_start = time.perf_counter()

@@ -4,7 +4,10 @@
   ``emit-wait``, ``prefetch-wait``, ``scdet``, ``finish``), reported at the
   end of a run. Kernels launch asynchronously, so ``window`` measures the
   host's dispatch plus any waits inside it, which is what the frame loop
-  experiences.
+  experiences. On a CUDA device a steady-state window replays its captured
+  graph (``graphs.py``), so there ``window`` is the host time of the copies
+  in and out and of the replay's launch; the first window of each T (its
+  eager warm-up and capture) and the chain's eager starts add their own.
 * ``device_trace``: ``torch.profiler`` over a block, written as a Chrome
   trace (``chrome://tracing`` or Perfetto) into a directory.
 """

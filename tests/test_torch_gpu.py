@@ -785,3 +785,119 @@ def test_planner_on_two_cards_matches_the_serial_chain():
         # f32: the splat's atomics in another order, through five IFNet stages
         assert float(d.mean()) <= 1e-4 and float((d > 1e-2).float().mean()) <= 1e-3
     assert acc["carries"] == [(0, 1)] and acc["frames"] == 3
+
+
+# ------------------------------------------------------------------- the window as a CUDA graph
+
+# the window gates of chip_smoke.py (GATES), per dtype: (mean abs, share of
+# values off by more than 1e-2). The graph runs the eager window's kernels in
+# the same order; the splat's f32 atomics add in any order, and five IFNet
+# stages or GMFlow's 24 layers amplify that, so graph and eager need not
+# agree bitwise
+_GRAPH_GATES = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-2, 5e-2)}
+_GRAPH_SIZES = {"rife": (128, 256), "gmfss": (128, 192), "gmfss_union": (256, 384)}
+
+
+def _graph_model(name, dtype, dev):
+    import importlib
+
+    from drba_tpu_torch.config import DEFAULT
+
+    module, cls = {"rife": ("rife", "RIFE"), "gmfss": ("gmfss", "GMFSS"),
+                   "gmfss_union": ("gmfss_union", "GMFSS_UNION")}[name]
+    model = getattr(importlib.import_module(f"drba_tpu_torch.models.{module}"), cls)
+    return model(config=DEFAULT.replace(compute_dtype=dtype), device=dev)
+
+
+def _graph_windows(name, dtype, dev, n=5):
+    """``n`` chained windows at 24 -> 60's alternating T = 3, 2, and the
+    chain start's reuse."""
+    h, w = _GRAPH_SIZES[name]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    base = torch.rand(1, h, w + 6 * (n + 2), 3, generator=gen, device=dev)
+    fr = [base[:, :, 6 * i:6 * i + w].contiguous().to(dtype) for i in range(n + 2)]
+    ts = ([0.6, 1.0, 1.4], [0.8, 1.2])
+    return [(fr[k], fr[k + 1], fr[k + 2], ts[k % 2]) for k in range(n)]
+
+
+def _start(m, I0, I1):
+    return m._calc_flow(I1, I0) if hasattr(m, "_calc_flow") else m.reuse(I1, I0)
+
+
+def _eager_window(m, I0, I1, I2, ts, reuse):
+    """The eager pieces the graph fuses: next_reuse, then the timesteps."""
+    nxt = m.next_reuse(I1, I2, reuse.feat0 if hasattr(reuse, "feat0") else reuse[2])
+    return m.drba_window(I0, I1, I2, ts, reuse, nxt, linear=True), nxt
+
+
+def _tensors(tree):
+    from drba_tpu_torch.parallel.batch import _leaves
+
+    return _leaves(tree)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["rife", "gmfss", "gmfss_union"])
+def test_graphed_window_matches_its_eager_pieces(dev, name, dtype):
+    """A chain of windows through ``inference_ts_drba`` (the first T = 3 and
+    T = 2 windows capture, the rest replay) against the eager pieces'
+    chain from the same reuse, within chip_smoke's GATES; a replay's frames
+    and reuse outlive the next replays; N replays count the launches of N
+    eager windows."""
+    from collections import Counter
+
+    from drba_tpu_torch import graphs
+
+    m = _graph_model(name, dtype, dev)
+    windows = _graph_windows(name, dtype, dev)
+    reuse = _start(m, *windows[0][:2])
+    for w in windows[:2]:  # the captures
+        _, reuse = m.inference_ts_drba(*w, reuse, linear=True)
+    assert len(graphs.state(m).entries) == 2
+    g_reuse, e_reuse = reuse, reuse
+    g_counts, e_counts, kept = Counter(), Counter(), []
+    mean_tol, share_tol = _GRAPH_GATES[dtype]
+    for w in windows[2:]:
+        c0 = _build.counts()
+        got, g_reuse = m.inference_ts_drba(*w, g_reuse, linear=True)
+        c1 = _build.counts()
+        want, e_reuse = _eager_window(m, *w, e_reuse)
+        c2 = _build.counts()
+        g_counts.update({k: c1[k] - c0[k] for k in c0})
+        e_counts.update({k: c2[k] - c1[k] for k in c0})
+        kept.append([(t, t.clone()) for t in got + _tensors(g_reuse)])
+        assert len(got) == len(want) == len(w[3])
+        for g, e in zip(got, want):
+            assert g.shape == e.shape and bool(torch.isfinite(g).all())
+            d = (g.float() - e.float()).abs()
+            assert float(d.mean()) <= mean_tol
+            assert float((d > 1e-2).float().mean()) <= share_tol
+    assert g_counts == e_counts and g_counts["splat"] > 0
+    torch.cuda.synchronize()
+    for window in kept:
+        for t, saved in window:
+            assert torch.equal(t, saved)
+
+
+@pytest.mark.parametrize("name", ["rife", "gmfss", "gmfss_union"])
+def test_steady_state_windows_make_no_host_sync(dev, name):
+    """With the graphs captured and the caches warm, steady-state windows,
+    graphed (``inference_ts_drba``) and eager (``next_reuse`` +
+    ``drba_window``), run under ``torch.cuda.set_sync_debug_mode("error")``:
+    no blocking copy, no read-back, no synchronise inside a window."""
+    m = _graph_model(name, torch.bfloat16, dev)
+    windows = _graph_windows(name, torch.bfloat16, dev)
+    reuse = _start(m, *windows[0][:2])
+    for w in windows[:2]:  # captures, and the eager pieces' first run
+        _eager_window(m, *w, reuse)
+        _, reuse = m.inference_ts_drba(*w, reuse, linear=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g_reuse = e_reuse = reuse
+        for w in windows[2:]:
+            _, g_reuse = m.inference_ts_drba(*w, g_reuse, linear=True)
+            _, e_reuse = _eager_window(m, *w, e_reuse)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

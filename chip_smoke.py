@@ -59,7 +59,18 @@ Phases (any failure exits non-zero and prints no result):
      (graphed; count, frames within the bf16
      gate, every kernel of the path launched), both timed in turns;
      ``exchange_accounting`` of one GMFSS group; eight GMFSS windows alone
-     through the serial chain and the planner over one and two replicas.
+     through the serial chain and the planner over one and two replicas;
+  8. uhd (after the earlier phases' models and graph pools are freed): RIFE
+     and GMFSS at ``-scale 0.5`` on 4K frames (2176x3840): a T = 3 and a
+     T = 2 window each through its graph against the plain path's eager
+     pieces (the bf16 gate), the window ms, each graph's pool bytes and
+     launches per replay; then a 6-frame 4K RIFE ``run_pipeline``: the
+     planned frames, all finite, every kernel of the path launched;
+  9. gate: ``bench_torch.gate_composed``, the composed fast path (kernels,
+     half-resolution DRM splats, bf16) against the exact plain path in bf16
+     and in f32, min frame SSIM >= 0.995 at injected pans of 8, 20 and 40 px
+     (a reading below fails the script); and one SSIM reading each, not
+     gated, of a GMFSS and a GMFSS_UNION window against their f32 plain path.
 
 The line before the last is one JSON object with a summary per kernel; the
 last line is ``{"ok": true, "device": {...}}``. TF32 is off for every
@@ -77,10 +88,16 @@ import sys
 import time
 from collections import Counter
 
+# seed-0 random-weight models of bench_torch's configs, and the size each
+# runs a frame at
+from bench_torch import make_model, padded_size  # noqa: F401 (torch_window_fps.py)
+
 H, W = 1088, 1920          # 1080p padded to RIFE's and GMFSS's multiple of 64
 HU = 1152                  # 1080p padded to GMFSS_UNION's multiple of 128
 SRC_FPS, DST_FPS = 24.0, 60.0
 N_FRAMES = {"rife": 10, "gmfss": 6, "gmfss_union": 6, "scdet": 10}
+UHD = (2160, 3840)         # 4K source frames, run at -scale 0.5 (padded to 2176x3840)
+N_UHD = 6
 # a longer GMFSS stream for the serial / two-thread timing (8 groups of two)
 N_TIMING = 18
 
@@ -90,7 +107,8 @@ PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain"),
                           "flash_attention", "transformer_layer"),
                 "gmfss_union": ("splat", "warp", "conv_chain", "window_attention",
                                 "flash_attention", "transformer_layer"),
-                "scdet": ("splat", "warp", "conv_chain")}
+                "scdet": ("splat", "warp", "conv_chain"),
+                "uhd": ("splat", "warp", "conv_chain")}
 # window gates, kernel path against plain path on one T=3 window, per
 # dtype: (mean abs, share of values off by more than 1e-2). f32: the same
 # arithmetic up to atomic/FMA/summation order; bf16: roundings at other
@@ -174,17 +192,18 @@ def smooth_flow(gen, n, h, w, mag, device, dtype):
     return f.permute(0, 2, 3, 1).contiguous().to(dtype)
 
 
-def synthetic_frames(n: int):
-    """``n`` 1080p BGR uint8 frames: smooth texture panning 6 px per frame,
-    with a square moving against it (so the flows are not uniform)."""
+def synthetic_frames(n: int, h: int = 1080, w: int = 1920):
+    """``n`` BGR uint8 frames (1080p unless given): smooth texture panning 6
+    px per frame, with a square moving against it (so the flows are not
+    uniform)."""
     import numpy as np
 
-    yy, xx = np.mgrid[0:1080, 0:1920 + 6 * n].astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w + 6 * n].astype(np.float32)
     base = np.stack([np.sin(xx / 37.0 + k) * np.cos(yy / 23.0 - k) for k in range(3)], -1)
     base = ((base * 0.4 + 0.5) * 255).astype(np.uint8)
     frames = []
     for i in range(n):
-        f = np.ascontiguousarray(base[:, 6 * i:6 * i + 1920])
+        f = np.ascontiguousarray(base[:, 6 * i:6 * i + w])
         x0 = 600 + 9 * i
         f[400:600, x0:x0 + 200] = (40, 200, 90)
         frames.append(f)
@@ -697,32 +716,9 @@ def attention_checks(dev, gen, record):
                           f"{split[1]:.4f} ms, tail {split[2]:.4f} ms")
 
 
-MODELS = {"rife": ("drba_tpu_torch.models.rife", "RIFE", "RIFE IFNet 4.26-heavy"),
-          "gmfss": ("drba_tpu_torch.models.gmfss", "GMFSS",
-                    "GMFSS (GMFlow, MetricNet, FeatureNet, GridNet)"),
-          "gmfss_union": ("drba_tpu_torch.models.gmfss_union", "GMFSS_UNION",
-                          "GMFSS_UNION (union GMFSS nets + half-resolution IFNet 4.26-heavy)")}
-
-
-def make_model(name, dev, **cfg):
-    """Seed-0 random-weight model ``name`` (a key of MODELS) in bf16 (or the
-    given config fields) on ``dev``."""
-    import importlib
-
-    from drba_tpu_torch.config import DEFAULT
-
-    module, cls, _ = MODELS[name]
-    return getattr(importlib.import_module(module), cls)(weights=None, scale=1.0,
-                                                         config=DEFAULT.replace(**cfg), device=dev)
-
-
-def padded_size(model) -> tuple[int, int]:
-    """The size ``model`` runs 1080p frames at (1088x1920, or 1152x1920 for
-    GMFSS_UNION's pad of 128)."""
-    from drba_tpu_torch.utils import get_valid_net_inp_size
-
-    return get_valid_net_inp_size(synthetic_frames(1)[0], model.scale,
-                                  div=model.pad_size)["dst_size"]
+MODELS = {"rife": "RIFE IFNet 4.26-heavy",
+          "gmfss": "GMFSS (GMFlow, MetricNet, FeatureNet, GridNet)",
+          "gmfss_union": "GMFSS_UNION (union GMFSS nets + half-resolution IFNet 4.26-heavy)"}
 
 
 def n_params(model) -> int:
@@ -732,19 +728,21 @@ def n_params(model) -> int:
     return sum(v.numel() for p in nets for k, v in p.items() if not k.endswith(".wp"))
 
 
-def phase_slice(name, dev, scdet=False):
+def phase_slice(name, dev, scdet=False, uhd=False):
     """run_pipeline with model ``name`` on the kernel path (``scdet``: RIFE
-    with scene detection on a stream whose frame 4 alone is colour-inverted);
-    returns the launch counts of that run."""
+    with scene detection on a stream whose frame 4 alone is colour-inverted;
+    ``uhd``: 4K frames at ``-scale 0.5``); returns the launch counts of that
+    run."""
     import torch
 
     from drba_tpu_torch import _build, graphs
     from drba_tpu_torch.pipeline import planned_outputs, run_pipeline
 
-    path = "scdet" if scdet else name
-    model = make_model(name, dev)
-    size = padded_size(model)
-    n_frames = N_FRAMES[path]
+    path = "scdet" if scdet else "uhd" if uhd else name
+    src = UHD if uhd else (1080, 1920)
+    model = make_model(name, dev, scale=0.5 if uhd else 1.0)
+    size = padded_size(model, src)
+    n_frames = N_UHD if uhd else N_FRAMES[path]
     checked = {"frames": 0}
 
     def finite(frames):
@@ -764,7 +762,7 @@ def phase_slice(name, dev, scdet=False):
     model.inference_ts = checked_ts
     model.inference_ts_drba = lambda *a, **k: (lambda r: (finite(r[0]), r[1]))(drba_fn(*a, **k))
 
-    io = _FrameIO(stream(path))
+    io = _FrameIO(synthetic_frames(N_UHD, *UHD) if uhd else stream(path))
     _build.reset_counts()
     t0 = time.perf_counter()
     try:
@@ -776,8 +774,9 @@ def phase_slice(name, dev, scdet=False):
     counts = _build.counts()
 
     plan = planned_outputs(n_frames, SRC_FPS, DST_FPS)
-    print(f"slice{' (scene detection, -s -st 0.3)' if scdet else ''}: {MODELS[name][2]}, "
-          f"{n_params(model)} params (seed 0), bf16, {n_frames} frames 1080p at "
+    what = " (scene detection, -s -st 0.3)" if scdet else " (4K, -scale 0.5)" if uhd else ""
+    print(f"slice{what}: {MODELS[name]}, "
+          f"{n_params(model)} params (seed 0), bf16, {n_frames} frames {src[0]}p at "
           f"{size[0]}x{size[1]} {SRC_FPS:g}->{DST_FPS:g}: frames_out {stats.frames_out} "
           f"(plan {plan}), {stats.windows} windows, {stats.scene_cuts} scene cuts, "
           f"{checked['frames']} frames checked finite, wall {wall:.2f} s "
@@ -798,7 +797,7 @@ def phase_slice(name, dev, scdet=False):
     if not scdet and checked["frames"] < plan - 2:
         fail(f"{path}: fewer model frames checked than planned")
     for f in io.written:
-        if f.shape != (1080, 1920, 3) or str(f.dtype) != "uint8":
+        if f.shape != (*src, 3) or str(f.dtype) != "uint8":
             fail(f"{path}: written frame {f.shape} {f.dtype}")
     for k in PATH_KERNELS[path]:
         if counts[k] == 0:
@@ -1264,6 +1263,131 @@ def window_threads(model, devices, gpu_line):
               f"({fps[k] / fps['serial']:.3f}x), device {busy[k]:.1f} ms" for k in sides))
 
 
+def release_memory(dev) -> None:
+    """Free what the earlier phases left: their models (and with them their
+    graph pools) are gone once collected; the cache goes back to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory before the 4K phase: {torch.cuda.memory_allocated(dev) / 2**20:.1f} MiB "
+          f"allocated, {torch.cuda.memory_reserved(dev) / 2**20:.1f} MiB reserved")
+
+
+def phase_uhd(dev, gpu_line):
+    """RIFE and GMFSS at ``-scale 0.5`` on 4K frames: a T = 3 and a T = 2
+    window through the graph against the plain path's eager pieces, their
+    ms, pools and launches, then a 6-frame 4K RIFE ``run_pipeline``; returns
+    the launch counts of the windows and the run."""
+    import torch
+
+    from drba_tpu_torch import _build, graphs
+    from drba_tpu_torch.pipeline import calc_ts
+    from drba_tpu_torch.utils import TMapper, to_inp
+
+    frames = synthetic_frames(3, *UHD)
+    tmap = TMapper(SRC_FPS, DST_FPS)
+    ts_pair = (calc_ts(0, tmap, -1), calc_ts(1, tmap, -1))  # T = 3, then T = 2
+    launches = {k.name: 0 for k in _build.KERNELS}
+    mean_tol, share_tol = GATES["bf16"]
+    for name in ("rife", "gmfss"):
+        plain_cfg = dict(splat_backend="torch", warp_backend="torch", conv_backend="torch")
+        if name != "rife":
+            plain_cfg["attn_backend"] = "torch"
+        torch.cuda.reset_peak_memory_stats(dev)  # the peak printed below is this model's
+        m = make_model(name, dev, scale=0.5)
+        plain = make_model(name, dev, scale=0.5, **plain_cfg)
+        size = padded_size(m, UHD)
+        I0, I1, I2 = (to_inp(f, size, m.config.compute_dtype, dev) for f in frames)
+        reuse = m._calc_flow(I1, I0) if name == "rife" else m.reuse(I1, I0)
+        for ts in ts_pair:
+            out_p = torch.stack(eager_window(plain, I0, I1, I2, ts, reuse)[0])
+            torch.cuda.empty_cache()
+            m.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True)  # warm-up and capture
+            _build.reset_counts()
+            out_g = torch.stack(m.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True)[0])
+            torch.cuda.synchronize()
+            counts = _build.counts()
+            for k, n in counts.items():
+                launches[k] += n
+            d = (out_g.float() - out_p.float()).abs()
+            mean, share = float(d.mean()), float((d > 1e-2).float().mean())
+            ms = timed(lambda: m.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True), 3)
+            print(f"uhd {name} bf16 4K -scale 0.5 ({size[0]}x{size[1]}) T={len(ts)}: graph "
+                  f"replay vs plain eager pieces max_abs {float(d.max()):.3e}  mean_abs "
+                  f"{mean:.3e}  share(>1e-2) {share:.3e}; {ms:.2f} ms a window (graphed, CUDA "
+                  f"events, 3 calls); launches in the replay {counts}  [{gpu_line}]")
+            if not torch.isfinite(out_g).all() or mean > mean_tol or share > share_tol:
+                fail(f"uhd {name} T={len(ts)} kernel vs plain: mean {mean:.3e} (tol "
+                     f"{mean_tol:g}), share(>1e-2) {share:.3e} (tol {share_tol:g})")
+            for k in PATH_KERNELS[name]:
+                if counts[k] == 0:
+                    fail(f"uhd {name} T={len(ts)}: kernel {k} was not launched in the replay")
+            del out_p, out_g, d
+        for key, e in graphs.state(m).entries.items():
+            print(f"uhd {name} graph T={key[0]} {key[1][1]}x{key[1][2]}: pool {e.pool_bytes} "
+                  f"bytes ({e.pool_bytes / 2**20:.1f} MiB), launches a replay "
+                  f"{dict(e.launches)}; peak allocated with the plain model beside it "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        del m, plain, I0, I1, I2, reuse
+        torch.cuda.empty_cache()
+    for k, n in phase_slice("rife", dev, uhd=True).items():
+        launches[k] += n
+    return launches
+
+
+def phase_gate(dev, gpu_line):
+    """The composed-path quality gate of ``bench_torch`` (min frame SSIM
+    >= 0.995, fast path against the exact plain path in bf16 and in f32),
+    then one SSIM reading each, not gated, of a GMFSS and a GMFSS_UNION T = 3
+    window (kernel path, bf16) against their f32 plain path; returns the
+    launch counts of the gate's fast windows."""
+    import torch
+
+    import bench_torch
+    from drba_tpu_torch import _build
+    from drba_tpu_torch.ops.ssim import ssim
+    from drba_tpu_torch.pipeline import calc_ts
+    from drba_tpu_torch.utils import TMapper, to_inp
+
+    _build.reset_counts()
+    entry = bench_torch.gate_composed(bench_torch.Settings(dev))
+    counts = _build.counts()
+    print(f"gate: composed fast path vs exact, min frame SSIM of one T=3 RIFE window at "
+          f"{entry['size'][0]}x{entry['size'][1]} (injected pans): {entry['ssim']}, gate "
+          f">= {entry['gate']} on both readings: {'passed' if entry['passed'] else 'FAILED'}; "
+          f"launches {counts}  [{gpu_line}]")
+    if not entry["passed"]:
+        fail(f"gate: min frame SSIM below {entry['gate']}: {entry['ssim']}")
+    for k in PATH_KERNELS["rife"]:
+        if counts[k] == 0:
+            fail(f"gate: kernel {k} was not launched on the fast path")
+    # a random GMFlow's correlation gives flows of the image's size and the
+    # union's thresholds flip on rounding: these are readings, not gates
+    frames = synthetic_frames(3)
+    ts3 = calc_ts(0, TMapper(SRC_FPS, DST_FPS), -1)
+    for name in ("gmfss", "gmfss_union"):
+        outs = {}
+        for label, cfg in (("kernel bf16", {}),
+                           ("plain f32", dict(compute_dtype=torch.float32, splat_backend="torch",
+                                              warp_backend="torch", conv_backend="torch",
+                                              attn_backend="torch", drm_splat_scale=1.0))):
+            m = make_model(name, dev, **cfg)
+            I0, I1, I2 = (to_inp(f, padded_size(m), m.config.compute_dtype, dev) for f in frames)
+            out = eager_window(m, I0, I1, I2, ts3, m.reuse(I1, I0))[0]
+            outs[label] = torch.stack(out).float()
+            del m, I0, I1, I2, out
+            torch.cuda.empty_cache()
+        s = [float(ssim(outs["kernel bf16"][t], outs["plain f32"][t], val_range=1.0))
+             for t in range(len(ts3))]
+        print(f"gate reading (not gated): {name} T=3 1080p window, kernel path bf16 vs plain "
+              f"path f32 (full-resolution DRM splats): SSIM per frame "
+              f"{', '.join(f'{v:.5f}' for v in s)}, min {min(s):.5f}")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -1305,6 +1429,10 @@ def main() -> None:
     for name in ("rife", "gmfss", "gmfss_union"):
         phase_window(name, dev, gpu_line)
     for phase in (phase_resume(dev), phase_devices(dev, gpu_line)):
+        for k, n in phase.items():
+            launches[k] += n
+    release_memory(dev)
+    for phase in (phase_uhd(dev, gpu_line), phase_gate(dev, gpu_line)):
         for k, n in phase.items():
             launches[k] += n
 

@@ -173,6 +173,13 @@ class WindowGraphs:
         self._side = None
         self._pool = None
 
+    def pool(self):
+        """The memory pool all of the model's graphs capture into, made at
+        first use."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
     def upload(self, values: np.ndarray, out: torch.Tensor) -> torch.Tensor:
         if self._ring is None:
             self._ring = PinnedRing()
@@ -236,12 +243,11 @@ class WindowGraphs:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
                 torch.cuda.empty_cache()
-                if self._pool is None:
-                    self._pool = torch.cuda.graph_pool_handle()
             before = torch.cuda.memory_reserved(device) if device.type == "cuda" else 0
             try:
                 with _build.recording() as launches:
-                    out, nxt = graph.capture(window, side, self._pool)
+                    out, nxt = graph.capture(window, side,
+                                             self.pool() if device.type == "cuda" else None)
             except Exception as e:
                 raise RuntimeError(f"capturing the window (T, shape, dtype, linear, device) = "
                                    f"{key[:5]} failed") from e

@@ -146,10 +146,15 @@ def test_calc_flow_matches_jax(models):
         assert_close_but_flips(g, w, 1e-4, what=f"calc_flow output {i}")
 
 
-def test_rife_window_and_reuse_chain_match_jax(models):
-    """The head's plain interpolation, then three windows chained through reuse."""
-    jm, m = models
-    fr = _frames(5)
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_rife_window_and_reuse_chain_match_jax(models, scale):
+    """The head's plain interpolation, then three windows chained through
+    reuse; also at ``-scale 0.5`` (the 4K path's flow scale), on frames
+    twice as large."""
+    jm, m = models if scale == 1.0 else (
+        JaxRIFE(weights=None, scale=scale, config=JAX_F32),
+        RIFE(weights=None, scale=scale, config=F32, device="cpu"))
+    fr = _frames(5, int(H / scale), int(W / scale))
     ts_head = [0.4, 0.8]
     for g, w in zip(m.inference_ts(*(torch.from_numpy(f) for f in fr[:2]), ts_head),
                     jm.inference_ts(*(jnp.asarray(f) for f in fr[:2]), ts_head)):

@@ -234,14 +234,21 @@ def test_gmfss_union_inference_matches_jax(models, mask):
 # ---------------------------------------------------------------------------- windows, pipeline
 
 
-def test_union_windows_and_reuse_chain_match_jax(models):
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_union_windows_and_reuse_chain_match_jax(models, scale):
     """The head's plain interpolation, then three windows chained through
-    reuse, each with a source-frame timestep."""
-    jm, m = models
-    fr = _frames(5)
+    reuse, each with a source-frame timestep; also at ``-scale 0.5`` (the 4K
+    path's flow scale), on frames twice as large."""
+    from drba_tpu.models.gmfss_union import GMFSS_UNION as JaxUnion
+
+    jm, m = models if scale == 1.0 else (
+        JaxUnion(weights=None, scale=scale, config=JAX_F32),
+        GMFSS_UNION(scale=scale, config=F32, device="cpu"))
+    size = (int(H / scale), int(W / scale))
+    fr = _frames(5, *size)
     for g, w in zip(m.inference_ts(_t(fr[0]), _t(fr[1]), [0.4, 0.8]),
                     jm.inference_ts(jnp.asarray(fr[0]), jnp.asarray(fr[1]), [0.4, 0.8])):
-        assert tuple(g.shape) == (1, H, W, 3)
+        assert tuple(g.shape) == (1, *size, 3)
         assert_close_but_flips(g, w, 1e-3, what="inference_ts")
     jr = tr = None
     ts = [0.5, 1.0, 1.3]
@@ -251,7 +258,7 @@ def test_union_windows_and_reuse_chain_match_jax(models):
         to, tr = m.inference_ts_drba(*(_t(f) for f in fr[k:k + 3]), ts, tr, linear=True)
         assert len(to) == len(jo) == len(ts)
         for i, (g, w) in enumerate(zip(to, jo)):
-            assert tuple(g.shape) == (1, H, W, 3)
+            assert tuple(g.shape) == (1, *size, 3)
             assert_close_but_flips(g, w, 1e-3, what=f"window {k} t={ts[i]}")
         _close(to[1], fr[k + 1], 0, "the source frame at t = 1")
         for i, (g, w) in enumerate(zip(tr[:4], jr[:4])):

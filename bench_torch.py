@@ -561,6 +561,9 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         sys.exit("bench_torch: no CUDA device (torch.cuda.is_available() is False); "
                  "pass --device cpu to run on the CPU")
+    from drba_tpu_torch.config import full_f32_products
+
+    full_f32_products()  # the f32 plain paths' convolutions in f32, not TF32
     size = tuple(int(v) for v in args.size.lower().split("x")) if args.size else None
     s = Settings(device, size, args.windows)
     save = not args.no_save

@@ -17,6 +17,8 @@ Phases (any failure exits non-zero and prints no result):
      computes the same function, that call's time (used nowhere in the port);
      the splat as the paths' six softsplat calls (scatter and normalise
      launches), the layer's projection, window and tail also timed apart;
+     the f32 window, flash and layer (3xTF32 on the tensor cores) summed
+     into rows of their own, with SDPA in f32 beside window and flash;
      GMFSS_UNION's shapes (1080p padded to 1152x1920) and the conv chain's
      GMFSS steps (pre-PReLU, plain and final residuals: GridNet L0/L1,
      heads, head1's first step and tail, MetricNet, FeatureNet level 1)
@@ -45,7 +47,9 @@ Phases (any failure exits non-zero and prints no result):
      window (``inference_ts_drba``) against its eager pieces within the
      gates (f32 and bf16), and, in bf16 at T = 2 and 3, both timed in turns
      (CUDA events), their wall, host and device-busy time per window and
-     idle share, and each graph's memory pool;
+     idle share, and each graph's memory pool; in f32, GMFSS's and
+     GMFSS_UNION's windows timed on the plain path's and the kernel path's
+     eager pieces (before any f32 graph) and through the graph, in turns;
   6. resume: ``run_pipeline(skip_outputs=k)`` through the graphs (RIFE at
      a window boundary and inside a window, GMFSS inside a window, RIFE
      ``-s`` just past a cut)
@@ -70,13 +74,19 @@ Phases (any failure exits non-zero and prints no result):
      half-resolution DRM splats, bf16) against the exact plain path in bf16
      and in f32, min frame SSIM >= 0.995 at injected pans of 8, 20 and 40 px
      (a reading below fails the script); and one SSIM reading each, not
-     gated, of a GMFSS and a GMFSS_UNION window against their f32 plain path.
+     gated, of a GMFSS and a GMFSS_UNION window against their f32 plain path;
+ 10. f32 (last: its profile holds ~300 000 cuDNN launches): what holds an
+     f32 GMFSS graph's pool (the allocator's history during its capture,
+     by the port's source lines), and one f32 replay profiled, with a
+     check that every window, flash and layer launch ran the 3xTF32
+     kernels.
 
-The line before the last is one JSON object with a summary per kernel; the
-last line is ``{"ok": true, "device": {...}}``. TF32 is off for every
-comparison (``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32`` are set False here); the main path
-computes in bf16, where TF32 does not apply.
+The line before the last is one JSON object with a summary per kernel (and
+``*_f32`` rows for the f32 designs of window, flash and layer, whose
+launches are the f32 windows'); the last line is ``{"ok": true, "device":
+{...}}``. TF32 is off for PyTorch's f32 convolutions and products
+(``config.full_f32_products``, as the CLI sets it); the main path computes
+in bf16, where TF32 does not apply.
 """
 
 from __future__ import annotations
@@ -125,7 +135,11 @@ GATES = {"f32": (1e-4, 1e-3), "bf16": (1e-2, 5e-2)}
 # uninterrupted runs are
 # the __global__ functions of drba_tpu_torch/csrc (by name prefix)
 DEVICE_KERNELS = ("splat_", "warp_", "conv3x3_", "attn_wgmma_kernel",
-                  "attn_fma_kernel", "flash_combine_kernel", "layer_proj_", "layer_tail_")
+                  "attn_tf32_kernel", "flash_combine_kernel", "layer_proj_", "layer_tail_")
+# the kernels whose f32 (--fp32) design has rows of its own in the kernels
+# line: 3xTF32 on the tensor cores (csrc/tf32.cuh), timed at the same
+# summed shapes; their launches come from the f32 GMFSS and union windows
+F32_ROWS = ("window_attention", "flash_attention", "transformer_layer")
 # the TPU kernel(s) each kernel replaces (function reaching pl.pallas_call)
 REPLACES = {"splat": "drba_tpu/ops/splat_stencil.py:282",
             "warp": "drba_tpu/ops/warp_mxu.py:265",
@@ -290,13 +304,18 @@ def phase_kernels(dev):
     f32, bf16 = torch.float32, torch.bfloat16
     summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "work": bounds.Work(0.0),
                    "library_ms": None, "library_call": LIBRARY[n]} for n in REPLACES}
+    for n in F32_ROWS:
+        summary[f"{n}_f32"] = dict(summary[n], library_call=LIBRARY[n].replace(
+            "in bf16", "in f32") + " (f32, TF32 off)")
 
     def record(name, err, fn_kernel, fn_plain, iters, dt, work, library=None, summed=True):
         """Time kernel and plain version in turns; ``work``: the bounds.Work
         of this call; ``library``: (fn, label) of one PyTorch call computing
-        the same function, or None; ``summed``: add the bf16 times to the
-        kernel's summary."""
+        the same function, or None; ``summed``: add the times to the
+        kernel's summary (bf16), or to its f32 row (f32, F32_ROWS)."""
         s = summary[name]
+        if dt == f32 and f"{name}_f32" in summary:
+            s = summary[f"{name}_f32"]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         # plain, kernel, kernel, plain: each side timed twice, in turns
         tp = timed(fn_plain, iters)
@@ -311,7 +330,7 @@ def phase_kernels(dev):
             tl = timed(library[0], iters)
             line += f"   library {tl:.4f} ms ({library[1]}; kernel/library {tk / tl:.2f})"
         print(line)
-        if dt == bf16 and summed:  # the summary sums the main path's dtype
+        if summed and (dt == bf16 or s is not summary[name]):  # bf16, or an f32 row
             s["ms"] += tk
             s["plain_ms"] += tp
             s["work"] = s["work"] + work
@@ -660,11 +679,11 @@ def attention_checks(dev, gen, record):
                     work = bounds.attention_work(b, L, q.element_size(), value_width=2,
                                                  pairs=pairs, labels=b * L if masked else 0)
                     library = None
-                    if dt == bf16 and not masked:  # SDPA with the value zero-padded, in bf16
+                    if not masked:  # SDPA with the value zero-padded, in q's dtype
                         best = None
                         for width in (8, 128):
-                            vp = torch.zeros(b, 1, L, width, dtype=bf16, device=dev)
-                            vp[..., :2] = v[:, None].to(bf16)
+                            vp = torch.zeros(b, 1, L, width, dtype=dt, device=dev)
+                            vp[..., :2] = v[:, None].to(dt)
                             fn, name = sdpa_call(q[:, None], k[:, None], vp)
                             t = timed(fn, 3)
                             if best is None or t < best[0]:
@@ -704,7 +723,7 @@ def attention_checks(dev, gen, record):
                     cross=cross, pairs=b * bounds.live_pairs(lab.reshape(ks * ks, -1))
                     if cross else None, labels=h * w if cross else 0)
                 record("transformer_layer", err, kern, plain, 5, dt, work, summed=summed)
-                if dt == bf16 and summed:  # the three launches alone (not summed)
+                if summed:  # the three launches alone (not summed)
                     t = tgt if cross else x
                     qkv = layer_proj_cuda(x, t, wt.qkv_p)
                     wkw = dict(labels=lab, with_mask=cross, cross_swap=cross)
@@ -712,7 +731,7 @@ def attention_checks(dev, gen, record):
                     split = [timed(fn, 5) for fn in (lambda: layer_proj_cuda(x, t, wt.qkv_p),
                                                      lambda: layer_window_attention(qkv, ks, **wkw),
                                                      lambda: layer_tail_cuda(x, av, wt))]
-                    print(f"    split (not summed): projection {split[0]:.4f} ms, window "
+                    print(f"    split {dt} (not summed): projection {split[0]:.4f} ms, window "
                           f"{split[1]:.4f} ms, tail {split[2]:.4f} ms")
 
 
@@ -812,16 +831,19 @@ def eager_window(m, I0, I1, I2, ts, reuse):
     return m.drba_window(I0, I1, I2, ts, reuse, nxt, linear=True), nxt
 
 
-def phase_window(name, dev, gpu_line):
-    """One window of model ``name`` on the kernel path vs the plain path (bf16
-    and f32), the window time both ways, and a profile of one kernel-path
+def phase_window(name, dev, gpu_line, dnames):
+    """One window of model ``name`` on the kernel path vs the plain path (in
+    each dtype of ``dnames``), the window time both ways, and a profile of one kernel-path
     window's eager pieces. GMFSS and GMFSS_UNION are also timed with
     ``conv_backend="torch"`` alone: every conv on cuDNN (the union's IFNet
     too), the other kernels launched. The graphed window against its eager
     pieces (both dtypes), and in bf16 both timed and profiled
-    (``graph_vs_eager``)."""
+    (``graph_vs_eager``). In f32, GMFSS's and GMFSS_UNION's windows are
+    timed both ways (``time_f32_paths``); ``phase_f32`` profiles one at the
+    end. Returns the kernel-path window's launch counts per dtype."""
     import torch
 
+    from drba_tpu_torch import _build
     from drba_tpu_torch.pipeline import calc_ts
     from drba_tpu_torch.utils import TMapper, to_inp
 
@@ -832,7 +854,8 @@ def phase_window(name, dev, gpu_line):
     if name != "rife":
         plain_cfg["attn_backend"] = "torch"
 
-    for dname in ("bf16", "f32"):
+    launches = {}
+    for dname in dnames:
         extra = {} if dname == "bf16" else {"compute_dtype": torch.float32}
         # same seed, same parameters; only the backends differ
         m = make_model(name, dev, **extra)
@@ -845,7 +868,13 @@ def phase_window(name, dev, gpu_line):
         # the kernel path's first call, which runs the window eagerly and
         # captures its T=3 graph
         out_p = torch.stack(eager_window(plain, I0, I1, I2, ts3, reuse)[0])
+        f32_timed = dname == "f32" and name != "rife"
+        if f32_timed:  # before any graph: its f32 pool would crowd the eager windows
+            time_f32_paths(name, {"plain eager": plain, "kernel eager": m},
+                           lambda mm, ts: eager_window(mm, I0, I1, I2, ts, reuse), (ts2, ts3),
+                           gpu_line)
         torch.cuda.empty_cache()
+        _build.reset_counts()
         out_k = torch.stack(m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)[0])
         if not torch.isfinite(out_k).all():
             fail(f"{name} window {dname}: non-finite output")
@@ -867,6 +896,16 @@ def phase_window(name, dev, gpu_line):
         if not torch.isfinite(out_g).all() or mean > mean_tol or share > share_tol:
             fail(f"{name} {dname} graph vs eager: mean {mean:.3e} (tol {mean_tol:g}), "
                  f"share(>1e-2) {share:.3e} (tol {share_tol:g})")
+        launches[dname] = _build.counts()  # the kernel path's windows: eager, capture, replay
+        print(f"window {name} {dname}: kernel launches of the kernel-path window (eager and "
+              f"captured T=3, one replay, its eager pieces): {launches[dname]}")
+        if f32_timed:
+            for k in F32_ROWS:
+                if launches[dname][k] == 0:
+                    fail(f"{name} f32 window: kernel {k} was not launched")
+            time_f32_paths(name, {"kernel graphed": m},
+                           lambda mm, ts: mm.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True),
+                           (ts2, ts3), gpu_line)
         if dname == "bf16":
             runs = [("plain", plain), ("kernel", m)]
             if name != "rife":
@@ -878,6 +917,108 @@ def phase_window(name, dev, gpu_line):
         # each model's graphs hold their memory pools until the model goes
         del m, plain
         torch.cuda.empty_cache()
+    return launches
+
+
+def time_f32_paths(name, models, window, ts_pair, gpu_line):
+    """f32 windows at T = 2 and 3, each (label, model) of ``models`` through
+    ``window(model, ts)``, in turns (CUDA events). The plain path's and the
+    kernel path's eager pieces are the like-for-like pair (no f32 plain
+    graph fits beside the kernel path's) and are timed before any f32
+    graph exists; the kernel path's graph after its capture."""
+    times = {}
+    for way in [*models, *reversed(models)]:  # each twice, in turns
+        for ts in ts_pair:
+            times.setdefault((way, len(ts)), []).append(  # f32 windows take ~1 s
+                timed(lambda: window(models[way], ts), 2, warmup=1))
+    for way in models:
+        t2, t3 = (sum(times[(way, n)]) / 2 for n in (2, 3))
+        print(f"window {name} f32 1080p {way} (steady state, reuse chained): T=2 {t2:.2f} ms, "
+              f"T=3 {t3:.2f} ms, {5e3 / (t2 + t3):.2f} fps over a T=2+3 pair  [{gpu_line}]")
+
+
+def phase_f32(dev):
+    """Last, as its profile holds some 300 000 cuDNN launches: an f32 GMFSS
+    window's first capture with the allocator's history on
+    (``pool_holders``), then one replay under torch.profiler
+    (``profile_f32_replay``)."""
+    import torch
+
+    from drba_tpu_torch.pipeline import calc_ts
+    from drba_tpu_torch.utils import TMapper, to_inp
+
+    m = make_model("gmfss", dev, compute_dtype=torch.float32)
+    I0, I1, I2 = (to_inp(f, padded_size(m), torch.float32, dev) for f in synthetic_frames(3))
+    ts3 = calc_ts(0, TMapper(SRC_FPS, DST_FPS), -1)
+    reuse = m.reuse(I1, I0)
+    torch.cuda.empty_cache()
+    torch.cuda.memory._record_memory_history(max_entries=200000, stacks="python")
+    try:
+        m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)  # eager warm-up and capture
+        pool_holders("gmfss", m, torch.cuda.memory._snapshot())
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    profile_f32_replay("gmfss", lambda: m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True))
+
+
+def profile_f32_replay(name, fn):
+    """One steady-state f32 window (a graph replay) under torch.profiler:
+    its device time, its top kernels, and that every window, flash and
+    layer launch the capture recorded ran the 3xTF32 kernels."""
+    from drba_tpu_torch import _build
+
+    wall, busy, kernels = profile_call(fn)
+    _build.reset_counts()
+    fn()  # the launches a replay adds: its capture's
+    launches = _build.counts()
+    ran = {n: sum(e.count for e in kernels if f"::{n}" in e.key)
+           for n in ("attn_tf32_kernel", "flash_combine_kernel", "layer_proj_tf32_kernel",
+                     "layer_tail_tf32_kernel")}
+    print(f"profile {name} f32 graph replay T=3: wall {wall:.2f} ms, device busy {busy:.2f} ms; "
+          f"3xTF32 kernels (profiler) {ran}, the replay's recorded launches {launches}; top "
+          "device kernels:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    attn = launches["window_attention"] + launches["flash_attention"] - ran["flash_combine_kernel"]
+    if attn == 0 or ran["attn_tf32_kernel"] != attn or \
+            ran["layer_proj_tf32_kernel"] + ran["layer_tail_tf32_kernel"] != \
+            launches["transformer_layer"]:
+        fail(f"{name} f32 window: the 3xTF32 kernels ran {ran}, the replay launched {launches}")
+
+
+def pool_holders(name, m, snap):
+    """What holds model ``m``'s graph pool after its first capture, from an
+    allocator snapshot taken with the history on: the pool's segments, its
+    live and free bytes, and the allocations that grew it (cudaMalloc'd
+    segments) by the port's source line that asked for them."""
+    from drba_tpu_torch import graphs
+
+    pool = tuple(graphs.state(m).pool())
+    segs = [sg for sg in snap["segments"] if tuple(sg.get("segment_pool_id", ())) == pool]
+    total = sum(sg["total_size"] for sg in segs)
+    live = sum(b["size"] for sg in segs for b in sg["blocks"] if b["state"].startswith("active"))
+    sizes = sorted((sg["total_size"] for sg in segs), reverse=True)
+    print(f"pool {name} f32 after the T=3 capture: {len(segs)} segments, {total} bytes "
+          f"({total / 2**30:.2f} GiB): {live / 2**30:.2f} GiB live (the graph's outputs and "
+          f"buffers it keeps), {(total - live) / 2**30:.2f} GiB free inside the pool; largest "
+          f"segments (MiB) {[round(x / 2**20) for x in sizes[:12]]}")
+
+    def site(frames):  # the port's three innermost frames
+        own = [f for f in frames if "drba_tpu_torch" in f["filename"]][:3]
+        if not own:
+            return "unknown"
+        return " < ".join(f"{f['filename'].split('drba_tpu_torch/')[-1]}:{f['line']} {f['name']}"
+                          for f in own)
+
+    grown = Counter()
+    addrs = {sg["address"] for sg in segs}
+    for ev in (ev for trace in snap.get("device_traces", []) for ev in trace):
+        if ev["action"] == "segment_alloc" and ev["addr"] in addrs:
+            grown[site(ev.get("frames", []))] += ev["size"]
+    print(f"pool {name} f32: bytes of the segments each site's allocation grew it by "
+          f"(top 12 of {len(grown)}):")
+    for where, n in grown.most_common(12):
+        print(f"  {n / 2**30:7.3f} GiB  {where}")
 
 
 def time_paths(name, runs, frames, reuse, ts_pair, gpu_line):
@@ -1263,7 +1404,7 @@ def window_threads(model, devices, gpu_line):
               f"({fps[k] / fps['serial']:.3f}x), device {busy[k]:.1f} ms" for k in sides))
 
 
-def release_memory(dev) -> None:
+def release_memory(dev, before: str = "the 4K phase") -> None:
     """Free what the earlier phases left: their models (and with them their
     graph pools) are gone once collected; the cache goes back to the card."""
     import gc
@@ -1272,7 +1413,7 @@ def release_memory(dev) -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"memory before the 4K phase: {torch.cuda.memory_allocated(dev) / 2**20:.1f} MiB "
+    print(f"memory before {before}: {torch.cuda.memory_allocated(dev) / 2**20:.1f} MiB "
           f"allocated, {torch.cuda.memory_reserved(dev) / 2**20:.1f} MiB reserved")
 
 
@@ -1398,8 +1539,9 @@ def main() -> None:
     except ImportError as e:
         fail(f"cannot import drba_tpu_torch ({e}); run from the repository root")
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from drba_tpu_torch.config import full_f32_products
+
+    full_f32_products()
     dev = torch.device("cuda", 0)
     gpu_line = cmd_line(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"])
@@ -1426,8 +1568,16 @@ def main() -> None:
                         ("rife", True)):
         for k, n in phase_slice(name, dev, scdet).items():
             launches[k] += n
-    for name in ("rife", "gmfss", "gmfss_union"):
-        phase_window(name, dev, gpu_line)
+    # every bf16 window first: after an f32 window's ~300 000 cuDNN
+    # launches, a later profile has lost a kernel event
+    models = ("rife", "gmfss", "gmfss_union")
+    for name in models:
+        phase_window(name, dev, gpu_line, ("bf16",))
+    launches_f32 = {k: 0 for k in F32_ROWS}
+    for name in models:
+        counts = phase_window(name, dev, gpu_line, ("f32",))["f32"]
+        for k in launches_f32:
+            launches_f32[k] += counts[k]
     for phase in (phase_resume(dev), phase_devices(dev, gpu_line)):
         for k, n in phase.items():
             launches[k] += n
@@ -1435,6 +1585,8 @@ def main() -> None:
     for phase in (phase_uhd(dev, gpu_line), phase_gate(dev, gpu_line)):
         for k, n in phase.items():
             launches[k] += n
+    release_memory(dev, "the f32 phase")
+    phase_f32(dev)
 
     kernels = []
     for k in _build.KERNELS:
@@ -1445,6 +1597,14 @@ def main() -> None:
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": s["library_ms"],
                         "library_call": s["library_call"]})
+        if k.name in F32_ROWS:  # the f32 design: the f32 windows' launches
+            s = summary[f"{k.name}_f32"]
+            b_ms, b_by = bound_ms(s["work"])
+            kernels.append({"name": f"{k.name}_f32", "route": "cuda", "source": k.source_path,
+                            "replaces": REPLACES[k.name], "launches": launches_f32[k.name],
+                            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                            "plain_ms": s["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": s["library_ms"], "library_call": s["library_call"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,18 @@ memory rate, and its operations over the peak rate of their type. Where the
 work depends on the data (masked attention, the pixels a warp samples), the
 caller passes what this run's data needs. Rates are NVIDIA's H100 SXM data
 sheet (dense, at the full 700 W power limit): 3.35 TB/s, 989 TFLOP/s in bf16
-on the tensor cores, 67 TFLOP/s in f32 on the FMA pipes. Operations on
-different units may overlap, so the operation time is the largest of the
-per-type times. Softmax exponentials, norms and other elementwise work are
+on the tensor cores, 494.7 TFLOP/s in TF32 on the tensor cores, 67 TFLOP/s
+in f32 on the FMA pipes. Operations on different units may overlap, so the
+operation time is the largest of the per-type times.
+
+An f32 matrix product (attention's products, the transformer layer, the
+3x3 conv) counts as ``"tf32x3"``: three TF32 tensor-core products per f32
+product (each operand split into a TF32 hi and lo part, a b = ah bh + ah bl +
+al bh), the least time the card takes for products that keep f32's accuracy:
+3 x 2 MACs / 494.7 TFLOP/s, about 2.5x faster than the 67 TFLOP/s FMA pipes,
+where one TF32 product alone would lose three decimal digits. The ``"f32"``
+FMA pipes stay for the splat's and warp's arithmetic and flash's 2-wide
+P v, which no matrix unit runs. Softmax exponentials, norms and other elementwise work are
 not counted (their units' rates are not in the data sheet).
 
 Every function is pure in its arguments; ``chip_smoke.py`` sums them over the
@@ -23,13 +32,16 @@ import numpy as np
 import torch
 
 MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+TF32_OPS_PER_S = 494.7e12
+# "tf32x3" counts f32 operations; each costs three TF32 operations
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32x3": TF32_OPS_PER_S / 3, "f32": 67e12}
 C = 128  # the attention kernels' head width
 
 
 @dataclass(frozen=True)
 class Work:
-    """Bytes moved and operations by type ("bf16" tensor-core, "f32" FMA)."""
+    """Bytes moved and operations by type ("bf16" and "tf32x3" tensor-core,
+    "f32" FMA)."""
 
     bytes: float
     ops: dict = field(default_factory=dict)
@@ -48,8 +60,9 @@ def bound_ms(w: Work) -> tuple[float, str]:
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
-def _pipe(itemsize: int) -> str:
-    return "bf16" if itemsize == 2 else "f32"
+def _mma(itemsize: int) -> str:
+    """The operation type of a matrix product in ``itemsize``-byte values."""
+    return "bf16" if itemsize == 2 else "tf32x3"
 
 
 def live_pairs(labels) -> int:
@@ -70,7 +83,8 @@ def attention_work(n_windows: int, L: int, itemsize: int, value_width: int = C,
 
     q, k and out are 128 wide in ``itemsize`` bytes; the value is 128 wide
     in the same type, or (``value_width`` 2, flash) f32 in and out, with
-    P v on the FMA pipes. ``pairs``: live (query, key) pairs (default every
+    P v on the FMA pipes. The products are tensor-core work in bf16 and
+    ``"tf32x3"`` in f32. ``pairs``: live (query, key) pairs (default every
     pair); each costs 2 * 128 operations for q k^T and 2 * value_width for
     P v. ``labels``: the int32 region ids read. ``qkv_bytes`` replaces the
     q, k, v bytes where they are read from a wider map.
@@ -79,10 +93,10 @@ def attention_work(n_windows: int, L: int, itemsize: int, value_width: int = C,
     pairs = n_windows * L * L if pairs is None else pairs
     if value_width == C:
         v_bytes = out_bytes = tokens * C * itemsize
-        ops = {_pipe(itemsize): 2.0 * pairs * (C + C)}
+        ops = {_mma(itemsize): 2.0 * pairs * (C + C)}
     else:
         v_bytes = out_bytes = tokens * value_width * 4
-        ops = {_pipe(itemsize): 2.0 * pairs * C}
+        ops = {_mma(itemsize): 2.0 * pairs * C}
         ops["f32"] = ops.get("f32", 0.0) + 2.0 * pairs * value_width
     if qkv_bytes is None:
         qkv_bytes = 2 * tokens * C * itemsize + v_bytes
@@ -103,7 +117,7 @@ def layer_work(b: int, h: int, w: int, k_splits: int, itemsize: int, hidden: int
     norms = (2 + (2 if hidden else 0)) * C * 4
     moved = tokens * C * itemsize * (3 if cross else 2) + weights + norms
     macs = tokens * (C * 3 * C + C * C + 2 * C * hidden + hidden * C) + pairs * 2 * C
-    return Work(moved + 4 * labels, {_pipe(itemsize): 2.0 * macs})
+    return Work(moved + 4 * labels, {_mma(itemsize): 2.0 * macs})
 
 
 def warp_work(n: int, h: int, w: int, c: int, k: int, itemsize: int,
@@ -143,7 +157,7 @@ def conv3x3_work(n: int, h: int, w: int, cin: int, cout: int, itemsize: int,
     no tensor-core work: the operations are the conv's."""
     params = (cout * cin * 9 + cout * (2 if beta else 1) + (1 if alpha else 0)) * itemsize
     moved = n * h * w * (cin + cout * (2 if res else 1)) * itemsize + params
-    return Work(moved, {_pipe(itemsize): 2.0 * 9 * cin * cout * n * h * w})
+    return Work(moved, {_mma(itemsize): 2.0 * 9 * cin * cout * n * h * w})
 
 
 def splat_work(n: int, h: int, w: int, c: int, itemsize: int, flow_itemsize: int,

@@ -19,7 +19,7 @@ import os
 
 import torch
 
-from drba_tpu_torch.config import BACKENDS, Config, model_device
+from drba_tpu_torch.config import BACKENDS, Config, full_f32_products, model_device
 from drba_tpu_torch.parallel.mesh import make_devices
 from drba_tpu_torch.pipeline import run_pipeline
 from drba_tpu_torch.utils.log import get_logger
@@ -49,7 +49,8 @@ def parse_args(argv=None):
     p.add_argument("--weights", dest="weights", default="weights",
                    help="weights root directory (train_log_* subdirs)")
     p.add_argument("--fp32", dest="fp32", action="store_true",
-                   help="compute in float32 instead of bfloat16")
+                   help="compute in float32 instead of bfloat16 (cuDNN and matmuls in full "
+                        "f32, TF32 off)")
     p.add_argument("--exact-drm", dest="exact_drm", action="store_true",
                    help="DRM alignment splats at full resolution (default: half)")
     p.add_argument("--strict", dest="strict", action="store_true",
@@ -107,6 +108,7 @@ def main(argv=None):
     from tqdm import tqdm
 
     log = get_logger("drba_tpu_torch.cli")
+    full_f32_products()  # --fp32: cuDNN's convolutions in f32, not TF32
     config = Config(compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,
                     flow_scale=args.scale, scdet_threshold=args.scdet_threshold,
                     drm_splat_scale=1.0 if args.exact_drm else 0.5,

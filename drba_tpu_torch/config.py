@@ -64,6 +64,19 @@ F32 = Config(compute_dtype=torch.float32)
 DEFAULT = Config()
 
 
+def full_f32_products() -> None:
+    """Make PyTorch's float32 convolutions and matrix products run in full
+    f32: cuDNN runs a float32 convolution in TF32 by default
+    (``torch.backends.cudnn.allow_tf32`` is True), which keeps about three
+    decimal digits. The port's f32 (``--fp32``) is the arithmetic its parity
+    tests hold against drba_tpu on the CPU, so the entry points set both
+    flags False before they build a model (bf16 work is not affected). The
+    hand-written kernels' f32 products are f32-accurate either way (3xTF32,
+    csrc/tf32.cuh)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def model_device(device: str | torch.device) -> torch.device:
     """The device a model runs on. The models and the CLI default to CUDA;
     asking for CUDA where PyTorch sees none, or for a card index it does not

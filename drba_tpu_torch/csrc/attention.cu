@@ -62,13 +62,22 @@
 //    at B = 1 has only 64 query blocks, so the wrapper splits the keys over
 //    up to 8 blocks each (flash-decoding): each writes its partial
 //    (m, l, acc) to scratch and a second launch combines them.
-// f32: every product on the FMA pipes, one warp per 16 query rows, the
-// scores and probabilities through shared memory (TF32 would break the f32
-// parity with the plain version).
+// f32 (--fp32): the same block of 128 query rows and key loop, with S = Q K^T
+// and the 128-wide P V on the tensor cores in 3xTF32 (tf32.cuh: mma.sync
+// m16n8k8, each operand split into a TF32 hi and lo, three products each),
+// which keeps the f32 parity with the plain version that one TF32 product
+// would break. The f32 tiles are twice bf16's: Q (68 KB with its padding)
+// and two K/V stages (2 x 67 KB) fill 203 KB, one block an SM of eight warps
+// of 16 query rows. Bound at the 1080p scale-0 window, 3 x 17.0 GFLOP ->
+// 103 us at 495 TFLOP/s TF32; mma.sync reaches a smaller share of that than
+// wgmma, and the split costs two ALU operations per operand element loaded
+// (K's and V's in every warp): see tf32.cuh for why not wgmma. Flash
+// splits its keys as bf16 does.
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -78,12 +87,9 @@ using namespace drba;
 constexpr int kC = 128;       // head width
 constexpr int kQT = 64;       // queries per block
 constexpr int kKT = 64;       // keys per tile
-constexpr int kThreads = 128; // f32 kernel: 4 warps of 16 query rows
 constexpr int kWG = 2;        // bf16 kernel: consumer warpgroups per block, 64 query rows each
-constexpr int kWgThreadsAll = 128 * kWG;
-constexpr int kRowsWG = kQT * kWG;  // bf16 kernel: query rows per block
-constexpr int kLdf = kC + 4;  // f32 row stride of q/k/v tiles and the accumulator (f32)
-constexpr int kLds = kKT + 4; // f32 row stride of the score tile (f32)
+constexpr int kWgThreadsAll = 128 * kWG;  // threads of either kernel
+constexpr int kRowsWG = kQT * kWG;  // query rows per block (f32: eight warps of 16)
 constexpr float kNegInit = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -101,7 +107,7 @@ struct Geom {
   float inv_ww;  // 1 / ww
 };
 
-// Key split of the bf16 kernel: block z walks key tiles [z * tiles, (z + 1) *
+// Key split: block z walks key tiles [z * tiles, (z + 1) *
 // tiles); with part set it writes its partial (m, l, acc0, acc1) per query
 // row to part[z][row] instead of the output.
 struct Split {
@@ -425,203 +431,210 @@ __global__ void flash_combine_kernel(const float4* part, float* out, int rows, i
   out[2 * t + 1] = a1 / l;
 }
 
-// --------------------------------------------------------------------- f32: FMA
+// ---------------------------------------------------------------- f32: 3xTF32
 
-// rows [i0, i0 + 64) of a window (128 channels of f32 each) into shared
-// memory with row stride ld; rows past L are zero
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int stride,
-                                          const Geom& g, const Window& win, int bb, int i0) {
-  constexpr int kPerRow = kC / 4;
-  for (int e = threadIdx.x; e < 64 * kPerRow; e += kThreads) {
-    const int r = e / kPerRow, c = (e % kPerRow) * 4;
-    const int i = i0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < g.L) val = *reinterpret_cast<const float4*>(src + token(g, win, bb, i) * stride + c);
-    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Shared memory of one block of the f32 kernel; VW the value width (128 or 2).
+// Shared memory of the f32 kernel (offsets in bytes): Q (kRowsWG rows), K[2],
+// V[2], key labels[2], query labels; one f32 copy of each tile, split in
+// registers (tf32.cuh). Row pitches keep the fragment loads free of bank
+// conflicts: Q and K rows are read as float2 at column 8 kk + 2 t of row g
+// (pitch 136 floats: banks 8 g + 2 t), V as scalars at rows 2 t and 2 t + 1,
+// column 8 nt + g (pitch 132: banks 8 t + g).
+constexpr int kLdQK = kC + 8;
+constexpr int kLdV = kC + 4;
 template <int VW>
-struct Smem {
-  static constexpr int kTile = 64 * kLdf * 4;
-  static constexpr int kV = VW == kC ? kTile : 64 * 2 * 4;
-  static constexpr int kS = kQT * kLds * 4;
-  static constexpr int kBytes = 2 * kTile + kV + kS + 2 * 64 * 4;
+struct F32Smem {
+  static constexpr int kQ = 0;
+  static constexpr int kKBytes = kKT * kLdQK * 4;
+  static constexpr int kVBytes = VW == kC ? kKT * kLdV * 4 : kKT * 2 * 4;
+  static constexpr int kK = kRowsWG * kLdQK * 4;  // + stage * kKBytes
+  static constexpr int kVal = kK + 2 * kKBytes;   // + stage * kVBytes
+  static constexpr int kKLab = kVal + 2 * kVBytes;
+  static constexpr int kQLab = kKLab + 2 * kKT * 4;
+  static constexpr int kBytes = kQLab + kRowsWG * 4;
 };
 
-// Per-row online-softmax update over one key tile, for the 16 rows of this
-// warp. Reads the raw scores of the tile from s (row stride kLds), returns
-// the row maxima and sums in m/l (identical in every lane), and
-//  * VW == 128: writes P back into s and the rescale factors into corr;
-//  * VW == 2: folds P v into acc (identical in every lane).
-template <int VW>
-__device__ __forceinline__ void softmax_tile(const Geom& g, float* s, const int* qlab,
-                                             const int* klab, const float* v2, int k0,
-                                             float (&m)[16], float (&l)[16], float (&corr)[16],
-                                             float (&acc)[16][2]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
-    float sv[2];
-    bool live[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int j = lane + 32 * hh;
-      live[hh] = k0 + j < g.L && (g.labels == nullptr || klab[j] == qlab[r]);
-      sv[hh] = s[r * kLds + j] * g.scale;
-    }
-    const float mx = warp_max(fmaxf(live[0] ? sv[0] : kNegInit, live[1] ? sv[1] : kNegInit));
-    const float m_new = fmaxf(m[rr], mx);
-    const float p0 = live[0] ? expf(sv[0] - m_new) : 0.f;
-    const float p1 = live[1] ? expf(sv[1] - m_new) : 0.f;
-    corr[rr] = expf(m[rr] - m_new);
-    m[rr] = m_new;
-    l[rr] = l[rr] * corr[rr] + warp_sum(p0 + p1);
-    if constexpr (VW == kC) {
-      s[r * kLds + lane] = p0;
-      s[r * kLds + lane + 32] = p1;
-    } else {
-      const float a0 = warp_sum(p0 * v2[2 * lane] + p1 * v2[2 * (lane + 32)]);
-      const float a1 = warp_sum(p0 * v2[2 * lane + 1] + p1 * v2[2 * (lane + 32) + 1]);
-      acc[rr][0] = acc[rr][0] * corr[rr] + a0;
-      acc[rr][1] = acc[rr][1] * corr[rr] + a1;
-    }
+// rows [i0, i0 + rows) of a window (128 f32 channels each) into shared
+// memory rows `pitch` bytes apart by cp.async; rows past L are zero
+__device__ __forceinline__ void load_rows_f32(uint32_t dst, int pitch, const float* src,
+                                              int stride, int rows, const Geom& g,
+                                              const Window& win, int bb, int i0) {
+  const int cc = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += kWgThreadsAll / 32) {
+    const bool ok = i0 + r < g.L;
+    const long long t = ok ? token(g, win, bb, i0 + r) : 0;
+    cp_async<16>(dst + r * pitch + cc * 16, src + t * stride + cc * 4, ok);
   }
 }
 
-// keys, values and key labels of tile k0 into shared memory
+// keys, values and key labels of the tile at key k0 into ring stage st
 template <int VW>
-__device__ __forceinline__ void load_kv(const Geom& g, const Window& win, float* sK, float* sV,
-                                        int* klab, int k0) {
-  load_rows(sK, kLdf, static_cast<const float*>(g.k), g.k_stride, g, win, win.bkv, k0);
+__device__ __forceinline__ void load_kv_f32(const Geom& g, const Window& win, uint32_t base,
+                                            int st, int k0) {
+  using SM = F32Smem<VW>;
+  load_rows_f32(base + SM::kK + st * SM::kKBytes, kLdQK * 4, static_cast<const float*>(g.k),
+                g.k_stride, kKT, g, win, win.bkv, k0);
+  const int t = threadIdx.x;
+  const float* v = static_cast<const float*>(g.v);
   if constexpr (VW == kC) {
-    load_rows(sV, kLdf, static_cast<const float*>(g.v), g.v_stride, g, win, win.bkv, k0);
-  } else {
-    const float* v = static_cast<const float*>(g.v);
-    for (int e = threadIdx.x; e < 64 * 2; e += kThreads) {
-      const int i = k0 + e / 2;
-      sV[e] = i < g.L ? v[token(g, win, win.bkv, i) * g.v_stride + e % 2] : 0.f;
-    }
+    load_rows_f32(base + SM::kVal + st * SM::kVBytes, kLdV * 4, v, g.v_stride, kKT, g, win,
+                  win.bkv, k0);
+  } else if (t < kKT) {
+    const bool ok = k0 + t < g.L;
+    cp_async<8>(base + SM::kVal + st * SM::kVBytes + t * 8,
+                v + (ok ? token(g, win, win.bkv, k0 + t) * g.v_stride : 0), ok);
   }
-  if (g.labels != nullptr && threadIdx.x < kKT)
-    klab[threadIdx.x] = k0 + threadIdx.x < g.L ? win.lab[k0 + threadIdx.x] : -1;
+  if (g.labels != nullptr && t >= kWgThreadsAll - kKT) {
+    const int j = t - (kWgThreadsAll - kKT);
+    const bool ok = k0 + j < g.L;
+    cp_async<4>(base + SM::kKLab + st * kKT * 4 + j * 4, win.lab + (ok ? k0 + j : 0), ok);
+  }
 }
 
+// One block: eight warps of 16 query rows (warp w: rows [q0 + 16 w, +16)
+// of window blockIdx.x, q0 = blockIdx.y * 128) against key tiles [z tiles,
+// (z + 1) tiles) of that window, z = blockIdx.z; the K/V ring is shared.
+// Lane 4 g + t holds rows 16 w + g and 16 w + g + 8; S, P and O lie in the
+// accumulator layout of attn_wgmma_kernel, so softmax_regs serves both.
+//  * S = Q K^T: 16 k-steps of 8 channels x 8 key tiles of m16n8k8, each a
+//    3xTF32 product; Q's fragment is split once per k-step, K's per use.
+//  * O += P V (128-wide value): P's accumulator tile over 8 keys is the A
+//    fragment of those keys ({c0, c2, c1, c3}, with k relabelled as in
+//    tf32.cuh), and V's B fragment is V[key 8 j + 2 t][col], V[8 j + 2 t
+//    + 1][col]: keys stay in their rows, no transposed copy.
+//  * The 2-wide value (flash) stays on the FMA pipes, as in bf16.
 template <int VW>
-__global__ void __launch_bounds__(kThreads) attn_fma_kernel(Geom g) {
-  using SM = Smem<VW>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sK = reinterpret_cast<float*>(smem + SM::kTile);
-  float* sV = reinterpret_cast<float*>(smem + 2 * SM::kTile);
-  float* sS = reinterpret_cast<float*>(smem + 2 * SM::kTile + SM::kV);
-  int* qlab = reinterpret_cast<int*>(smem + 2 * SM::kTile + SM::kV + SM::kS);
-  int* klab = qlab + 64;
+__global__ void __launch_bounds__(kWgThreadsAll, 1) attn_tf32_kernel(Geom g, Split sp) {
+  using SM = F32Smem<VW>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const int* qlab = reinterpret_cast<const int*>(smem + SM::kQLab);
+  const float* sQ = reinterpret_cast<const float*>(smem + SM::kQ);
 
   const Window win = window_of(g);
-  const int q0 = blockIdx.y * kQT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rs = lane >> 1, half = lane & 1;  // score phase: row rs, columns half + 2i
+  const int q0 = blockIdx.y * kRowsWG;
+  const int nkt = (g.L + kKT - 1) / kKT;
+  const int kt0 = blockIdx.z * sp.tiles, kt1 = min(nkt, kt0 + sp.tiles);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g4 = lane >> 2, col = 2 * (lane & 3);
+  const int r0 = (tid >> 5) * 16 + g4;
 
-  load_rows(sQ, kLdf, static_cast<const float*>(g.q), g.q_stride, g, win, win.bq, q0);
-  if (g.labels != nullptr && threadIdx.x < kQT)
-    qlab[threadIdx.x] = q0 + threadIdx.x < g.L ? win.lab[q0 + threadIdx.x] : -2;
-
-  float m[16], l[16], corr[16], acc[16][2];
-  float4 o[VW == kC ? 16 : 1];  // this lane's 4 columns of the warp's 16 rows
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    m[rr] = kNegInit;
-    l[rr] = 0.f;
-    acc[rr][0] = acc[rr][1] = 0.f;
+  load_rows_f32(base + SM::kQ, kLdQK * 4, static_cast<const float*>(g.q), g.q_stride, kRowsWG,
+                g, win, win.bq, q0);
+  if (g.labels != nullptr && tid < kRowsWG) {
+    const bool ok = q0 + tid < g.L;
+    cp_async<4>(base + SM::kQLab + tid * 4, win.lab + (ok ? q0 + tid : 0), ok);
   }
-#pragma unroll
-  for (int rr = 0; rr < (VW == kC ? 16 : 1); ++rr) o[rr] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (kt0 < kt1) load_kv_f32<VW>(g, win, base, 0, kt0 * kKT);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < g.L; k0 += kKT) {
-    __syncthreads();
-    load_kv<VW>(g, win, sK, sV, klab, k0);
+  constexpr int kAcc = VW == kC ? 64 : 4;  // O, or the 2-wide sums of rows r0 and r0 + 8
+  float o[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
+  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f};
+  const float sl2 = g.scale * kLog2e;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    if (kt + 1 < kt1) load_kv_f32<VW>(g, win, base, st ^ 1, (kt + 1) * kKT);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt (and Q) have landed
     __syncthreads();
 
-    {
-      float s[32];
+    const float* sK = reinterpret_cast<const float*>(smem + SM::kK + st * SM::kKBytes);
+    float s[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
-      const float* qrow = sQ + (warp * 16 + rs) * kLdf;
-      for (int c = 0; c < kC; c += 4) {
-        const float4 qv = *reinterpret_cast<const float4*>(qrow + c);
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < kC / 8; ++kk) {
+      const FragA a(*reinterpret_cast<const float2*>(sQ + r0 * kLdQK + 8 * kk + col),
+                    *reinterpret_cast<const float2*>(sQ + (r0 + 8) * kLdQK + 8 * kk + col));
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const float4 kv = *reinterpret_cast<const float4*>(sK + (half + 2 * i) * kLdf + c);
-          s[i] = fmaf(qv.x, kv.x, s[i]);
-          s[i] = fmaf(qv.y, kv.y, s[i]);
-          s[i] = fmaf(qv.z, kv.z, s[i]);
-          s[i] = fmaf(qv.w, kv.w, s[i]);
-        }
+      for (int nt = 0; nt < kKT / 8; ++nt) {
+        const float2 b =
+            *reinterpret_cast<const float2*>(sK + (8 * nt + g4) * kLdQK + 8 * kk + col);
+        mma_3xtf32(DRBA_ACC4(s, nt), a, b.x, b.y);
       }
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sS[(warp * 16 + rs) * kLds + half + 2 * i] = s[i];
     }
-    __syncwarp();
-    softmax_tile<VW>(g, sS, qlab, klab, sV, k0, m, l, corr, acc);
+
+    const int lim = g.L - kt * kKT;
+    float corr[2];
+    if (g.labels == nullptr && lim >= kKT) {
+      softmax_regs<false>(s, m, l, corr, sl2, lim, col, nullptr, 0, 0);
+    } else {
+      const int* klab = g.labels == nullptr
+                            ? nullptr
+                            : reinterpret_cast<const int*>(smem + SM::kKLab + st * kKT * 4);
+      softmax_regs<true>(s, m, l, corr, sl2, lim, col, klab, klab ? qlab[r0] : 0,
+                         klab ? qlab[r0 + 8] : 0);
+    }
+
     if constexpr (VW == kC) {
-      __syncwarp();
+      const float* sV = reinterpret_cast<const float*>(smem + SM::kVal + st * SM::kVBytes);
 #pragma unroll
-      for (int rr = 0; rr < 16; ++rr) {
-        o[rr].x *= corr[rr];
-        o[rr].y *= corr[rr];
-        o[rr].z *= corr[rr];
-        o[rr].w *= corr[rr];
-      }
-      for (int j = 0; j < kKT; ++j) {
-        const float4 vv = reinterpret_cast<const float4*>(sV + j * kLdf)[lane];
+      for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll 2
+      for (int j = 0; j < kKT / 8; ++j) {
+        const FragA a(s[4 * j], s[4 * j + 2], s[4 * j + 1], s[4 * j + 3]);
+        const float* v0 = sV + (8 * j + col) * kLdV + g4;  // key 8 j + 2 t, column g
 #pragma unroll
-        for (int rr = 0; rr < 16; ++rr) {
-          const float p = sS[(warp * 16 + rr) * kLds + j];
-          o[rr].x = fmaf(p, vv.x, o[rr].x);
-          o[rr].y = fmaf(p, vv.y, o[rr].y);
-          o[rr].z = fmaf(p, vv.z, o[rr].z);
-          o[rr].w = fmaf(p, vv.w, o[rr].w);
-        }
+        for (int nt = 0; nt < kC / 8; ++nt)
+          mma_3xtf32(DRBA_ACC4(o, nt), a, v0[8 * nt], v0[kLdV + 8 * nt]);
       }
-      __syncwarp();
+    } else {
+      const float2* v2 = reinterpret_cast<const float2*>(smem + SM::kVal + st * SM::kVBytes);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[i] *= corr[i >> 1];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const float2 vv = v2[8 * (i >> 2) + col + (i & 1)];
+        o[2 * h] = fmaf(s[i], vv.x, o[2 * h]);
+        o[2 * h + 1] = fmaf(s[i], vv.y, o[2 * h + 1]);
+      }
     }
+    __syncthreads();  // stage st is free for the load of tile kt + 2
   }
+  cp_async_wait<0>();
 
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
   if constexpr (VW == kC) {
     float* out = static_cast<float*>(g.out);
 #pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int i = q0 + warp * 16 + rr;
+    for (int h = 0; h < 2; ++h) {
+      const int i = q0 + r0 + 8 * h;
       if (i >= g.L) continue;
-      const float inv = 1.f / l[rr];
-      reinterpret_cast<float4*>(out + token(g, win, win.bq, i) * g.o_stride)[lane] =
-          make_float4(o[rr].x * inv, o[rr].y * inv, o[rr].z * inv, o[rr].w * inv);
+      float* row = out + token(g, win, win.bq, i) * g.o_stride + col;
+      const float inv = 1.f / l[h];
+#pragma unroll
+      for (int nt = 0; nt < kC / 8; ++nt)
+        *reinterpret_cast<float2*>(row + 8 * nt) =
+            make_float2(o[4 * nt + 2 * h] * inv, o[4 * nt + 2 * h + 1] * inv);
     }
   } else {
-    // lane rr writes row rr of this warp's 16
-    float* out = static_cast<float*>(g.out);
 #pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int i = q0 + warp * 16 + rr;
-      if (lane == rr && i < g.L) {
-        const long long t = token(g, win, win.bq, i) * g.o_stride;
-        out[t] = acc[rr][0] / l[rr];
-        out[t + 1] = acc[rr][1] / l[rr];
+    for (int i = 0; i < 4; ++i) {
+      o[i] += __shfl_xor_sync(0xffffffffu, o[i], 1);
+      o[i] += __shfl_xor_sync(0xffffffffu, o[i], 2);
+    }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = q0 + r0 + 8 * h;
+        if (i >= g.L) continue;
+        const long long t = token(g, win, win.bq, i);
+        if (sp.part != nullptr) {
+          const long long rows = static_cast<long long>(g.b) * g.h * g.w;
+          sp.part[blockIdx.z * rows + t] = make_float4(m[h], l[h], o[2 * h], o[2 * h + 1]);
+        } else {
+          float* out = static_cast<float*>(g.out) + t * g.o_stride;
+          out[0] = o[2 * h] / l[h];
+          out[1] = o[2 * h + 1] / l[h];
+        }
       }
     }
   }
@@ -664,21 +677,22 @@ extern "C" int drba_window_attention(const void* q, const void* k, const void* v
     return launch(attn_wgmma_kernel<kC>, kWgThreadsAll, kRowsWG, WgSmem<kC>::kBytes, 1, g, s,
                   Split{nullptr, static_cast<int>(drba::cdiv(g.L, kKT))});
   if (dtype == drba::kF32)
-    return launch(attn_fma_kernel<kC>, kThreads, kQT, Smem<kC>::kBytes, 1, g, s);
+    return launch(attn_tf32_kernel<kC>, kWgThreadsAll, kRowsWG, F32Smem<kC>::kBytes, 1, g, s,
+                  Split{nullptr, static_cast<int>(drba::cdiv(g.L, kKT))});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Flash attention with a 2-wide f32 value: q/k (b, L, 128) contiguous in one
 // dtype (f32|bf16), v (b, L, 2) f32 (8-byte aligned), out (b, L, 2) f32;
-// labels (b, L) int32 or NULL. bf16 with n_split > 1 splits the keys into
-// n_split runs of cdiv(cdiv(L, 64), n_split) tiles and writes the partials
-// to part (n_split * b * L float4, 16-byte aligned) for drba_flash_combine;
-// f32 takes n_split = 1. Returns cudaGetLastError().
+// labels (b, L) int32 or NULL. n_split > 1 splits the keys into n_split
+// runs of cdiv(cdiv(L, 64), n_split) tiles and writes the partials to part
+// (n_split * b * L float4, 16-byte aligned) for drba_flash_combine. Returns
+// cudaGetLastError().
 extern "C" int drba_flash_attention(const void* q, const void* k, const void* v, void* out,
                                     const int* labels, int b, int L, int dtype, void* part,
                                     int n_split, void* stream) {
   if (b == 0 || L == 0) return 0;
-  if (n_split < 1 || (n_split > 1 && (part == nullptr || dtype != drba::kBF16)))
+  if (n_split < 1 || (n_split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // every split gets at least one key tile
   const int tiles = static_cast<int>(drba::cdiv(drba::cdiv(L, kKT), n_split));
@@ -691,7 +705,8 @@ extern "C" int drba_flash_attention(const void* q, const void* k, const void* v,
     return launch(attn_wgmma_kernel<2>, kWgThreadsAll, kRowsWG, WgSmem<2>::kBytes, n_split, g,
                   s, Split{n_split > 1 ? static_cast<float4*>(part) : nullptr, tiles});
   if (dtype == drba::kF32)
-    return launch(attn_fma_kernel<2>, kThreads, kQT, Smem<2>::kBytes, 1, g, s);
+    return launch(attn_tf32_kernel<2>, kWgThreadsAll, kRowsWG, F32Smem<2>::kBytes, n_split, g,
+                  s, Split{n_split > 1 ? static_cast<float4*>(part) : nullptr, tiles});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -20,14 +20,15 @@
 // rounded once. GELU is 0.5 x erfc(-x sqrt(1/2)) with CUDA's erfcf and
 // jax.nn.gelu's rounding points in T (argument, erfc, 0.5 x, product).
 //
-// Weights come packed once per model (ops/attn_layer.pack_layer_weights), a
-// (K, N) weight stored (in, out) as N/64 slabs of K rows of 64 columns, the
+// bf16 weights come packed once per model (ops/attn_layer.pack_layer_weights),
+// a (K, N) weight stored (in, out) as N/64 slabs of K rows of 64 columns, the
 // 8-element groups of row k XOR-permuted by k % 8: element (k, n) at
 // ((n / 64) K + k) 64 + (((n % 64) / 8) ^ (k % 8)) 8 + n % 8. In bf16 that
 // is wgmma's MN-major B operand with the 128-byte swizzle, byte for byte,
 // so a weight block reaches shared memory by a linear copy. q|k|v is one
 // (128, 384) weight; the FFN is hidden / 64 chunks of [W0[:, 64 j .. +64]
-// (256 x 64) | W2[64 j .. +64, :] (64 x 128)], 48 KB each in bf16.
+// (256 x 64) | W2[64 j .. +64, :] (64 x 128)], 48 KB each in bf16. f32
+// weights come split in fragment order (see the f32 section).
 //
 // bf16 (the main path), on wgmma. One block = two consumer warpgroups of 64
 // tokens, a 128-token tile; the grid is persistent (a block walks tiles).
@@ -54,13 +55,20 @@
 //    values, which removed most of the GELU's FP32 work, moved it by 2%;
 //    the stream is the likely bound. Larger token tiles per block, or
 //    cluster multicast of the chunks, would cut it.
-// f32: every product on the FMA pipes (64-token tiles, 256 threads, the
-// intermediates in shared memory), reading the same packed weights.
+// f32 (--fp32): every product on the tensor cores in 3xTF32 (tf32.cuh:
+// mma.sync, f32-accurate), 128-token tiles of eight warps, the weights packed
+// split in fragment order and streamed through a three-stage ring (see the
+// f32 section below). Bound: the scale-1 cross layer's projection, merge and
+// FFN, 3 x 120 GFLOP -> 0.73 ms at 495 TFLOP/s TF32; the FFN's 3 MB of
+// split weights per 128 tokens, 3.2 GB from L2 over 130560 tokens, is the
+// other limit. One f32 tile is 68 KB and a chunk 48 KB, so shared memory
+// (212 KB: the x tile and three chunk stages) holds one block an SM.
 
 #include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -378,162 +386,259 @@ layer_tail_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ av,
   }
 }
 
-// --------------------------------------------------------------------- f32: FMA
+// ---------------------------------------------------------------- f32: 3xTF32
 
-constexpr int kRowsF = 64;     // tokens per block
-constexpr int kLdf = kC + 4;   // f32 row stride in shared memory
+// The f32 weights come packed and split once per model
+// (ops/attn_layer.pack_frags), in the m16n8k8 B-fragment order of
+// tf32.cuh: a (K, N) weight is K/8 k-steps x N/8 column tiles x 32 lanes
+// of float4 (hi b0, hi b1, lo b0, lo b1), lane 4 g + t holding rows
+// 8 kk + 2 t and 8 kk + 2 t + 1 of column 8 nt + g: one 16-byte shared
+// load a lane per fragment, no split in the kernel. q|k|v is three such
+// (128, 128) weights; the FFN is hidden / 16 chunks of [W0[:, 16 j .. +16]
+// | W2[16 j .. +16, :]], 48 KB each.
+//
+// One block = eight warps of 16 tokens (a 128-token tile); each warp
+// keeps its rows' 128 output columns in registers (the accumulator layout
+// of the bf16 kernels' warps). The weights stream through a three-stage
+// cp.async ring shared by the eight warps (item i + 2 lands while item i
+// is multiplied): per 128 tokens the tail reads its 128 KB merge weight
+// and 3 MB of FFN chunks from L2, the projection its 384 KB. The A operands
+// are split in registers: the layer input from a shared tile, the attention
+// output from device memory straight into fragments, the normalised
+// message and each GELU'd hidden chunk from their accumulators ({c0, c2,
+// c1, c3}, the packing relabels k to match).
 
-// rows [r0, r0 + 64) of a contiguous (M, 128) f32 array into shared memory;
-// rows past M are zero
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long r0,
-                                              long long M) {
-  for (int e = threadIdx.x; e < kRowsF * kC / 4; e += kThreads) {
-    const int r = e / (kC / 4), c = (e % (kC / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < M) val = *reinterpret_cast<const float4*>(src + (r0 + r) * kC + c);
-    *reinterpret_cast<float4*>(dst + r * kLdf + c) = val;
+constexpr int kRowsT = 128;                           // tokens per block
+constexpr int kLdX = kC + 8;                          // f32 pitch of the x tile
+constexpr int kHT = 16;                               // hidden columns per f32 FFN chunk
+constexpr int kFrag = 32;                             // float4s of one fragment block
+constexpr int kItemT = 4 * (kC / 8) * kFrag * 16;     // 4 k-steps of a (128, 128) weight: 32 KB
+constexpr int kChunkT = (2 * kC * kHT + kHT * kC) * 8;  // one FFN chunk: 48 KB
+constexpr int kNStages = 3;
+
+// LayerNorm of each row of a warp's 16 x 128 accumulator in place (rows in
+// quads, as layer_norm_acc), f32 gamma and beta
+__device__ __forceinline__ void layer_norm_f32(float (&d)[64], const float* gamma,
+                                               const float* beta, int col) {
+  float mu[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mu[(i >> 1) & 1] += d[i];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mu[h] += __shfl_xor_sync(0xffffffffu, mu[h], 1);
+    mu[h] += __shfl_xor_sync(0xffffffffu, mu[h], 2);
+    mu[h] /= kC;
   }
-}
-
-// C (64 x 128 f32 in shared memory, stride kLdf) = [C +] A . B, with A the
-// 64 x K tile [A0 | A1] (each 64 x 128, stride kLdf; A1 only when K == 256)
-// and B packed: row k of its 64-column slab h starts at rows(k, h). Thread
-// t computes rows 4 (t / 16) .. +4, columns 4 (t % 16) .. +4 of each slab.
-template <typename Rows>
-__device__ __forceinline__ void tile_gemm_f32(const float* A0, const float* A1, Rows rows, int K,
-                                              float* C, bool accumulate) {
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
-  float acc[4][8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int i = 0; i < 64; ++i) {
+    d[i] -= mu[(i >> 1) & 1];
+    q[(i >> 1) & 1] += d[i] * d[i];
+  }
+  float inv[2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[r][j] = accumulate ? C[(4 * rg + r) * kLdf + (j >> 2) * 64 + 4 * cg + (j & 3)] : 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float* A = k < kC ? A0 + k : A1 + (k - kC);
-    // columns 4 cg .. +4 of a packed row: group cg / 2, XOR-permuted by k % 8
-    const int e = (((cg >> 1) ^ (k & 7)) << 3) + 4 * (cg & 1);
-    const float4 b0 = __ldg(reinterpret_cast<const float4*>(rows(k, 0) + e));
-    const float4 b1 = __ldg(reinterpret_cast<const float4*>(rows(k, 1) + e));
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int h = 0; h < 2; ++h) {
+    q[h] += __shfl_xor_sync(0xffffffffu, q[h], 1);
+    q[h] += __shfl_xor_sync(0xffffffffu, q[h], 2);
+    inv[h] = rsqrtf(q[h] / kC + kEps);
+  }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float a = A[(4 * rg + r) * kLdf];
+  for (int j = 0; j < 16; ++j) {
+    const float2 g = __ldg(reinterpret_cast<const float2*>(gamma + 8 * j + col));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(beta + 8 * j + col));
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(a, bv[j], acc[r][j]);
+    for (int h = 0; h < 2; ++h) {
+      d[4 * j + 2 * h] = d[4 * j + 2 * h] * inv[h] * g.x + b.x;
+      d[4 * j + 2 * h + 1] = d[4 * j + 2 * h + 1] * inv[h] * g.y + b.y;
     }
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      C[(4 * rg + r) * kLdf + (j >> 2) * 64 + 4 * cg + (j & 3)] = acc[r][j];
 }
 
-// LayerNorm of each row of C (64 x 128 f32) in place; warp w takes rows
-// 8w .. 8w + 8, each lane 4 channels
-__device__ __forceinline__ void layer_norm_rows(float* C, const float* gamma,
-                                                const float* beta) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float4 gv = reinterpret_cast<const float4*>(gamma)[lane];
-  const float4 bv = reinterpret_cast<const float4*>(beta)[lane];
-  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-    float4* row = reinterpret_cast<float4*>(C + r * kLdf) + lane;
-    float4 x = *row;
-    float s = x.x + x.y + x.z + x.w;
+// The A fragments of 16 k-steps (128 columns) of rows r and r + 8 of a
+// contiguous (M, 128) f32 array, from device memory; rows past M are zero
+__device__ __forceinline__ void load_frags(float (&a)[16][4], const float* src, long long r,
+                                           long long M, int col) {
+  const float2 z = make_float2(0.f, 0.f);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mu = s / kC;
-    x.x -= mu;
-    x.y -= mu;
-    x.z -= mu;
-    x.w -= mu;
-    float q = x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-    const float inv = rsqrtf(q / kC + kEps);
-    *row = make_float4(x.x * inv * gv.x + bv.x, x.y * inv * gv.y + bv.y,
-                       x.z * inv * gv.z + bv.z, x.w * inv * gv.w + bv.w);
+  for (int kk = 0; kk < kC / 8; ++kk) {
+    const float* p = src + r * kC + 8 * kk + col;
+    const float2 u = r < M ? __ldg(reinterpret_cast<const float2*>(p)) : z;
+    const float2 v = r + 8 < M ? __ldg(reinterpret_cast<const float2*>(p + 8 * kC)) : z;
+    a[kk][0] = u.x;
+    a[kk][1] = v.x;
+    a[kk][2] = u.y;
+    a[kk][3] = v.y;
   }
 }
 
-// row k of 64-column slab h of a packed (K, N) weight at w
-__device__ __forceinline__ const float* slab_row(const float* w, int K, int k, int h) {
-  return w + (static_cast<long long>(h) * K + k) * 64;
-}
-
-__global__ void __launch_bounds__(kThreads)
-layer_proj_fma_kernel(const float* __restrict__ x, const float* __restrict__ tgt,
-                      const float* __restrict__ wp, float* __restrict__ qkv, long long M) {
-  extern __shared__ __align__(128) unsigned char smem_f[];
-  float* sX = reinterpret_cast<float*>(smem_f);
-  float* sC = sX + kRowsF * kLdf;
-  const int seg = blockIdx.y;  // 0: q from x; 1, 2: k, v from the target
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRowsF;
-  load_tile_f32(sX, seg == 0 ? x : tgt, r0, M);
-  __syncthreads();
-  tile_gemm_f32(sX, sX, [&](int k, int h) { return slab_row(wp, kC, k, 2 * seg + h); }, kC, sC,
-                false);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kRowsF * kC; e += kThreads) {
-    const int r = e / kC, c = e % kC;
-    if (r0 + r < M) qkv[(r0 + r) * 3 * kC + seg * kC + c] = sC[r * kLdf + c];
+// d (16 x 128) += a (16 x 32: k-steps 4 q .. 4 q + 3 of a) . one 32 KB item
+// (four k-steps x 16 column tiles; w: this lane's float4 of its first block)
+__device__ __forceinline__ void mma_item(float (&d)[64], const float (&a)[16][4], int q,
+                                         const float4* w) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const FragA fa(a[4 * q + k][0], a[4 * q + k][1], a[4 * q + k][2], a[4 * q + k][3]);
+#pragma unroll
+    for (int nt = 0; nt < kC / 8; ++nt)
+      mma_3xtf32(DRBA_ACC4(d, nt), fa, w[(k * 16 + nt) * kFrag]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-layer_tail_fma_kernel(const float* __restrict__ x, const float* __restrict__ av,
-                      const float* __restrict__ wm, const float* __restrict__ g1,
-                      const float* __restrict__ b1, const float* __restrict__ ffn,
-                      const float* __restrict__ g2, const float* __restrict__ b2, int chunks,
-                      float* __restrict__ out, long long M) {
-  extern __shared__ __align__(128) unsigned char smem_f[];
-  constexpr int kT = kRowsF * kLdf;
-  float* sX = reinterpret_cast<float*>(smem_f);  // the layer's input
-  float* sA = sX + kT;                           // attention output, then the message
-  float* sH = sA + kT;                           // GELU of one 128-wide hidden chunk
-  float* sC = sH + kT;                           // message, then a hidden chunk
-  float* sAcc = sC + kT;                         // FFN output
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRowsF;
-
-  load_tile_f32(sX, x, r0, M);
-  load_tile_f32(sA, av, r0, M);
-  __syncthreads();
-  tile_gemm_f32(sA, sA, [&](int k, int h) { return slab_row(wm, kC, k, h); }, kC, sC, false);
-  __syncthreads();
-  layer_norm_rows(sC, g1, b1);
-  __syncthreads();
-  float* res = sC;  // what the residual adds: the message, or the FFN's output
-  if (ffn != nullptr) {
-    for (int e = threadIdx.x; e < kRowsF * kC; e += kThreads)
-      sA[(e / kC) * kLdf + e % kC] = sC[(e / kC) * kLdf + e % kC];
-    __syncthreads();
-    // hidden chunks of 128 = packed chunks 2 c and 2 c + 1
-    for (int c = 0; c < chunks; c += 2) {
-      const float* ch = ffn + static_cast<long long>(c) * kFfnChunk;
-      // hidden = [x | message] . W0[:, 64 c .. +128]
-      tile_gemm_f32(sX, sA, [&](int k, int h) { return slab_row(ch + h * kFfnChunk, 2 * kC, k, 0); },
-                    2 * kC, sC, false);
-      __syncthreads();
-      for (int e = threadIdx.x; e < kRowsF * kC; e += kThreads) {
-        const int r = e / kC, cc = e % kC;
-        sH[r * kLdf + cc] = gelu_exact<float>(sC[r * kLdf + cc]);
+// rows r and r + 8 of a warp's 16 x 128 accumulator (plus `add`'s rows,
+// pitch ld, if any) to out (row pitch ldo), rows past M skipped
+__device__ __forceinline__ void store_rows(float* out, int ldo, const float (&d)[64],
+                                           const float* add, int ld, long long r, long long M,
+                                           int col) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= M) continue;
+    float* o = out + (r + 8 * h) * ldo + col;
+#pragma unroll
+    for (int nt = 0; nt < kC / 8; ++nt) {
+      float2 v = make_float2(d[4 * nt + 2 * h], d[4 * nt + 2 * h + 1]);
+      if (add != nullptr) {
+        const float2 xa = *reinterpret_cast<const float2*>(add + 8 * h * ld + 8 * nt);
+        v.x += xa.x;
+        v.y += xa.y;
       }
-      __syncthreads();
-      // FFN output += gelu . W2[64 c .. +128, :] (its rows in the two chunks)
-      tile_gemm_f32(sH, sH, [&](int k, int h) {
-        return slab_row(ch + (k >> 6) * kFfnChunk + kW0Chunk, kHChunk, k & 63, h);
-      }, kC, sAcc, c > 0);
-      __syncthreads();
+      *reinterpret_cast<float2*>(o + 8 * nt) = v;
     }
-    layer_norm_rows(sAcc, g2, b2);
-    __syncthreads();
-    res = sAcc;
   }
-  for (int e = threadIdx.x; e < kRowsF * kC; e += kThreads) {
-    const int r = e / kC, c = e % kC;
-    if (r0 + r < M) out[(r0 + r) * kC + c] = sX[r * kLdf + c] + res[r * kLdf + c];
+}
+
+// The weight ring: item i lands in stage i % kNStages; acquire(i) waits
+// for it (every thread's copies, and every warp done with item i - 1) and
+// starts item i + kNStages - 1 in that freed stage.
+template <typename Issue>
+__device__ __forceinline__ const float4* acquire(const unsigned char* ring, int stage_bytes,
+                                                 int i, Issue issue) {
+  cp_async_wait<kNStages - 2>();
+  __syncthreads();
+  issue(i + kNStages - 1);
+  return reinterpret_cast<const float4*>(ring + (i % kNStages) * stage_bytes) + (threadIdx.x & 31);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+layer_proj_tf32_kernel(const float* __restrict__ x, const float* __restrict__ tgt,
+                       const float* __restrict__ wp, float* __restrict__ qkv, long long M) {
+  extern __shared__ __align__(16) unsigned char smem_t[];
+  const uint32_t base = smem_u32(smem_t);
+  const int col = 2 * (threadIdx.x & 3);
+  const long long r = static_cast<long long>(blockIdx.x) * kRowsT + (threadIdx.x >> 5) * 16 +
+                      ((threadIdx.x & 31) >> 2);
+  const bool self = tgt == x;  // k and v from x itself
+  auto issue = [&](int i) {  // item i: k-steps 4 (i % 4) .. +4 of segment i / 4 (q, k, v)
+    if (i < 12) load_linear_async(base + (i % kNStages) * kItemT, wp + i * (kItemT / 4), kItemT);
+    cp_async_commit();
+  };
+  for (int i = 0; i < kNStages - 1; ++i) issue(i);
+
+  float a[16][4];
+  for (int seg = 0; seg < 3; ++seg) {
+    if (seg == 0 || (seg == 1 && !self)) load_frags(a, seg == 0 ? x : tgt, r, M, col);
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mma_item(d, a, q, acquire(smem_t, kItemT, 4 * seg + q, issue));
+    store_rows(qkv + seg * kC, 3 * kC, d, nullptr, 0, r, M, col);
   }
+  cp_async_wait<0>();
+}
+
+// Shared memory of the f32 tail: the x tile (read by the FFN and the
+// residual), then the ring of kNStages stages of one FFN chunk each
+struct TailF32Smem {
+  static constexpr int kRing = kRowsT * kLdX * 4;
+  static constexpr int kBytes = kRing + kNStages * kChunkT;
+};
+
+template <bool kFfn>
+__global__ void __launch_bounds__(kThreads, 1)
+layer_tail_tf32_kernel(const float* __restrict__ x, const float* __restrict__ av,
+                       const float* __restrict__ wm, const float* __restrict__ g1,
+                       const float* __restrict__ b1, const float* __restrict__ ffn,
+                       const float* __restrict__ g2, const float* __restrict__ b2, int chunks,
+                       float* __restrict__ out, long long M) {
+  extern __shared__ __align__(16) unsigned char smem_t[];
+  const uint32_t base = smem_u32(smem_t);
+  const unsigned char* ring = smem_t + TailF32Smem::kRing;
+  const int col = 2 * (threadIdx.x & 3);
+  const int rt = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);  // row in the tile
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRowsT, r = row0 + rt;
+  const int items = 4 + (kFfn ? chunks : 0);
+
+  // the x tile (rows past M zero) lands with item 0
+  for (int e = threadIdx.x; e < kRowsT * 32; e += kThreads) {
+    const int rr = e >> 5, cc = e & 31;
+    const bool ok = row0 + rr < M;
+    cp_async<16>(base + rr * kLdX * 4 + cc * 16, x + (ok ? (row0 + rr) * kC + cc * 4 : 0), ok);
+  }
+  // items 0-3: the merge weight's k-quarters; 4 + j: FFN chunk j
+  auto issue = [&](int i) {
+    const uint32_t dst = base + TailF32Smem::kRing + (i % kNStages) * kChunkT;
+    if (i < 4)
+      load_linear_async(dst, wm + i * (kItemT / 4), kItemT);
+    else if (i < items)
+      load_linear_async(dst, ffn + static_cast<long long>(i - 4) * (kChunkT / 4), kChunkT);
+    cp_async_commit();
+  };
+  for (int i = 0; i < kNStages - 1; ++i) issue(i);
+
+  // merge, then LayerNorm, on the accumulator
+  float d[64];
+  {
+    float a[16][4];
+    load_frags(a, av, r, M, col);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mma_item(d, a, q, acquire(ring, kChunkT, q, issue));
+  }
+  layer_norm_f32(d, g1, b1, col);
+
+  const float* xs = reinterpret_cast<const float*>(smem_t) + rt * kLdX + col;
+  if constexpr (kFfn) {
+    // f accumulates the FFN's output over the hidden chunks; d is the
+    // message, the A fragments of W0's rows 128..255
+    float f[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) f[i] = 0.f;
+    for (int j = 0; j < chunks; ++j) {
+      const float4* w = acquire(ring, kChunkT, 4 + j, issue);
+      // the hidden chunk (16 x 16) = [x | message] . W0 chunk, the two halves
+      // in accumulators of their own (h[0..7] and h[8..15]): four
+      // independent mma chains a warp, not two of twice the length
+      float h[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) h[i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kC / 8; ++kk) {
+        const FragA ax(*reinterpret_cast<const float2*>(xs + 8 * kk),
+                       *reinterpret_cast<const float2*>(xs + 8 * kLdX + 8 * kk));
+        const FragA am(d[4 * kk], d[4 * kk + 2], d[4 * kk + 1], d[4 * kk + 3]);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_3xtf32(DRBA_ACC4(h, nt), ax, w[(2 * kk + nt) * kFrag]);
+          mma_3xtf32(DRBA_ACC4(h, 2 + nt), am, w[(2 * (16 + kk) + nt) * kFrag]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) h[i] = gelu_exact<float>(h[i] + h[8 + i]);
+      const float4* w2 = w + 2 * (2 * kC / 8) * kFrag;  // after W0's 32 k-steps x 2 tiles
+#pragma unroll
+      for (int kk = 0; kk < kHT / 8; ++kk) {  // f += gelu(hidden) . W2 chunk
+        const FragA a(h[4 * kk], h[4 * kk + 2], h[4 * kk + 1], h[4 * kk + 3]);
+#pragma unroll
+        for (int nt = 0; nt < kC / 8; ++nt)
+          mma_3xtf32(DRBA_ACC4(f, nt), a, w2[(kk * 16 + nt) * kFrag]);
+      }
+    }
+    layer_norm_f32(f, g2, b2, col);
+    store_rows(out, kC, f, xs, kLdX, r, M, col);  // the residual: x + the FFN's output
+  } else {
+    store_rows(out, kC, d, xs, kLdX, r, M, col);  // x + the message (the tile landed with item 0)
+  }
+  cp_async_wait<0>();
 }
 
 // ----------------------------------------------------------------------- launch
@@ -589,10 +694,10 @@ extern "C" int drba_layer_proj(const void* x, const void* tgt, const void* wp, v
           static_cast<const bf16*>(x), static_cast<const bf16*>(tgt),
           static_cast<const bf16*>(wp), static_cast<bf16*>(qkv), M);
   } else if (dtype == kF32) {
-    constexpr int bytes = 2 * kRowsF * kLdf * 4;
-    e = allow_smem(layer_proj_fma_kernel, bytes);
+    constexpr int bytes = kNStages * kItemT;
+    e = allow_smem(layer_proj_tf32_kernel, bytes);
     if (e == cudaSuccess)
-      layer_proj_fma_kernel<<<dim3(cdiv(M, kRowsF), 3), kThreads, bytes, s>>>(
+      layer_proj_tf32_kernel<<<cdiv(M, kRowsT), kThreads, bytes, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(tgt),
           static_cast<const float*>(wp), static_cast<float*>(qkv), M);
   }
@@ -602,7 +707,8 @@ extern "C" int drba_layer_proj(const void* x, const void* tgt, const void* wp, v
 
 // x, av (M, 128): the layer input and the attention output; wm the packed
 // merge weight (128 x 128); g1, b1 (128,): norm1's gamma and beta; ffn the
-// packed FFN chunks (hidden / 64 of them, see above) and g2, b2 (128,), or
+// packed FFN chunks (hidden / 64 of them in bf16, hidden / 16 in f32, see
+// above) and g2, b2 (128,), or
 // all three NULL for a layer without FFN; out (M, 128). Weights and norms in
 // x's dtype (f32|bf16), the norms applied in f32;
 // all contiguous and 32-byte aligned (checked by the caller); hidden a
@@ -636,15 +742,16 @@ extern "C" int drba_layer_tail(const void* x, const void* av, const void* wm, co
     else
       launch(std::false_type{});
   } else if (dtype == kF32) {
-    constexpr int bytes = 5 * kRowsF * kLdf * 4;
-    e = allow_smem(layer_tail_fma_kernel, bytes);
+    const auto kernel =
+        ffn != nullptr ? layer_tail_tf32_kernel<true> : layer_tail_tf32_kernel<false>;
+    e = allow_smem(kernel, TailF32Smem::kBytes);
     if (e == cudaSuccess)
-      layer_tail_fma_kernel<<<cdiv(M, kRowsF), kThreads, bytes, s>>>(
+      kernel<<<cdiv(M, kRowsT), kThreads, TailF32Smem::kBytes, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(av),
           static_cast<const float*>(wm), static_cast<const float*>(g1),
           static_cast<const float*>(b1), static_cast<const float*>(ffn),
-          static_cast<const float*>(g2), static_cast<const float*>(b2), chunks,
-          static_cast<float*>(out), M);
+          static_cast<const float*>(g2), static_cast<const float*>(b2),
+          ffn != nullptr ? hidden / kHT : 0, static_cast<float*>(out), M);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

@@ -21,13 +21,14 @@ each dead key a weight of at most e^-100 (about 4e-44) of the live ones:
 below any tolerance used here.
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
-``csrc/attention.cu`` (c = 128, float32 or bfloat16); on a CPU tensor they run
-the plain version. ``backend`` is ``auto | torch | cuda`` as elsewhere.
+``csrc/attention.cu`` (c = 128; bfloat16 on wgmma, float32 on the tensor
+cores in 3xTF32, f32-accurate); on a CPU tensor they run the plain
+version. ``backend`` is ``auto | torch | cuda`` as elsewhere.
 
-In bf16, flash attention with few query tiles splits the keys over several
-blocks (``flash_split_plan``) and combines their partial softmax states in a
-second launch; ``flash_partials`` and ``flash_combine`` are those two
-launches in plain PyTorch.
+Flash attention with few query tiles splits the keys over several blocks
+(``flash_split_plan``), in f32 and bf16 alike, and combines their partial
+softmax states in a second launch; ``flash_partials`` and ``flash_combine``
+are those two launches in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from drba_tpu_torch._build import FLASH, WINDOW, check_cuda_input, dtype_code, s
 
 HEAD_DIM = 128  # the kernels' head width (GMFlow's feature channels)
 TILE = 64  # the kernels' key tile (csrc/attention.cu kKT)
-ROWS = 128  # query rows per block of the bf16 kernel (kRowsWG: two warpgroups of 64)
+ROWS = 128  # query rows per block (kRowsWG; bf16: two warpgroups, f32: eight warps)
 MAX_SPLITS = 8
 LOG2E = 1.4426950408889634
 
@@ -95,7 +96,7 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def flash_split_plan(b: int, L: int, sms: int) -> tuple[int, int]:
-    """(key splits, key tiles per split) of the bf16 flash kernel.
+    """(key splits, key tiles per split) of the flash kernel.
 
     A block takes 128 queries. Where the ``b * cdiv(L, 128)`` query blocks
     are fewer than four per SM of the card, each one's keys are split over
@@ -142,6 +143,11 @@ def flash_combine(part: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=8)
 def _sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``; 1 for a CPU device, which
+    reaches the kernel path only with its launch mocked (the input checks
+    refuse CPU tensors)."""
+    if device.type != "cuda":
+        return 1
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -241,9 +247,7 @@ def _flash_cuda(q, k, v, rid, with_mask):
     if v.data_ptr() % 8:
         raise ValueError("v: the flash kernel needs an 8-byte aligned value")
     out = torch.empty((b, L, 2), dtype=torch.float32, device=q.device)
-    n_split = 1
-    if q.dtype == torch.bfloat16:
-        n_split, _ = flash_split_plan(b, L, _sm_count(q.device))
+    n_split, _ = flash_split_plan(b, L, _sm_count(q.device))
     part = torch.empty((n_split, b, L, 4), dtype=torch.float32, device=q.device) \
         if n_split > 1 else None
     stream = stream_of(q)

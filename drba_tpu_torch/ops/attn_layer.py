@@ -15,9 +15,11 @@ kernel (csrc/attention.cu) between them, reading k/v from the other batch
 half in place. The two layer kernels read their weights packed once per
 model (``pack_layer_weights``, stored in the model's parameters by
 ``models/gmflow_net.pack_transformer_weights`` in ``GMFSS.__init__``) and
-raise without them. On a CPU tensor (or ``backend='torch'``) it runs the
-plain version, ``gmflow_net._transformer_layer``'s ops in order, on the
-natural weights.
+raise without them: bf16 weights as wgmma's swizzled slabs
+(``pack_slabs``), f32 weights split into TF32 hi and lo parts in the
+fragment order of the 3xTF32 kernels (``pack_frags``). On a CPU tensor
+(or ``backend='torch'``) it runs the plain version,
+``gmflow_net._transformer_layer``'s ops in order, on the natural weights.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from drba_tpu_torch.ops.attention import (
 )
 
 SLAB = 64      # columns of a packed slab
-H_CHUNK = 64   # hidden columns of a packed FFN chunk
+H_CHUNK = 64   # hidden columns of a packed bf16 FFN chunk
+TF32_H_CHUNK = 16  # hidden columns of a packed f32 FFN chunk (csrc/attn_layer.cu kHT)
 
 
 class LayerWeights(NamedTuple):
@@ -93,17 +96,98 @@ def pack_ffn(w0: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
                         for j in range(0, hidden, H_CHUNK)])
 
 
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` = hi + lo exactly: hi is ``x`` rounded to TF32 (10 mantissa
+    bits, to nearest with ties away from zero, as ``cvt.rna.tf32.f32``), lo
+    = x - hi (|lo| <= 2^-11 |x|), which the tensor core reads to TF32 in
+    turn. The split of the 3xTF32 products (csrc/tf32.cuh)."""
+    bits = x.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, x.float() - hi
+
+
+def pack_frags(w: torch.Tensor) -> torch.Tensor:
+    """An f32 (K, N) weight stored (in, out), K and N multiples of 8 ->
+    (K/8, N/8, 32, 4): per k-step kk and column tile nt, lane 4 g + t holds
+    (hi b0, hi b1, lo b0, lo b1) with b0 = w[8 kk + 2 t, 8 nt + g] and b1 =
+    w[8 kk + 2 t + 1, 8 nt + g] (``split_tf32``): the m16n8k8 B fragments
+    of csrc/tf32.cuh, k relabelled within each 8, already split."""
+    k, n = w.shape
+    hi, lo = split_tf32(w)
+
+    def lanes(t):  # (K, N) -> (kk, t, pair, nt, g) -> (kk, nt, lane 4g + t, pair)
+        return t.reshape(k // 8, 4, 2, n // 8, 8).permute(0, 3, 4, 1, 2).reshape(
+            k // 8, n // 8, 32, 2)
+
+    return torch.cat([lanes(hi), lanes(lo)], dim=-1).contiguous()
+
+
+def unpack_frags(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of ``pack_frags``: (K/8, N/8, 32, 4) -> (hi, lo), each
+    (K, N); the weight is hi + lo."""
+    kk, nt = p.shape[:2]
+
+    def back(t):  # (kk, nt, g, t, pair) -> (kk, t, pair, nt, g)
+        return t.reshape(kk, nt, 8, 4, 2).permute(0, 3, 4, 1, 2).reshape(8 * kk, 8 * nt)
+
+    return back(p[..., :2]), back(p[..., 2:])
+
+
+def pack_ffn_frags(w0: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The f32 concat-FFN -> (hidden/16, 2C*16*2 + 16*C*2): chunk j is
+    [pack_frags(w0[:, 16j:16j+16]) | pack_frags(w2[16j:16j+16])], flat, in
+    the order the f32 tail kernel streams them."""
+    return torch.stack([torch.cat([pack_frags(w0[:, j:j + TF32_H_CHUNK]).reshape(-1),
+                                   pack_frags(w2[j:j + TF32_H_CHUNK]).reshape(-1)])
+                        for j in range(0, w0.shape[1], TF32_H_CHUNK)])
+
+
+def _ffn_chunk(dtype: torch.dtype) -> int:
+    return TF32_H_CHUNK if dtype == torch.float32 else H_CHUNK
+
+
 def pack_layer_weights(p: Mapping[str, torch.Tensor], base: str, cross: bool) -> dict:
     """The packed weights of TransformerLayer ``base`` for the kernels:
-    ``{base}.qkv.wp`` (the (C, 3C) [Wq | Wk | Wv], packed once here),
-    ``{base}.merge.wp`` and, for a cross layer, ``{base}.mlp.wp``
-    (``pack_ffn``); in the parameters' dtype and device."""
-    out = {f"{base}.qkv.wp": pack_slabs(torch.cat(
-               [p[f"{base}.{n}.weight"] for n in ("q_proj", "k_proj", "v_proj")], dim=1)),
-           f"{base}.merge.wp": pack_slabs(p[f"{base}.merge.weight"])}
+    ``{base}.qkv.wp`` ([Wq | Wk | Wv], packed once here), ``{base}.merge.wp``
+    and, for a cross layer, ``{base}.mlp.wp``; in the parameters' dtype and
+    device. bf16: ``pack_slabs`` of the (C, 3C) q|k|v and ``pack_ffn``;
+    f32: ``pack_frags`` of each of Wq, Wk, Wv (stacked) and
+    ``pack_ffn_frags``."""
+    wq, wk, wv = (p[f"{base}.{n}.weight"] for n in ("q_proj", "k_proj", "v_proj"))
+    if wq.dtype == torch.float32:
+        out = {f"{base}.qkv.wp": torch.stack([pack_frags(w) for w in (wq, wk, wv)]),
+               f"{base}.merge.wp": pack_frags(p[f"{base}.merge.weight"])}
+        ffn = pack_ffn_frags
+    else:
+        out = {f"{base}.qkv.wp": pack_slabs(torch.cat([wq, wk, wv], dim=1)),
+               f"{base}.merge.wp": pack_slabs(p[f"{base}.merge.weight"])}
+        ffn = pack_ffn
     if cross:
-        out[f"{base}.mlp.wp"] = pack_ffn(p[f"{base}.mlp.0.weight"], p[f"{base}.mlp.2.weight"])
+        out[f"{base}.mlp.wp"] = ffn(p[f"{base}.mlp.0.weight"], p[f"{base}.mlp.2.weight"])
     return out
+
+
+def unpack_layer_weights(wt: "LayerWeights") -> tuple:
+    """The natural weights the packed copies of ``wt`` hold: ((C, 3C)
+    q|k|v, (C, C) merge, (2C, hidden) w0 or None, (hidden, C) w2 or None),
+    for either packing."""
+    c = HEAD_DIM
+    if wt.merge_p.dtype == torch.float32:  # split fragments: w = hi + lo
+        chunk = TF32_H_CHUNK
+        un = lambda t: torch.add(*unpack_frags(t))
+        w0_of = lambda ch: un(ch[:4 * c * chunk].reshape(2 * c // 8, chunk // 8, 32, 4))
+        w2_of = lambda ch: un(ch[4 * c * chunk:].reshape(chunk // 8, c // 8, 32, 4))
+        qkv = torch.cat([un(t) for t in wt.qkv_p], dim=1)
+    else:
+        chunk, un = H_CHUNK, unpack_slabs
+        w0_of = lambda ch: un(ch[:2 * c * chunk].reshape(chunk // SLAB, 2 * c, SLAB))
+        w2_of = lambda ch: un(ch[2 * c * chunk:].reshape(c // SLAB, chunk, SLAB))
+        qkv = un(wt.qkv_p)
+    w0 = w2 = None
+    if wt.ffn_p is not None:
+        w0 = torch.cat([w0_of(ch) for ch in wt.ffn_p], dim=1)
+        w2 = torch.cat([w2_of(ch) for ch in wt.ffn_p], dim=0)
+    return qkv, un(wt.merge_p), w0, w2
 
 
 def layer_weights(p: Mapping[str, torch.Tensor], base: str, cross: bool) -> LayerWeights:
@@ -185,7 +269,7 @@ def layer_tail_cuda(x: torch.Tensor, av: torch.Tensor, wt: LayerWeights) -> torc
     hidden = 0
     if wt.ffn is not None:
         g2, b2 = wt.ffn[2], wt.ffn[3]
-        hidden = wt.ffn_p.shape[0] * H_CHUNK
+        hidden = wt.ffn_p.shape[0] * _ffn_chunk(x.dtype)
     ptr = (lambda t: None if t is None else t.data_ptr())
     LAYER.launch(x.data_ptr(), av.data_ptr(), wt.merge_p.data_ptr(), wt.norm1[0].data_ptr(),
                  wt.norm1[1].data_ptr(), ptr(wt.ffn_p), ptr(g2), ptr(b2), out.data_ptr(), hidden,
@@ -210,16 +294,20 @@ def _layer_cuda(x, wt: LayerWeights, k_splits, labels, with_mask, cross_swap, ta
         raise ValueError("target must match x; both 32-byte aligned")
     if cross_swap and b % 2:
         raise ValueError(f"cross_swap needs an even batch, got {b}")
-    _weight("qkv_p", wt.qkv_p, x, (3 * c // SLAB, c, SLAB))
-    _weight("merge_p", wt.merge_p, x, (c // SLAB, c, SLAB))
+    f32 = x.dtype == torch.float32
+    frags = (c // 8, c // 8, 32, 4)
+    _weight("qkv_p", wt.qkv_p, x, (3, *frags) if f32 else (3 * c // SLAB, c, SLAB))
+    _weight("merge_p", wt.merge_p, x, frags if f32 else (c // SLAB, c, SLAB))
     for name, t in zip(("gamma1", "beta1"), wt.norm1):
         _weight(name, t, x, (c,))
     if wt.ffn is not None:
-        hidden = wt.ffn_p.shape[0] * H_CHUNK
+        chunk = _ffn_chunk(x.dtype)
+        hidden = wt.ffn_p.shape[0] * chunk
         if hidden % HEAD_DIM:
             raise ValueError(f"the tail kernel takes a hidden width divisible by {HEAD_DIM}, "
                              f"got {hidden}")
-        _weight("ffn_p", wt.ffn_p, x, (hidden // H_CHUNK, 2 * c * H_CHUNK + H_CHUNK * c))
+        _weight("ffn_p", wt.ffn_p, x,
+                (hidden // chunk, (2 * c * chunk + chunk * c) * (2 if f32 else 1)))
         for name, t in zip(("gamma2", "beta2"), wt.ffn[2:]):
             _weight(name, t, x, (c,))
 

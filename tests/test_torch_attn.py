@@ -26,7 +26,7 @@ from drba_tpu_torch.convert import from_jax_params
 from drba_tpu_torch.models import gmflow_net as gm
 from drba_tpu_torch.ops import attention as attn
 from drba_tpu_torch.ops.attn_layer import (layer_weights, pack_layer_weights,
-                                           transformer_layer, unpack_slabs)
+                                           transformer_layer, unpack_layer_weights)
 
 # f32 attention outputs of unit-scale inputs: sums in another order
 TOL = 2e-4
@@ -188,8 +188,9 @@ def test_layer_weights_concatenate_qkv(params):
     assert tuple(wt.ffn[0].shape) == (256, 1024) and tuple(wt.ffn[1].shape) == (1024, 128)
     assert wt.qkv_p is None and wt.merge_p is None and wt.ffn_p is None  # not packed yet
     packed = layer_weights({**p, **pack_layer_weights(p, base, True)}, base, True)
-    assert tuple(packed.qkv_p.shape) == (6, 128, 64)
-    torch.testing.assert_close(unpack_slabs(packed.qkv_p)[:, 128:256], wt.wk, rtol=0, atol=0)
+    assert tuple(packed.qkv_p.shape) == (3, 16, 16, 32, 4)  # f32: the 3xTF32 fragments
+    torch.testing.assert_close(unpack_layer_weights(packed)[0][:, 128:256], wt.wk, rtol=0,
+                               atol=0)
     assert layer_weights(p, "transformer.layers.0.self_attn", False).ffn is None
 
 

@@ -1,6 +1,6 @@
 """The Python side of the port's attention kernels that the CPU reaches.
 
-* The key split of the bf16 flash kernel (drba_tpu_torch.ops.attention):
+* The key split of the flash kernel (drba_tpu_torch.ops.attention):
   ``flash_split_plan``, and the kernel's two launches written in plain
   PyTorch (``flash_partials``, ``flash_combine``), held against
   drba_tpu's ``flash_attention_mxu`` (its Pallas kernel in interpret mode,
@@ -8,7 +8,7 @@
   tile, masked and unmasked, including rows for which a whole split has no
   live key.
 * The roofline bounds of drba_tpu_torch.bounds against hand counts, one
-  path shape per kernel row.
+  path shape per kernel row, and the f32 products' "tf32x3" type.
 
 Inputs come from numpy seeds; comparisons in float32.
 """
@@ -197,6 +197,45 @@ def test_bound_transformer_layer():
     assert cross.bytes == moved + tokens * 128 * 2 + (256 * 1024 + 1024 * 128) * 2 \
         + 2 * 128 * 4 + 4 * 136 * 240
     assert cross.ops["bf16"] == 2 * (macs + tokens * (256 * 1024 + 1024 * 128))
+
+
+def _tf32x3_ms(ops):
+    """Three TF32 tensor-core operations per f32 operation, at 494.7 TFLOP/s."""
+    return 3 * ops / 494.7e12 * 1e3
+
+
+def test_bound_f32_window_attention_on_tensor_cores():
+    """The f32 scale-0 windows: q k^T and P v are "tf32x3" products, three
+    TF32 passes each (bf16's case above, in 4-byte values)."""
+    ops = 4 * 8 * 2040 ** 2 * 128
+    _check(bounds.attention_work(8, 2040, 4), 4 * 8 * 2040 * 128 * 4, {"tf32x3": ops},
+           _tf32x3_ms(ops), "operations")
+    assert bounds.PEAK_OPS_PER_S["tf32x3"] == pytest.approx(494.7e12 / 3, rel=1e-12)
+
+
+def test_bound_f32_flash():
+    """f32 flash: q k^T on the tensor cores in 3xTF32, the 2-wide P v still
+    on the FMA pipes; the tensor cores bound it."""
+    L = 8160
+    _check(bounds.attention_work(1, L, 4, value_width=2),
+           2 * L * 128 * 4 + 2 * L * 2 * 4, {"tf32x3": 2 * L * L * 128, "f32": 2 * L * L * 2},
+           _tf32x3_ms(2 * L * L * 128), "operations")
+
+
+def test_bound_f32_transformer_layer_and_conv():
+    """The f32 layer's and conv's products count as "tf32x3"; their bytes
+    are bf16's doubled."""
+    tokens = 4 * 136 * 240
+    pairs = 4 * 64 * 510 ** 2
+    macs = tokens * (128 * 384 + 128 * 128) + pairs * 2 * 128
+    moved = tokens * 128 * 4 * 2 + (128 * 384 + 128 * 128) * 4 + 2 * 128 * 4
+    _check(bounds.layer_work(4, 136, 240, 8, 4), moved, {"tf32x3": 2 * macs},
+           _tf32x3_ms(2 * macs), "operations")
+    px = 3 * 68 * 120
+    ops = 2 * 9 * 96 * 96 * px
+    _check(bounds.conv3x3_work(3, 68, 120, 96, 96, 4),
+           px * (96 + 96) * 4 + (96 * 96 * 9 + 2 * 96) * 4, {"tf32x3": ops}, _tf32x3_ms(ops),
+           "operations")
 
 
 def test_live_pairs():

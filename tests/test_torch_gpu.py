@@ -394,20 +394,18 @@ def test_window_attention_nhwc_kernel_matches_plain(dev, dtype, masked):
 @pytest.mark.parametrize("b", [1, 2])
 def test_flash_attention_kernel_matches_plain(dev, dtype, masked, b):
     """A 2-wide f32 value of pixel coordinates, as in the global correlation:
-    one grid broadcast over the batch (a non-contiguous view). In bf16 the
-    keys split over several blocks at both batch sizes (L = 1100 gives few
-    query tiles), with the second, combining launch."""
+    one grid broadcast over the batch (a non-contiguous view). The keys
+    split over several blocks at both batch sizes and in both dtypes
+    (L = 1100 gives few query tiles), with the second, combining launch."""
     from drba_tpu_torch.ops.attention import flash_attention, flash_split_plan
 
     gen = torch.Generator(device=dev).manual_seed(6)
     q, k, _ = _qkv(gen, (b, 1100, 128), dev, dtype, scale=0.3)
     v = (torch.rand(1, 1100, 2, generator=gen, device=dev) * 240).expand(b, 1100, 2)
     rid = torch.randint(0, 3, (b, 1100), generator=gen, device=dev) if masked else None
-    n_split = 1
-    if dtype == torch.bfloat16:
-        n_split, _ = flash_split_plan(b, 1100, torch.cuda.get_device_properties(dev)
-                                      .multi_processor_count)
-        assert n_split > 1
+    n_split, _ = flash_split_plan(b, 1100, torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count)
+    assert n_split > 1
     n0 = _build.FLASH.launches
     got = flash_attention(q, k, v, rid, masked, out_dtype=torch.float32, backend="cuda")
     want = flash_attention(q, k, v, rid, masked, out_dtype=torch.float32, backend="torch")
@@ -463,7 +461,8 @@ def test_transformer_layer_kernel_matches_plain(dev, dtype, cross, masked):
     x, tgt, _ = _qkv(gen, (4, 34, 60, 128), dev, dtype, scale=0.5)
     base = f"transformer.layers.1.{'cross_attn_ffn' if cross else 'self_attn'}"
     wt = layer_weights(p, base, cross)
-    assert wt.ffn is None or wt.ffn_p.shape[0] * 64 == 1024
+    chunk = 16 if dtype == torch.float32 else 64  # hidden columns of a packed FFN chunk
+    assert wt.ffn is None or wt.ffn_p.shape[0] * chunk == 1024
     kw = dict(labels=shift_region_labels(34, 60, 2), with_mask=masked, cross_swap=cross,
               target=tgt if cross else None)
     n0 = _build.LAYER.launches
@@ -475,6 +474,98 @@ def test_transformer_layer_kernel_matches_plain(dev, dtype, cross, masked):
     # rounds P, so outputs of size ~4 may differ by a few bf16 ulps (2^-6)
     tol = 1e-4 if dtype == torch.float32 else 6e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape,ks,masked,swap", [
+    ((2, 24, 40, 128), 2, False, False),   # L = 240: three full key tiles and a ragged one
+    ((2, 24, 40, 128), 2, True, False),
+    ((4, 34, 60, 128), 2, True, True),     # L = 510, the batch-half swap
+    ((4, 18, 30, 128), 3, False, True),    # L = 60: one ragged tile, no full one
+])
+def test_f32_window_attention_on_tensor_cores_matches_plain(dev, shape, ks, masked, swap):
+    """The f32 window kernel (3xTF32 on mma.sync): ragged L, masked and
+    unmasked, keys and values from the other batch half; f32's tolerance."""
+    from drba_tpu_torch.models.gmflow_net import shift_region_labels
+    from drba_tpu_torch.ops.attention import launch_window, window_attention_nhwc
+
+    b, h, w, c = shape
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = _qkv(gen, shape, dev, torch.float32)
+    lab = shift_region_labels(h, w, ks)
+    if swap:
+        from drba_tpu_torch.ops.attention import device_labels
+
+        out = torch.empty_like(q)
+        lab_t = device_labels(lab.reshape(ks * ks, -1), dev) if masked else None
+        n0 = _build.WINDOW.launches
+        launch_window(q, k, v, out, b, h, w, ks, (c, c, c, c), lab_t,
+                      ((h // ks) * (w // ks), 0), b // 2)
+        assert _build.WINDOW.launches == n0 + 1
+        sw = lambda t: torch.cat([t[b // 2:], t[:b // 2]])
+        want = window_attention_nhwc(q, sw(k), sw(v), ks, lab, masked, backend="torch")
+    else:
+        out = window_attention_nhwc(q, k, v, ks, lab, masked, backend="cuda")
+        want = window_attention_nhwc(q, k, v, ks, lab, masked, backend="torch")
+    torch.testing.assert_close(out, want, atol=_ATTN_TOL[torch.float32][0], rtol=0)
+
+
+@pytest.mark.parametrize("b,L", [(40, 1700), (1, 8160), (2, 300)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_f32_flash_attention_splits_keys_like_bf16(dev, b, L, masked):
+    """f32 flash with one key split (40 x 14 query tiles fill the card) and
+    with several (B = 1, L = 8160: GMFlow's global correlation, 8 splits),
+    each against the plain version; the second launch exactly when split."""
+    from drba_tpu_torch.ops.attention import flash_attention, flash_split_plan
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, _ = _qkv(gen, (b, L, 128), dev, torch.float32, scale=0.3)
+    v = (torch.rand(1, L, 2, generator=gen, device=dev) * 119).expand(b, L, 2)
+    rid = torch.randint(0, 9, (1, L), generator=gen, device=dev).expand(b, L) if masked else None
+    n_split, _ = flash_split_plan(b, L, torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count)
+    assert (n_split == 1) == (b == 40) and (b != 1 or n_split == 8)
+    n0 = _build.FLASH.launches
+    got = flash_attention(q, k, v, rid, masked, out_dtype=torch.float32, backend="cuda")
+    assert _build.FLASH.launches == n0 + (2 if n_split > 1 else 1)
+    want = flash_attention(q, k, v, rid, masked, out_dtype=torch.float32, backend="torch")
+    # P.V in f32 on both sides; sums of L terms in another order, at values <= 119
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("hw,ks", [((18, 30), 2), ((9, 15), 1)])
+def test_f32_layer_on_tensor_cores_matches_plain(dev, cross, hw, ks):
+    """The f32 projection and tail (3xTF32 on mma.sync, weights streamed
+    split) with and without the FFN, on token counts that are no multiple
+    of the 128-token tile (2 x 18 x 30 = 1080, 2 x 9 x 15 = 270); each
+    launch against its plain steps, and the layer as a whole."""
+    from drba_tpu_torch.models.gmflow_net import shift_region_labels
+    from drba_tpu_torch.models.layers import gelu, layer_norm, linear
+    from drba_tpu_torch.ops.attn_layer import (layer_proj_cuda, layer_tail_cuda,
+                                               layer_weights, transformer_layer)
+
+    p = _layer_params(dev, torch.float32, 8)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x, tgt, av = _qkv(gen, (2, *hw, 128), dev, torch.float32, scale=0.5)
+    base = f"transformer.layers.2.{'cross_attn_ffn' if cross else 'self_attn'}"
+    wt = layer_weights(p, base, cross)
+    t = tgt if cross else x
+    qkv = layer_proj_cuda(x, t, wt.qkv_p)
+    want = torch.cat([x @ wt.wq, t @ wt.wk, t @ wt.wv], dim=-1)
+    torch.testing.assert_close(qkv, want, atol=1e-4, rtol=1e-4)
+    q = {"merge.weight": wt.wmerge, "norm1.weight": wt.norm1[0], "norm1.bias": wt.norm1[1]}
+    msg = layer_norm(q, "norm1", linear(q, "merge", av))
+    if cross:
+        q.update({"mlp.0.weight": wt.ffn[0], "mlp.2.weight": wt.ffn[1],
+                  "norm2.weight": wt.ffn[2], "norm2.bias": wt.ffn[3]})
+        msg = linear(q, "mlp.0", torch.cat([x, msg], dim=-1))
+        msg = layer_norm(q, "norm2", linear(q, "mlp.2", gelu(msg)))
+    torch.testing.assert_close(layer_tail_cuda(x, av, wt), x + msg, atol=1e-4, rtol=1e-4)
+    kw = dict(labels=shift_region_labels(*hw, ks), with_mask=cross and ks > 1,
+              cross_swap=cross, target=tgt if cross else None)
+    got = transformer_layer(x, wt, ks, backend="cuda", **kw)
+    torch.testing.assert_close(got, transformer_layer(x, wt, ks, backend="torch", **kw),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_layer_kernels_without_packed_weights_raise(dev):

@@ -200,15 +200,14 @@ def test_packed_layer_matches_jax_kernel(packed_params, cross, masked):
     got = al.transformer_layer(torch.from_numpy(x), wt, ks, lab, with_mask=masked,
                                cross_swap=cross, target=torch.from_numpy(tgt) if cross else None)
     jffn = None
+    wqkv, wmerge, w0, w2 = al.unpack_layer_weights(wt)  # f32: the TF32 hi + lo fragments
     if cross:
-        hidden = wt.ffn_p.shape[0] * 64
-        w0 = torch.cat([al.unpack_slabs(c[:256 * 64].reshape(1, 256, 64)) for c in wt.ffn_p], 1)
-        w2 = torch.cat([al.unpack_slabs(c[256 * 64:].reshape(2, 64, 64)) for c in wt.ffn_p], 0)
+        hidden = wt.ffn_p.shape[0] * al.TF32_H_CHUNK
         assert tuple(w0.shape) == (256, hidden) and tuple(w2.shape) == (hidden, 128)
         jffn = (jnp.asarray(_np(w0)), jnp.asarray(_np(w2)),
                 *(jnp.asarray(_np(t)) for t in wt.ffn[2:]))
-    want = transformer_layer_mxu(jnp.asarray(x), jnp.asarray(_np(al.unpack_slabs(wt.qkv_p))),
-                                 jnp.asarray(_np(al.unpack_slabs(wt.merge_p))),
+    want = transformer_layer_mxu(jnp.asarray(x), jnp.asarray(_np(wqkv)),
+                                 jnp.asarray(_np(wmerge)),
                                  tuple(jnp.asarray(_np(t)) for t in wt.norm1), ks, labels=lab,
                                  with_mask=masked, cross_swap=cross,
                                  target=jnp.asarray(tgt) if cross else None, ffn=jffn)
@@ -239,8 +238,9 @@ def test_gmfss_packs_its_layer_weights_once(monkeypatch):
             wt = al.layer_weights(p, base, cross)
             assert wt.qkv_p is p[f"{base}.qkv.wp"] and wt.merge_p.dtype == torch.float32
             assert (wt.ffn_p is p.get(f"{base}.mlp.wp")) and (wt.ffn_p is None) == (not cross)
-            assert torch.equal(al.unpack_slabs(wt.merge_p), wt.wmerge)
-    monkeypatch.setattr(al, "pack_slabs", lambda w: pytest.fail("packed during a pass"))
+            assert torch.equal(al.unpack_layer_weights(wt)[1], wt.wmerge)
+    for packer in ("pack_slabs", "pack_frags"):
+        monkeypatch.setattr(al, packer, lambda w: pytest.fail("packed during a pass"))
     f = torch.zeros(1, 8, 12, 128)
     gm.transformer_apply(p, f, f, 2)
 

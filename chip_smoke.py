@@ -17,11 +17,13 @@ Phases (any failure exits non-zero and prints no result):
      computes the same function, that call's time (used nowhere in the port);
      the splat as the paths' six softsplat calls (scatter and normalise
      launches), the layer's projection, window and tail also timed apart;
-     the f32 window, flash and layer (3xTF32 on the tensor cores) summed
-     into rows of their own, with SDPA in f32 beside window and flash;
+     the f32 window, flash, layer and conv (3xTF32 on the tensor cores)
+     summed into rows of their own, with SDPA in f32 beside window and
+     flash and F.conv2d in f32 (TF32 off) beside the conv;
      GMFSS_UNION's shapes (1080p padded to 1152x1920) and the conv chain's
      GMFSS steps (pre-PReLU, plain and final residuals: GridNet L0/L1,
-     heads, head1's first step and tail, MetricNet, FeatureNet level 1)
+     heads, head1's first step and tail, MetricNet, FeatureNet level 1;
+     in f32 also GridNet's L2 and head3 and FeatureNet's levels 2-3)
      checked and timed outside the summed rows; each conv shape on the
      design its plan gives (printed), and in bf16 also on the other design
      that takes it (mma.sync, wgmma), against the plain version;
@@ -49,7 +51,10 @@ Phases (any failure exits non-zero and prints no result):
      (CUDA events), their wall, host and device-busy time per window and
      idle share, and each graph's memory pool; in f32, GMFSS's and
      GMFSS_UNION's windows timed on the plain path's and the kernel path's
-     eager pieces (before any f32 graph) and through the graph, in turns;
+     eager pieces (before any f32 graph) and through the graph, in turns,
+     and one replay of each profiled: every window, flash and layer launch
+     on the 3xTF32 kernels, every conv launch on the f32 conv design, no
+     cuDNN FFT convolution (any fails the script);
   6. resume: ``run_pipeline(skip_outputs=k)`` through the graphs (RIFE at
      a window boundary and inside a window, GMFSS inside a window, RIFE
      ``-s`` just past a cut)
@@ -75,14 +80,12 @@ Phases (any failure exits non-zero and prints no result):
      and in f32, min frame SSIM >= 0.995 at injected pans of 8, 20 and 40 px
      (a reading below fails the script); and one SSIM reading each, not
      gated, of a GMFSS and a GMFSS_UNION window against their f32 plain path;
- 10. f32 (last: its profile holds ~300 000 cuDNN launches): what holds an
-     f32 GMFSS graph's pool (the allocator's history during its capture,
-     by the port's source lines), and one f32 replay profiled, with a
-     check that every window, flash and layer launch ran the 3xTF32
-     kernels.
+ 10. f32 pools (last, after the earlier pools are freed): what holds an
+     f32 GMFSS and an f32 GMFSS_UNION graph's pool (the allocator's history
+     during each capture, by the port's source lines).
 
 The line before the last is one JSON object with a summary per kernel (and
-``*_f32`` rows for the f32 designs of window, flash and layer, whose
+``*_f32`` rows for the f32 designs of window, flash, layer and conv, whose
 launches are the f32 windows'); the last line is ``{"ok": true, "device":
 {...}}``. TF32 is off for PyTorch's f32 convolutions and products
 (``config.full_f32_products``, as the CLI sets it); the main path computes
@@ -138,8 +141,11 @@ DEVICE_KERNELS = ("splat_", "warp_", "conv3x3_", "attn_wgmma_kernel",
                   "attn_tf32_kernel", "flash_combine_kernel", "layer_proj_", "layer_tail_")
 # the kernels whose f32 (--fp32) design has rows of its own in the kernels
 # line: 3xTF32 on the tensor cores (csrc/tf32.cuh), timed at the same
-# summed shapes; their launches come from the f32 GMFSS and union windows
-F32_ROWS = ("window_attention", "flash_attention", "transformer_layer")
+# summed shapes; their launches come from the f32 windows
+F32_ROWS = ("window_attention", "flash_attention", "transformer_layer", "conv_chain")
+# device kernel names of cuDNN's FFT convolutions and the complex products
+# they run: an f32 window must launch none
+FFT_MARKS = ("fft", "cf32cf32")
 # the TPU kernel(s) each kernel replaces (function reaching pl.pallas_call)
 REPLACES = {"splat": "drba_tpu/ops/splat_stencil.py:282",
             "warp": "drba_tpu/ops/warp_mxu.py:265",
@@ -490,9 +496,12 @@ def other_designs(n, h, w, cin, cout, dt):
 def gmfss_conv_checks(dev, gen, record):
     """The conv chain's GMFSS steps at their 1080p shapes (N = T = 3 in
     GridNet, 1 in MetricNet and FeatureNet), each one ``conv_chain`` step
-    with its epilogue, against its plain version in f32 and bf16; checked
-    and timed, not summed (row 3's sum stays on the RIFE shapes). The library call is ``F.conv2d`` with
-    bias (cuDNN) without the PReLU or the residual."""
+    with its epilogue, against its plain version in f32 and bf16 (f32's
+    own chain sites, GridNet's L2 and FeatureNet's levels 2-3, in f32);
+    checked and timed, not summed (row 3's sum stays on the RIFE shapes).
+    The library call is ``F.conv2d`` with bias (cuDNN; in f32 with TF32
+    off, where it runs the L2 shapes by FFT) without the PReLU or the
+    residual."""
     import torch
     import torch.nn.functional as F
 
@@ -500,7 +509,10 @@ def gmfss_conv_checks(dev, gen, record):
     from drba_tpu_torch.ops.conv_chain import chain_step, conv3x3_cuda, conv3x3_path, conv_chain
 
     f32, bf16 = torch.float32, torch.bfloat16
-    # label: (n, h, w, cin, cout, pre-PReLU, residual: none | plain | input | extra)
+    # label: (n, h, w, cin, cout, pre-PReLU, residual: none | plain | input |
+    # extra); the last four are f32's chain sites only (bf16 runs them on cuDNN)
+    f32_only = ("gridnet L2 pre + input", "gridnet head3 384->192 pre", "featurenet L2 pre",
+                "featurenet L3 pre")
     for label, (n, h, w, cin, cout, pre, residual) in {
             "gridnet L0 pre + extra": (3, H // 2, W // 2, 64, 64, True, "extra"),
             "gridnet L1 pre + input": (3, H // 4, W // 4, 128, 128, True, "input"),
@@ -513,8 +525,12 @@ def gmfss_conv_checks(dev, gen, record):
             "metricnet out 64->2 pre": (1, H // 2, W // 2, 64, 2, True, "none"),
             "featurenet L1 pre": (1, H // 2, W // 2, 64, 64, True, "none"),
             "union head0 9->64 pre": (3, HU // 2, W // 2, 9, 64, True, "none"),
-            "union L0 pre + extra": (3, HU // 2, W // 2, 64, 64, True, "extra")}.items():
-        for dt in (f32, bf16):
+            "union L0 pre + extra": (3, HU // 2, W // 2, 64, 64, True, "extra"),
+            "gridnet L2 pre + input": (3, H // 8, W // 8, 192, 192, True, "input"),
+            "gridnet head3 384->192 pre": (3, H // 8, W // 8, 384, 192, True, "none"),
+            "featurenet L2 pre": (1, H // 4, W // 4, 128, 128, True, "none"),
+            "featurenet L3 pre": (1, H // 8, W // 8, 192, 192, True, "none")}.items():
+        for dt in (f32,) if label in f32_only else (f32, bf16):
             bound = 1.0 / (9 * cin) ** 0.5
             x = (torch.rand(n, h, w, cin, generator=gen, device=dev) * 2 - 1).to(dt)
             res = (torch.rand(n, h, w, cout, generator=gen, device=dev) * 2 - 1).to(dt) \
@@ -839,8 +855,9 @@ def phase_window(name, dev, gpu_line, dnames):
     too), the other kernels launched. The graphed window against its eager
     pieces (both dtypes), and in bf16 both timed and profiled
     (``graph_vs_eager``). In f32, GMFSS's and GMFSS_UNION's windows are
-    timed both ways (``time_f32_paths``); ``phase_f32`` profiles one at the
-    end. Returns the kernel-path window's launch counts per dtype."""
+    timed both ways (``time_f32_paths``) and one replay profiled
+    (``profile_f32_replay``). Returns the kernel-path window's launch counts
+    per dtype."""
     import torch
 
     from drba_tpu_torch import _build
@@ -906,6 +923,8 @@ def phase_window(name, dev, gpu_line, dnames):
             time_f32_paths(name, {"kernel graphed": m},
                            lambda mm, ts: mm.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True),
                            (ts2, ts3), gpu_line)
+            profile_f32_replay(name, lambda: m.inference_ts_drba(I0, I1, I2, ts3, reuse,
+                                                                 linear=True))
         if dname == "bf16":
             runs = [("plain", plain), ("kernel", m)]
             if name != "rife":
@@ -938,52 +957,74 @@ def time_f32_paths(name, models, window, ts_pair, gpu_line):
 
 
 def phase_f32(dev):
-    """Last, as its profile holds some 300 000 cuDNN launches: an f32 GMFSS
-    window's first capture with the allocator's history on
-    (``pool_holders``), then one replay under torch.profiler
-    (``profile_f32_replay``)."""
+    """Last, after the earlier phases' pools are freed: what holds an f32
+    GMFSS and an f32 GMFSS_UNION graph's pool, from each first capture with
+    the allocator's history on (``pool_holders``)."""
     import torch
 
     from drba_tpu_torch.pipeline import calc_ts
     from drba_tpu_torch.utils import TMapper, to_inp
 
-    m = make_model("gmfss", dev, compute_dtype=torch.float32)
-    I0, I1, I2 = (to_inp(f, padded_size(m), torch.float32, dev) for f in synthetic_frames(3))
     ts3 = calc_ts(0, TMapper(SRC_FPS, DST_FPS), -1)
-    reuse = m.reuse(I1, I0)
-    torch.cuda.empty_cache()
-    torch.cuda.memory._record_memory_history(max_entries=200000, stacks="python")
-    try:
-        m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)  # eager warm-up and capture
-        pool_holders("gmfss", m, torch.cuda.memory._snapshot())
-    finally:
-        torch.cuda.memory._record_memory_history(enabled=None)
-    profile_f32_replay("gmfss", lambda: m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True))
+    for name in ("gmfss", "gmfss_union"):
+        m = make_model(name, dev, compute_dtype=torch.float32)
+        I0, I1, I2 = (to_inp(f, padded_size(m), torch.float32, dev) for f in synthetic_frames(3))
+        reuse = m.reuse(I1, I0)
+        torch.cuda.empty_cache()
+        torch.cuda.memory._record_memory_history(max_entries=200000, stacks="python")
+        try:
+            m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)  # eager warm-up, capture
+            pool_holders(name, m, torch.cuda.memory._snapshot())
+        finally:
+            torch.cuda.memory._record_memory_history(enabled=None)
+        del m, reuse
+        torch.cuda.empty_cache()
 
 
 def profile_f32_replay(name, fn):
     """One steady-state f32 window (a graph replay) under torch.profiler:
-    its device time, its top kernels, and that every window, flash and
-    layer launch the capture recorded ran the 3xTF32 kernels."""
+    its device time and top kernels; fails unless every window, flash and
+    layer launch the capture recorded ran the 3xTF32 kernels, every conv
+    launch ran the f32 conv design (``conv3x3_tf32_kernel``, the plan's for
+    f32), and no cuDNN FFT convolution ran. A replay launches the same
+    kernels each time, so where the profiler lost events (fewer launches
+    than the capture recorded, a foreign design or an FFT kernel aside) the
+    replay is profiled once more."""
     from drba_tpu_torch import _build
 
-    wall, busy, kernels = profile_call(fn)
     _build.reset_counts()
     fn()  # the launches a replay adds: its capture's
     launches = _build.counts()
-    ran = {n: sum(e.count for e in kernels if f"::{n}" in e.key)
-           for n in ("attn_tf32_kernel", "flash_combine_kernel", "layer_proj_tf32_kernel",
-                     "layer_tail_tf32_kernel")}
-    print(f"profile {name} f32 graph replay T=3: wall {wall:.2f} ms, device busy {busy:.2f} ms; "
-          f"3xTF32 kernels (profiler) {ran}, the replay's recorded launches {launches}; top "
-          "device kernels:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    attn = launches["window_attention"] + launches["flash_attention"] - ran["flash_combine_kernel"]
-    if attn == 0 or ran["attn_tf32_kernel"] != attn or \
-            ran["layer_proj_tf32_kernel"] + ran["layer_tail_tf32_kernel"] != \
-            launches["transformer_layer"]:
-        fail(f"{name} f32 window: the 3xTF32 kernels ran {ran}, the replay launched {launches}")
+    for attempt in (1, 2):
+        wall, busy, kernels = profile_call(fn)
+        ran = {n: sum(e.count for e in kernels if f"::{n}" in e.key)
+               for n in ("attn_tf32_kernel", "flash_combine_kernel", "layer_proj_tf32_kernel",
+                         "layer_tail_tf32_kernel", "conv3x3_tf32_kernel")}
+        convs = sum(e.count for e in kernels if "::conv3x3_" in e.key)
+        fft = Counter({e.key[:90]: e.count for e in kernels
+                       if any(mark in e.key.lower() for mark in FFT_MARKS)})
+        print(f"profile {name} f32 graph replay T=3: wall {wall:.2f} ms, device busy {busy:.2f} "
+              f"ms, {sum(e.count for e in kernels)} device kernels; 3xTF32 kernels (profiler) "
+              f"{ran}, all conv kernels {convs}, cuDNN FFT kernels {sum(fft.values())}; the "
+              f"replay's recorded launches {launches}; top device kernels:")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+            print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+        if fft:
+            fail(f"{name} f32 window: cuDNN FFT convolutions ran: {dict(fft)}")
+        if ran["conv3x3_tf32_kernel"] != convs:
+            fail(f"{name} f32 window: {convs} conv kernels ran, {ran['conv3x3_tf32_kernel']} of "
+                 f"them the f32 design")
+        attn = (launches["window_attention"] + launches["flash_attention"]
+                - ran["flash_combine_kernel"])
+        if attn > 0 and ran["attn_tf32_kernel"] == attn and convs == launches["conv_chain"] \
+                and ran["layer_proj_tf32_kernel"] + ran["layer_tail_tf32_kernel"] == \
+                launches["transformer_layer"]:
+            return
+        if attempt == 1:
+            print(f"profile {name} f32: fewer launches than the replay recorded (the profiler "
+                  "lost events); profiling the replay again")
+    fail(f"{name} f32 window: the 3xTF32 kernels ran {ran} ({convs} conv kernels), the replay "
+         f"launched {launches}")
 
 
 def pool_holders(name, m, snap):
@@ -1144,7 +1185,7 @@ def profile_window(name, fn):
     # the conv kernel's launches by design (device kernel names under the
     # conv3x3_ prefix of DEVICE_KERNELS) against the plan's
     ran = {p: sum(e.count for e in kernels if f"::conv3x3_{p}_kernel" in e.key)
-           for p in ("fma", "mma", "wgmma")}
+           for p in conv_chain.PATHS}
     print(f"conv launches in one {name} window T=3 by design: ran {ran}, planned "
           f"{dict(planned)}")
     if any(ran[p] != planned.get(p, 0) for p in ran) or \
@@ -1568,8 +1609,8 @@ def main() -> None:
                         ("rife", True)):
         for k, n in phase_slice(name, dev, scdet).items():
             launches[k] += n
-    # every bf16 window first: after an f32 window's ~300 000 cuDNN
-    # launches, a later profile has lost a kernel event
+    # every bf16 window first (when cuDNN ran the f32 windows' convs by FFT,
+    # ~300 000 launches a window, a later profile lost a kernel event)
     models = ("rife", "gmfss", "gmfss_union")
     for name in models:
         phase_window(name, dev, gpu_line, ("bf16",))

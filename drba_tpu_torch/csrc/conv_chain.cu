@@ -106,11 +106,40 @@
 // 64; the deep narrow steps have neither (6120 pixels, Cout 192 = 3 x 64
 // but too few tiles), and odd widths cannot be TMA boxes of 16 bytes.
 //
-// f32: the FMA pipes (the tensor cores have no full-f32 mode), on the
-// PyTorch OIHW weights. Block tile 8 x 32 pixels x 32 channels, 256 threads
-// of 4 pixels x 8 channels each; patch and weights staged as f32 (the
-// pre-PReLU applied as the patch is staged), 96 FMAs per 30 shared loads.
-// Bound by FMA issue; not the main path.
+// f32 (--fp32, every step: "tf32"): the tensor cores in 3xTF32 on mma.sync
+// m16n8k8 (csrc/tf32.cuh; why mma.sync and not wgmma is said there, and
+// the conv adds one more reason: the split weights of a 64 -> 64 step take
+// 295 KB, so no block keeps them resident). What bounds it on this card:
+// mma.sync's TF32 rate over three products per f32 product (GridNet's L0
+// step, 116 GFLOP f32, is 0.70 ms at the 3xTF32 bound, 1.18 ms at
+// mma.sync's 295 TFLOP/s), then the splits' ALU work and the weight
+// fragments every block stages again from L2. The design, the bf16
+// mma.sync kernel's with f32 operands:
+//  * a block covers 8 output rows x 32 columns x 64 output channels (Cout
+//    <= 8: 8 channels; steps too small to fill the SMs: 4 or 2 rows, 32
+//    channels); each warp 4 m16 tiles (2 rows x 2 halves of 16 columns) x
+//    4 n8 tiles, 64 accumulators a thread;
+//  * K chunks of 8 input channels (one k8 step; Cin 9/12/14 zero-padded
+//    to a multiple of 8 in the patch and the packed weights): the
+//    (rows + 2) x 34 x 8-channel patch (32 bytes a pixel) and the chunk's
+//    9 taps of B fragments, copied by cp.async into a two-stage ring;
+//    Cin that is no multiple of 4 is staged by plain loads;
+//  * the weights are split on the host once per model and packed in
+//    fragment order (ops/conv_chain.pack_weights_tf32: per chunk, tap,
+//    n8 tile and lane, (hi b0, hi b1, lo b0, lo b1) with k relabelled
+//    within each 8), so a B fragment is one 16-byte shared load;
+//  * k relabelled within each 8 (tf32.cuh): lane (g, t4) reads channels
+//    2 t4 and 2 t4 + 1 of its pixel, one float2, and 16 lanes read 4
+//    neighbouring pixels' 128 contiguous bytes: no bank conflict and no
+//    swizzle. A tap's shift is only another pixel offset;
+//  * the pre-PReLU runs in place on each landed patch; the patch is split
+//    into hi and lo in registers as each A fragment is loaded, 9 times an
+//    element (once a tap): splitting it once into hi and lo planes in
+//    shared memory, behind one more barrier a chunk, measured 1.25-1.54x
+//    slower on the H100 (twice the shared loads for A);
+//  * the epilogue works on the accumulator layout, channel pairs a lane.
+// The f32 FMA design it replaced (an 8 x 32-pixel x 32-channel tile on the
+// FMA pipes) ran GMFSS's steps at 0.84-1.41x cuDNN in f32.
 //
 // Rounding follows the plain PyTorch chain in the storage dtype T: the
 // pre-PReLU's product is rounded to T; the conv output with its bias is
@@ -123,13 +152,12 @@
 #include <mutex>
 
 #include "common.cuh"
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCO = 32;  // f32: output channels per block
-constexpr int kCK = 16;  // input channels per shared-memory chunk
+constexpr int kCK = 16;  // bf16: input channels per shared-memory chunk
 
 // prelu(v) = v >= 0 ? v : v * alpha, the product rounded to T (NaN stays NaN)
 template <typename T>
@@ -858,137 +886,294 @@ int conv3x3_wgmma(const ConvArgs& a, int n, cudaStream_t s) {
   return launch_wgmma<64, 2, false>(a, n, dev, s);
 }
 
-// ------------------------------------------------------------------ f32: FMA
+// ------------------------------------------------- f32: 3xTF32 on mma.sync m16n8k8
 
-constexpr int kTH = 8;   // output rows per block
-constexpr int kTW = 32;  // output columns per block
+constexpr int kFCols = 32;             // output columns of an f32 tile: two m16 tiles
+constexpr int kFPatchW = kFCols + 2;   // patch columns
+constexpr int kFChunk = 8;             // input channels a K chunk: one k8 step, 32 bytes a pixel
 
-__global__ void __launch_bounds__(kThreads)
-conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                   const float* __restrict__ bias, const float* __restrict__ beta,
-                   const float* __restrict__ alpha, const float* __restrict__ res,
-                   float* __restrict__ out, int h, int w, int cin, int cout, int tiles_w) {
-  __shared__ float s_in[kCK][kTH + 2][kTW + 2];
-  __shared__ float s_w[kCK][9][kCO];
+// WM x WN warps; each warp MT m16 tiles (MT / 2 output rows x the tile's 32
+// columns) x NT n8 tiles: the block covers WM * MT / 2 rows x 32 columns and
+// NB = 8 * NT * WN output channels
+template <int WM, int WN, int MT, int NT>
+struct Tf32Cfg {
+  static_assert(MT % 2 == 0, "a warp's m16 tiles cover both 16-column halves of its rows");
+  static constexpr int kThreads = 32 * WM * WN;
+  // 8 x 32 x 64 tiles: two blocks an SM (<= 128 registers a thread:
+  // faster on the H100 than one block with 204); the smaller plans run
+  // where the grid does not fill the SMs, so registers matter and
+  // occupancy does not (up to 255: faster)
+  static constexpr int kMinBlocks = kThreads == 256 ? 2 : 1;
+  static constexpr int kTH = WM * MT / 2;            // output rows a block
+  static constexpr int kNB = 8 * NT * WN;
+  static constexpr int kPatchPix = (kTH + 2) * kFPatchW;
+  static constexpr int kPatchFloats = kPatchPix * kFChunk;
+  static constexpr int kWFrags = 9 * (kNB / 8) * 32;  // float4 B fragments a chunk
+  static constexpr int kStageBytes = kPatchFloats * 4 + kWFrags * 16;
+  static constexpr int kStages = 2;
+  static constexpr int kSmem = kStages * kStageBytes;
+};
 
+struct Tf32Args {
+  const float* x;      // (n, h, w, cin)
+  const float4* wp;    // packed split (ceil(cin / 8), 9, ceil(cout / 8), 32 lanes, float4)
+  const float* bias;   // (cout,)
+  const float* beta;   // (cout,) or nullptr
+  const float* alpha;  // the pre-PReLU's scalar slope, or nullptr
+  const float* res;    // (n, h, w, cout) added last, or nullptr
+  float* out;          // (n, h, w, cout)
+  int h, w, cin, cout, tiles_w, ntiles;  // ntiles = ceil(cout / 8)
+  bool vec_in;   // cin % 4 == 0 and x 16-byte aligned: cp.async of 4 channels
+  bool vec_out;  // cout % 2 == 0 and x, res, out 8-byte aligned: channel pairs
+};
+
+template <int WM, int WN, int MT, int NT>
+__global__ void __launch_bounds__(Tf32Cfg<WM, WN, MT, NT>::kThreads,
+                                  Tf32Cfg<WM, WN, MT, NT>::kMinBlocks)
+conv3x3_tf32_kernel(const Tf32Args a) {
+  using C = Tf32Cfg<WM, WN, MT, NT>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane >> 2, t4 = lane & 3;
   const int nb = blockIdx.z;
-  const int co0 = blockIdx.y * kCO;
-  const int ty0 = (blockIdx.x / tiles_w) * kTH;
-  const int tx0 = (blockIdx.x % tiles_w) * kTW;
-  const int tid = threadIdx.x;
-  const int cg = tid & 3;       // channel group: 8 output channels
-  const int pg = tid >> 2;      // pixel group: 4 consecutive columns
-  const int pr = pg >> 3;       // row in the tile
-  const int pc = (pg & 7) * 4;  // first column in the tile
+  const int co0 = blockIdx.y * C::kNB;
+  const int ty0 = (blockIdx.x / a.tiles_w) * C::kTH;
+  const int tx0 = (blockIdx.x % a.tiles_w) * kFCols;
+  const float* xn = a.x + static_cast<long long>(nb) * a.h * a.w * a.cin;
+  const uint32_t s0 = smem_u32(smem);
+  const float alpha = a.alpha != nullptr ? *a.alpha : 0.f;
 
-  const float* xn = x + static_cast<long long>(nb) * h * w * cin;
-  const float a_pre = alpha != nullptr ? *alpha : 0.f;
-  float acc[4][8];
+  // K chunk c (input channels 8 c .. 8 c + 7) into ring stage `st`: the
+  // (rows + 2) x 34-pixel patch, 32 bytes a pixel (zero outside the frame
+  // and past cin), then the chunk's B fragments, tap-major runs of the
+  // block's NB / 8 n8 tiles x 32 lanes x 16 bytes (zero past cout)
+  auto stage = [&](int c, int st) {
+    const int ci0 = c * kFChunk;
+    const uint32_t patch = s0 + st * C::kStageBytes;
+    for (int i = tid; i < C::kPatchPix * 2; i += C::kThreads) {
+      const int half = i & 1, pix = i >> 1;
+      const int r = pix / kFPatchW, col = pix - r * kFPatchW;
+      const int gy = ty0 - 1 + r, gx = tx0 - 1 + col;
+      const bool inside = gy >= 0 && gy < a.h && gx >= 0 && gx < a.w;
+      const int ci = ci0 + 4 * half;
+      const long long src = (static_cast<long long>(gy) * a.w + gx) * a.cin + ci;
+      if (a.vec_in) {
+        const bool valid = inside && ci < a.cin;
+        cp_async16(patch + pix * 32 + half * 16, valid ? xn + src : xn, valid);
+      } else {
+        float* dst = reinterpret_cast<float*>(smem + st * C::kStageBytes + pix * 32 + half * 16);
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[p][k] = 0.f;
-
-  for (int ci0 = 0; ci0 < cin; ci0 += kCK) {
-    for (int i = tid; i < (kTH + 2) * (kTW + 2) * kCK; i += kThreads) {
-      const int c = i % kCK;
-      const int p = i / kCK;
-      const int r = p / (kTW + 2), col = p % (kTW + 2);
-      const int gy = ty0 - 1 + r, gx = tx0 - 1 + col, ci = ci0 + c;
-      float v = (gy >= 0 && gy < h && gx >= 0 && gx < w && ci < cin)
-                    ? xn[(static_cast<long long>(gy) * w + gx) * cin + ci]
-                    : 0.f;
-      if (alpha != nullptr) v = prelu<float>(v, a_pre);
-      s_in[c][r][col] = v;
+        for (int e = 0; e < 4; ++e) dst[e] = inside && ci + e < a.cin ? xn[src + e] : 0.f;
+      }
     }
-    for (int i = tid; i < kCO * kCK * 9; i += kThreads) {
-      const int tap = i % 9;
-      const int c = (i / 9) % kCK;
-      const int co = i / (9 * kCK);
-      const int gco = co0 + co, ci = ci0 + c;
-      s_w[c][tap][co] = (gco < cout && ci < cin)
-                            ? wt[(static_cast<long long>(gco) * cin + ci) * 9 + tap]
-                            : 0.f;
+    const uint32_t wsm = patch + C::kPatchFloats * 4;
+    const float4* wk = a.wp + static_cast<long long>(c) * 9 * a.ntiles * 32;
+    for (int i = tid; i < C::kWFrags; i += C::kThreads) {
+      const int ln = i & 31, rest = i >> 5;
+      const int tap = rest / (C::kNB / 8), nt = co0 / 8 + rest - tap * (C::kNB / 8);
+      const bool valid = nt < a.ntiles;
+      cp_async16(wsm + i * 16, valid ? wk + (static_cast<long long>(tap) * a.ntiles + nt) * 32 + ln
+                                     : a.wp,
+                 valid);
     }
-    __syncthreads();
+  };
 
-    for (int c = 0; c < kCK; ++c) {
+  float acc[MT][NT][4];
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float xin[6];
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < 6; ++j) xin[j] = s_in[c][pr + dy][pc + j];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          float wv[8];
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nch = (a.cin + kFChunk - 1) / kFChunk;
 #pragma unroll
-          for (int k = 0; k < 8; ++k) wv[k] = s_w[c][dy * 3 + dx][cg * 8 + k];
+  for (int s = 0; s < C::kStages - 1; ++s) {
+    if (s < nch) stage(s, s);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<C::kStages - 2>();  // chunk c has landed (this thread's copies)
+    __syncthreads();                  // ... everyone's, and stage (c - 1) is free
+    const int nx = c + C::kStages - 1;
+    if (nx < nch) stage(nx, nx % C::kStages);
+    cp_async_commit();
+
+    float* patch = reinterpret_cast<float*>(smem + (c % C::kStages) * C::kStageBytes);
+    if (a.alpha != nullptr) {  // chunk c's patch is complete: activate it in place
+      for (int i = tid; i < C::kPatchFloats / 4; i += C::kThreads) {  // prelu(0) = 0
+        float4 v = reinterpret_cast<float4*>(patch)[i];
+        v.x = prelu<float>(v.x, alpha);
+        v.y = prelu<float>(v.y, alpha);
+        v.z = prelu<float>(v.z, alpha);
+        v.w = prelu<float>(v.w, alpha);
+        reinterpret_cast<float4*>(patch)[i] = v;
+      }
+      __syncthreads();
+    }
+    const float4* wsm = reinterpret_cast<const float4*>(patch + C::kPatchFloats);
+    // a tap row at a time: the nine taps unrolled spilled 140 bytes a
+    // thread at 128 registers and ran ~6% slower on the H100
+#pragma unroll 3
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      float4 bf[NT];  // this lane's (hi b0, hi b1, lo b0, lo b1) of each n8 tile
 #pragma unroll
-          for (int p = 0; p < 4; ++p)
+      for (int j = 0; j < NT; ++j) bf[j] = wsm[(tap * (C::kNB / 8) + wn * NT + j) * 32 + lane];
 #pragma unroll
-            for (int k = 0; k < 8; ++k) acc[p][k] = fmaf(xin[p + dx], wv[k], acc[p][k]);
+      for (int i = 0; i < MT; ++i) {
+        // m16 tile i: row wm * MT / 2 + i / 2 of the block, columns 16 (i % 2)
+        // .. + 15; lane (g, t4) reads channels 2 t4, 2 t4 + 1 (k t4 and t4 + 4,
+        // relabelled) of pixels g and g + 8, at the tap's shift
+        const int off = (((wm * MT / 2 + i / 2 + dy) * kFPatchW) + 16 * (i % 2) + g + dx) *
+                            kFChunk + 2 * t4;
+        const drba::FragA fa(*reinterpret_cast<const float2*>(patch + off),
+                             *reinterpret_cast<const float2*>(patch + off + 8 * kFChunk));
+#pragma unroll
+        for (int j = 0; j < NT; ++j) drba::mma_3xtf32(acc[i][j], fa, bf[j]);
+      }
+    }
+  }
+
+  // epilogue from the registers: lane (g, t4) holds pixels g and g + 8 of
+  // each m16 tile, channels 2 t4, 2 t4 + 1 of each n8 tile. f32 as the
+  // plain chain computes it, one rounding an op: bias, y * beta, + x,
+  // leaky, + res (the _rn intrinsics keep the compiler from fusing them)
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int co = co0 + 8 * (wn * NT + j) + 2 * t4;
+    if (co >= a.cout) continue;
+    const bool two = co + 1 < a.cout;
+    const float2 b2 = make_float2(a.bias[co], two ? a.bias[co + 1] : 0.f);
+    const float2 be = a.beta != nullptr ? make_float2(a.beta[co], two ? a.beta[co + 1] : 0.f)
+                                        : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int oy = ty0 + wm * MT / 2 + i / 2;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int ox = tx0 + 16 * (i % 2) + g + 8 * hh;
+        if (oy >= a.h || ox >= a.w) continue;
+        const long long pix = (static_cast<long long>(nb) * a.h + oy) * a.w + ox;
+        float y[2] = {__fadd_rn(acc[i][j][2 * hh], b2.x), __fadd_rn(acc[i][j][2 * hh + 1], b2.y)};
+        const bool pair = two && a.vec_out;
+        if (a.beta != nullptr) {  // ResConv: cin == cout, the residual is this conv's input
+          float xv[2];
+          if (pair) {
+            const float2 v = *reinterpret_cast<const float2*>(a.x + pix * a.cin + co);
+            xv[0] = v.x;
+            xv[1] = v.y;
+          } else {
+            xv[0] = a.x[pix * a.cin + co];
+            xv[1] = two ? a.x[pix * a.cin + co + 1] : 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float u = __fadd_rn(__fmul_rn(y[e], e ? be.y : be.x), xv[e]);
+            y[e] = u >= 0.f ? u : __fmul_rn(u, 0.2f);
+          }
+        }
+        if (a.res != nullptr) {
+          if (pair) {
+            const float2 v = *reinterpret_cast<const float2*>(a.res + pix * a.cout + co);
+            y[0] = __fadd_rn(y[0], v.x);
+            y[1] = __fadd_rn(y[1], v.y);
+          } else {
+            y[0] = __fadd_rn(y[0], a.res[pix * a.cout + co]);
+            if (two) y[1] = __fadd_rn(y[1], a.res[pix * a.cout + co + 1]);
+          }
+        }
+        if (pair) {
+          *reinterpret_cast<float2*>(a.out + pix * a.cout + co) = make_float2(y[0], y[1]);
+        } else {
+          a.out[pix * a.cout + co] = y[0];
+          if (two) a.out[pix * a.cout + co + 1] = y[1];
         }
       }
     }
-    __syncthreads();
   }
+}
 
-  const int oy = ty0 + pr;
-  if (oy >= h) return;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int ox = tx0 + pc + p;
-    if (ox >= w) continue;
-    const long long pix = (static_cast<long long>(nb) * h + oy) * w + ox;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int co = co0 + cg * 8 + k;
-      if (co < cout) epilogue<float>(acc[p][k], x, bias, beta, res, out, pix, co, cin, cout);
-    }
+template <int WM, int WN, int MT, int NT>
+int launch_tf32(const Tf32Args& a, int n, int dev, cudaStream_t s) {
+  using C = Tf32Cfg<WM, WN, MT, NT>;
+  auto kernel = conv3x3_tf32_kernel<WM, WN, MT, NT>;
+  static std::atomic<bool> smem_set[kMaxDevices] = {};  // as launch_mma
+  if (dev >= kMaxDevices || !smem_set[dev]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < kMaxDevices) smem_set[dev] = true;
   }
+  const dim3 grid(drba::cdiv(a.h, C::kTH) * a.tiles_w, drba::cdiv(a.cout, C::kNB), n);
+  kernel<<<grid, C::kThreads, C::kSmem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 tile plans: Cout <= 8 (MetricNet's 2) one n8 tile a block over
+// 8 x 32 pixels; else 8 x 32 pixels x 64 channels, then, while the grid has
+// fewer blocks than SMs, 4 rows, 32 channels, 2 rows (IFNet's deep steps)
+int conv3x3_tf32(Tf32Args a, int n, cudaStream_t s) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  a.tiles_w = static_cast<int>(drba::cdiv(a.w, kFCols));
+  a.ntiles = static_cast<int>(drba::cdiv(a.cout, 8));
+  auto fills = [&](int rows, int nb) {
+    return static_cast<long long>(drba::cdiv(a.h, rows)) * a.tiles_w * drba::cdiv(a.cout, nb) *
+               n >= sms;
+  };
+  if (a.cout <= 8) return launch_tf32<4, 1, 4, 1>(a, n, dev, s);
+  if (fills(8, 64)) return launch_tf32<4, 2, 4, 4>(a, n, dev, s);
+  if (fills(4, 64)) return launch_tf32<2, 2, 4, 4>(a, n, dev, s);
+  if (fills(4, 32)) return launch_tf32<2, 1, 4, 4>(a, n, dev, s);
+  return launch_tf32<1, 1, 4, 4>(a, n, dev, s);
 }
 
 }  // namespace
 
 // x (n,h,w,cin), bias (cout,), beta (cout,) or NULL, alpha (1,) or NULL,
 // res (n,h,w,cout) or NULL, out (n,h,w,cout); all in one dtype (f32|bf16),
-// contiguous. bf16 reads the weights packed by ops/conv_chain.pack_weights,
-// wp (ceil(cin/16), 9, cout, 16), 16-byte aligned; f32 reads wt
-// (cout,cin,3,3). With beta, cin == cout and no alpha (checked by the
-// caller). path (ops/conv_chain.conv3x3_path): 0 the f32 FMA kernel, 1 the
-// bf16 mma.sync kernel, 2 the bf16 wgmma kernel; a path that does not take
-// the dtype, or whose shape rules the call fails, is refused
-// (cudaErrorInvalidValue) and nothing runs. Returns cudaGetLastError().
+// contiguous. The weights packed once per model, 16-byte aligned: bf16 by
+// ops/conv_chain.pack_weights, wp (ceil(cin/16), 9, cout, 16); f32 split by
+// ops/conv_chain.pack_weights_tf32, wp (ceil(cin/8), 9, ceil(cout/8), 32,
+// 4); wt (cout,cin,3,3) is not read. With beta, cin == cout and no alpha
+// (checked by the caller). path (ops/conv_chain.conv3x3_path): 0 the f32
+// 3xTF32 kernel, 1 the bf16 mma.sync kernel, 2 the bf16 wgmma kernel; a
+// path that does not take the dtype, or whose shape rules the call fails,
+// is refused (cudaErrorInvalidValue) and nothing runs. Returns
+// cudaGetLastError().
 extern "C" int drba_conv3x3(const void* x, const void* wt, const void* wp, const void* bias,
                             const void* beta, const void* alpha, const void* res, void* out,
                             int n, int h, int w, int cin, int cout, int dtype, int path,
                             void* stream) {
+  (void)wt;
   const bool f32 = dtype == drba::kF32 && path == 0;
   const bool bf = dtype == drba::kBF16 && (path == 1 || path == 2);
   if (!f32 && !bf) return static_cast<int>(cudaErrorInvalidValue);
+  if (wp == nullptr || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(n) * h * w * cout == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf) {
-    using T = drba::bf16;
-    if (wp == nullptr || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const bool x16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    const bool res16 = reinterpret_cast<uintptr_t>(res) % 16 == 0;  // NULL is aligned
-    const ConvArgs a{static_cast<const T*>(x), static_cast<const T*>(wp),
-                     static_cast<const T*>(bias), static_cast<const T*>(beta),
-                     static_cast<const T*>(alpha), static_cast<const T*>(res),
-                     static_cast<T*>(out), h, w, cin, cout, 0,
-                     cin % 8 == 0 && x16,
-                     cout % 8 == 0 && x16 && res16 &&
-                         reinterpret_cast<uintptr_t>(out) % 16 == 0};
-    return path == 2 ? conv3x3_wgmma(a, n, s) : conv3x3_bf16(a, n, s);
+  const bool x16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (f32) {
+    const auto al8 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; };
+    const Tf32Args a{static_cast<const float*>(x), static_cast<const float4*>(wp),
+                     static_cast<const float*>(bias), static_cast<const float*>(beta),
+                     static_cast<const float*>(alpha), static_cast<const float*>(res),
+                     static_cast<float*>(out), h, w, cin, cout, 0, 0,
+                     cin % 4 == 0 && x16,
+                     cout % 2 == 0 && al8(x) && al8(res) && al8(out)};
+    return conv3x3_tf32(a, n, s);
   }
-  const int tiles_w = static_cast<int>(drba::cdiv(w, kTW));
-  const dim3 grid(drba::cdiv(h, kTH) * tiles_w, drba::cdiv(cout, kCO), n);
-  conv3x3_fma_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wt),
-      static_cast<const float*>(bias), static_cast<const float*>(beta),
-      static_cast<const float*>(alpha), static_cast<const float*>(res),
-      static_cast<float*>(out), h, w, cin, cout, tiles_w);
-  return static_cast<int>(cudaGetLastError());
+  using T = drba::bf16;
+  const bool res16 = reinterpret_cast<uintptr_t>(res) % 16 == 0;  // NULL is aligned
+  const ConvArgs a{static_cast<const T*>(x), static_cast<const T*>(wp),
+                   static_cast<const T*>(bias), static_cast<const T*>(beta),
+                   static_cast<const T*>(alpha), static_cast<const T*>(res),
+                   static_cast<T*>(out), h, w, cin, cout, 0,
+                   cin % 8 == 0 && x16,
+                   cout % 8 == 0 && x16 && res16 && reinterpret_cast<uintptr_t>(out) % 16 == 0};
+  return path == 2 ? conv3x3_wgmma(a, n, s) : conv3x3_bf16(a, n, s);
 }

@@ -1,5 +1,6 @@
 // f32-accurate matrix products on the tensor cores: 3xTF32 on mma.sync
-// (m16n8k8), shared by the f32 kernels of attention.cu and attn_layer.cu.
+// (m16n8k8), shared by the f32 kernels of attention.cu, attn_layer.cu and
+// conv_chain.cu.
 //
 // A TF32 operand keeps 10 mantissa bits, so one TF32 product loses about
 // three decimal digits against f32. Each operand x is split as x = hi + lo,

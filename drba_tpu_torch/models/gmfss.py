@@ -23,8 +23,8 @@ from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_gmfss
 from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, pack_transformer_weights
 from drba_tpu_torch.models.gmfss_core import GmfssParams, Reuse, gmfss_inference, gmfss_reuse
-from drba_tpu_torch.models.gmfss_nets import (FEATURENET_CHAIN, FEATURENET_SPEC,
-                                             GRIDNET_SPEC, METRICNET_CHAIN, METRICNET_SPEC,
+from drba_tpu_torch.models.gmfss_nets import (FEATURENET_SPEC, GRIDNET_SPEC, METRICNET_CHAIN,
+                                             METRICNET_SPEC, featurenet_chain_convs,
                                              gridnet_chain_convs, pack_chain_weights)
 
 
@@ -47,11 +47,14 @@ def _select_integer_ts(out, ts, *frames):
 
 
 def pack_chain_sites(p: GmfssParams, union: bool = False) -> GmfssParams:
-    """MetricNet, FeatureNet and GridNet with the bf16 conv kernel's packed
-    weights (``.wp`` keys) that their chain sites read, built once per model."""
+    """MetricNet, FeatureNet and GridNet with the conv kernel's packed
+    weights (``.wp`` keys) that their chain sites read, built once per model
+    from the weights in the compute dtype (split for f32, whose sites take
+    more convs)."""
+    f32 = p.metricnet["metric_in.weight"].dtype == torch.float32
     return p._replace(metricnet=pack_chain_weights(p.metricnet, METRICNET_CHAIN),
-                      feat_ext=pack_chain_weights(p.feat_ext, FEATURENET_CHAIN),
-                      fusionnet=pack_chain_weights(p.fusionnet, gridnet_chain_convs(union)))
+                      feat_ext=pack_chain_weights(p.feat_ext, featurenet_chain_convs(f32)),
+                      fusionnet=pack_chain_weights(p.fusionnet, gridnet_chain_convs(union, f32)))
 
 
 def _drba_window(p: GmfssParams, I0, I1, I2, ts, ts_host, reuse10: Reuse, reuse12: Reuse,

@@ -12,8 +12,11 @@ level-1 conv with its pre-PReLU, and GridNet's L0 and L1 blocks with their
 residual sums and its tail's two convs. drba_tpu takes the chain only where
 its TPU column packing fits (``w % 16 == 0 and h % 4 == 0``); the port's
 kernel takes every shape, so these sites take the chain at every size.
-FeatureNet's levels 2-3, GridNet's stride-2 and transposed convs and its
-192-channel L2 stay on cuDNN, as in drba_tpu. MetricNet's four backward
+In f32 the stride-1 convs of FeatureNet's levels 2-3 and of GridNet's
+192-channel L2 blocks run as chains too (the same function; with TF32 off
+cuDNN runs them by FFT, with a workspace of gigabytes); in bf16 they stay
+on cuDNN, as do GridNet's stride-2 and transposed convs, as in drba_tpu.
+MetricNet's four backward
 warps are the exact zeros-padding gather of ``ops/warp`` (the hand-written
 warp kernel on a CUDA tensor). GridNet's tail runs ``conv_last`` on the
 low-resolution side of the pixel shuffle
@@ -26,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from drba_tpu_torch.models.layers import Params, conv2d, conv_transpose2d, prelu
-from drba_tpu_torch.ops.conv_chain import ChainStep, pack_weights
+from drba_tpu_torch.ops.conv_chain import ChainStep, pack_step_weights
 from drba_tpu_torch.ops.conv_chain import conv_chain as run_chain
 from drba_tpu_torch.ops.distance import flow_distance
 from drba_tpu_torch.ops.shuffle import fold_conv_after_shuffle, pixel_shuffle
@@ -58,11 +61,11 @@ def _step(p: Params, conv: str, pre: str | None = None, plain_res: bool = False)
 
 
 def pack_chain_weights(p: Params, convs) -> dict:
-    """``p`` plus the bf16 conv kernel's packed weights (ops/conv_chain.
-    pack_weights) of the chain-site convs ``convs`` (``METRICNET_CHAIN``,
-    ``FEATURENET_CHAIN``, ``gridnet_chain_convs``) under ``{conv}.wp``,
-    built once per model."""
-    return {**p, **{f"{c}.wp": pack_weights(p[f"{c}.weight"]) for c in convs}}
+    """``p`` plus the conv kernel's packed weights (ops/conv_chain.
+    pack_step_weights: split for f32, as the weights' dtype says) of the
+    chain-site convs ``convs`` (``METRICNET_CHAIN``, ``featurenet_chain_convs``,
+    ``gridnet_chain_convs``) under ``{conv}.wp``, built once per model."""
+    return {**p, **{f"{c}.wp": pack_step_weights(p[f"{c}.weight"]) for c in convs}}
 
 
 # the convs of MetricNet's one chain
@@ -137,15 +140,21 @@ FEATURENET_SPEC = build_featurenet_spec()
 FEATURENET_CHAIN = ("block1.3",)
 
 
+def featurenet_chain_convs(f32: bool = False) -> tuple[str, ...]:
+    """The convs FeatureNet's chain sites run (``featurenet_apply``): level
+    1's second conv, and in f32 those of levels 2 and 3 too."""
+    return FEATURENET_CHAIN + (("block2.3", "block3.3") if f32 else ())
+
+
 def featurenet_apply(p: Params, x, conv_backend: str = "auto"):
     """3-level pyramid at 1/2, 1/4, 1/8 (model_gmfss/FeatureNet.py:29-34).
     Level 1's second conv runs as a one-step chain with its pre-PReLU, on
-    ``conv_backend``."""
+    ``conv_backend``; in f32 levels 2's and 3's do too."""
     outs = []
     for i in (1, 2, 3):
         x = conv2d(p, f"block{i}.1", prelu(p, f"block{i}.0", x), stride=2, padding=1)
-        if i == 1:
-            x = run_chain(x, [_step(p, "block1.3", "block1.2")], backend=conv_backend)
+        if i == 1 or x.dtype == torch.float32:
+            x = run_chain(x, [_step(p, f"block{i}.3", f"block{i}.2")], backend=conv_backend)
         else:
             x = conv2d(p, f"block{i}.3", prelu(p, f"block{i}.2", x), stride=1, padding=1)
         outs.append(x)
@@ -232,12 +241,19 @@ _GRIDNET_SEQ = ("residual_model_head1", "residual_model_head2", "residual_model_
 _GRIDNET_STRIDED = ("downsample_model_10", "downsample_model_11", "upsample_model_14",
                     "upsample_model_04", "upsample_model_15", "upsample_model_05")
 _GRIDNET_TAIL = ("residual_model_tail.conv_before_upsample.0", "residual_model_tail.upsample.0")
+# the L2 chain sites, f32 only: the stride-1 seq blocks and the stride-2
+# blocks' trailing conv
+_GRIDNET_L2_SEQ = ("residual_model_head3", "residual_model_21", "residual_model_24",
+                   "residual_model_25")
+_GRIDNET_L2_STRIDED = ("downsample_model_20", "downsample_model_21")
 
 
-def gridnet_chain_convs(union: bool = False) -> tuple[str, ...]:
-    """The convs GridNet's chain sites run (``gridnet_apply``)."""
-    return (tuple(f"{b}.{j}" for b in (_head0(union),) + _GRIDNET_SEQ for j in (1, 3))
-            + tuple(f"{b}.3" for b in _GRIDNET_STRIDED) + _GRIDNET_TAIL)
+def gridnet_chain_convs(union: bool = False, f32: bool = False) -> tuple[str, ...]:
+    """The convs GridNet's chain sites run (``gridnet_apply``), with L2's in f32."""
+    seq = (_head0(union),) + _GRIDNET_SEQ + (_GRIDNET_L2_SEQ if f32 else ())
+    strided = _GRIDNET_STRIDED + (_GRIDNET_L2_STRIDED if f32 else ())
+    return (tuple(f"{b}.{j}" for b in seq for j in (1, 3)) + tuple(f"{b}.3" for b in strided)
+            + _GRIDNET_TAIL)
 
 
 def gridnet_apply(p: Params, x, x1, x2, x3, union: bool = False, conv_backend: str = "auto"):
@@ -249,8 +265,10 @@ def gridnet_apply(p: Params, x, x1, x2, x3, union: bool = False, conv_backend: s
     packing): each seq block one chain carrying its lattice sum as the final
     residual; the stride-2 and transposed convs on cuDNN, each followed by
     its trailing conv as a one-step chain carrying the lattice sum; the
-    tail's two convs as one chain. L2 (192 channels) stays on cuDNN. The
-    sums add the same terms in the same order as FusionNet.py.
+    tail's two convs as one chain. L2 (192 channels) stays on cuDNN in
+    bf16 and takes the chain in f32, as L1 does. The sums add the same terms
+    in the same order as FusionNet.py (a sum's two terms swapped where a
+    chain carries the first: the same value).
     """
     def seq(prefix, src, residual="none", res=None):
         # _seq_block (PReLU, conv, PReLU, conv) as one two-step chain
@@ -268,13 +286,19 @@ def gridnet_apply(p: Params, x, x1, x2, x3, union: bool = False, conv_backend: s
     X00 = seq("residual_model_head1", x1, "extra", seq(_head0(union), x))
     X01 = seq("residual_model_01", X00, "input")
     X10 = strided_plus("downsample_model_10", X00, seq("residual_model_head2", x2))
-    X20 = (_seq_block(p, "downsample_model_20", X10, stride=2)
-           + _seq_block(p, "residual_model_head3", x3))
     X11 = strided_plus("downsample_model_11", X01, seq("residual_model_11", X10, "input"))
-    X21 = ((_seq_block(p, "residual_model_21", X20) + X20)
-           + _seq_block(p, "downsample_model_21", X11, stride=2))
-    X24 = _seq_block(p, "residual_model_24", X21) + X21
-    X25 = _seq_block(p, "residual_model_25", X24) + X24
+    if x.dtype == torch.float32:  # L2 as L1
+        X20 = strided_plus("downsample_model_20", X10, seq("residual_model_head3", x3))
+        X21 = strided_plus("downsample_model_21", X11, seq("residual_model_21", X20, "input"))
+        X24 = seq("residual_model_24", X21, "input")
+        X25 = seq("residual_model_25", X24, "input")
+    else:
+        X20 = (_seq_block(p, "downsample_model_20", X10, stride=2)
+               + _seq_block(p, "residual_model_head3", x3))
+        X21 = ((_seq_block(p, "residual_model_21", X20) + X20)
+               + _seq_block(p, "downsample_model_21", X11, stride=2))
+        X24 = _seq_block(p, "residual_model_24", X21) + X21
+        X25 = _seq_block(p, "residual_model_25", X24) + X24
     X14 = strided_plus("upsample_model_14", X24, seq("residual_model_14", X11, "input"), True)
     X04 = strided_plus("upsample_model_04", X14, seq("residual_model_04", X01, "input"), True)
     X15 = strided_plus("upsample_model_15", X25, seq("residual_model_15", X14, "input"), True)

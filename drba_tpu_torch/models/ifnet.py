@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from drba_tpu_torch.models.layers import Params, conv2d, conv_transpose2d, leaky_relu
-from drba_tpu_torch.ops.conv_chain import ChainStep, conv_chain, pack_weights
+from drba_tpu_torch.ops.conv_chain import ChainStep, conv_chain, pack_step_weights
 from drba_tpu_torch.ops.resize import resize_bilinear
 from drba_tpu_torch.ops.shuffle import pixel_shuffle
 from drba_tpu_torch.ops.warp import backwarp2
@@ -70,25 +70,27 @@ def ifnet_encode(p: Params, img: torch.Tensor) -> torch.Tensor:
 
 
 def pack_resconv_weights(p: Params) -> Params:
-    """``p`` plus every ResConv weight packed for the bf16 conv kernel
-    (ops/conv_chain.pack_weights) under ``{b}.convblock.{j}.conv.wp``: built
-    once, where a model builds its parameters."""
+    """``p`` plus every ResConv weight packed for the conv kernel of its
+    dtype (ops/conv_chain.pack_step_weights: split for f32) under
+    ``{b}.convblock.{j}.conv.wp``: built once, where a model builds its
+    parameters, from the weights in the compute dtype."""
     out = dict(p)
     for i in range(len(BLOCK_CHANNELS)):
         for j in range(8):
             name = f"block{i}.convblock.{j}.conv"
-            out[f"{name}.wp"] = pack_weights(p[f"{name}.weight"])
+            out[f"{name}.wp"] = pack_step_weights(p[f"{name}.weight"])
     return out
 
 
 def _resconv_steps(p: Params, b: str, dtype: torch.dtype) -> tuple[ChainStep, ...]:
     """The 8 ResConvs ``leaky(conv(x) * beta + x)`` of block ``b``
     (IFNet_HDv3.py:12-20,71) as ChainSteps in ``dtype``, on the weights
-    ``pack_resconv_weights`` packed."""
+    ``pack_resconv_weights`` packed, as packed (the kernel refuses a layout
+    packed for another dtype)."""
     return tuple(ChainStep(w=p[f"{b}.convblock.{j}.conv.weight"].to(dtype),
                            b=p[f"{b}.convblock.{j}.conv.bias"].to(dtype),
                            beta=p[f"{b}.convblock.{j}.beta"].to(dtype),
-                           wp=p[f"{b}.convblock.{j}.conv.wp"].to(dtype))
+                           wp=p[f"{b}.convblock.{j}.conv.wp"])
                  for j in range(8))
 
 

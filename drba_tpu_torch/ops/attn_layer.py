@@ -37,6 +37,7 @@ from drba_tpu_torch.ops.attention import (
     launch_window,
     window_attention_nhwc,
 )
+from drba_tpu_torch.ops.tf32 import pack_frags, split_tf32, unpack_frags  # noqa: F401
 
 SLAB = 64      # columns of a packed slab
 H_CHUNK = 64   # hidden columns of a packed bf16 FFN chunk
@@ -94,43 +95,6 @@ def pack_ffn(w0: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.cat([pack_slabs(w0[:, j:j + H_CHUNK]).reshape(-1),
                                    pack_slabs(w2[j:j + H_CHUNK]).reshape(-1)])
                         for j in range(0, hidden, H_CHUNK)])
-
-
-def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """f32 ``x`` = hi + lo exactly: hi is ``x`` rounded to TF32 (10 mantissa
-    bits, to nearest with ties away from zero, as ``cvt.rna.tf32.f32``), lo
-    = x - hi (|lo| <= 2^-11 |x|), which the tensor core reads to TF32 in
-    turn. The split of the 3xTF32 products (csrc/tf32.cuh)."""
-    bits = x.float().contiguous().view(torch.int32)
-    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-    return hi, x.float() - hi
-
-
-def pack_frags(w: torch.Tensor) -> torch.Tensor:
-    """An f32 (K, N) weight stored (in, out), K and N multiples of 8 ->
-    (K/8, N/8, 32, 4): per k-step kk and column tile nt, lane 4 g + t holds
-    (hi b0, hi b1, lo b0, lo b1) with b0 = w[8 kk + 2 t, 8 nt + g] and b1 =
-    w[8 kk + 2 t + 1, 8 nt + g] (``split_tf32``): the m16n8k8 B fragments
-    of csrc/tf32.cuh, k relabelled within each 8, already split."""
-    k, n = w.shape
-    hi, lo = split_tf32(w)
-
-    def lanes(t):  # (K, N) -> (kk, t, pair, nt, g) -> (kk, nt, lane 4g + t, pair)
-        return t.reshape(k // 8, 4, 2, n // 8, 8).permute(0, 3, 4, 1, 2).reshape(
-            k // 8, n // 8, 32, 2)
-
-    return torch.cat([lanes(hi), lanes(lo)], dim=-1).contiguous()
-
-
-def unpack_frags(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The inverse of ``pack_frags``: (K/8, N/8, 32, 4) -> (hi, lo), each
-    (K, N); the weight is hi + lo."""
-    kk, nt = p.shape[:2]
-
-    def back(t):  # (kk, nt, g, t, pair) -> (kk, t, pair, nt, g)
-        return t.reshape(kk, nt, 8, 4, 2).permute(0, 3, 4, 1, 2).reshape(8 * kk, 8 * nt)
-
-    return back(p[..., :2]), back(p[..., 2:])
 
 
 def pack_ffn_frags(w0: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:

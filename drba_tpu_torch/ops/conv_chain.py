@@ -12,11 +12,13 @@ work and have no counterpart: the kernel takes any channel count.
 ``conv_chain(x, steps, residual, res)`` runs one hand-written kernel launch
 per step (csrc/conv_chain.cu) for CUDA tensors, and chained ``F.conv2d``
 calls with the same epilogues for CPU tensors (or ``backend='torch'``). The
-bf16 kernels read their weights packed by ``pack_weights``, once, where a
-model builds its parameters (models/ifnet.pack_resconv_weights,
-models/gmfss_nets.pack_chain_weights; ``chain_step`` elsewhere). Each step
-takes one of three kernel designs, as ``conv3x3_path`` plans it from the
-shape: ``"fma"`` (f32), ``"mma"`` (bf16 on mma.sync, the small and narrow
+kernels read their weights packed once, where a model builds its parameters
+(models/ifnet.pack_resconv_weights, models/gmfss_nets.pack_chain_weights;
+``chain_step`` elsewhere), by ``pack_step_weights``: bf16 by
+``pack_weights``, f32 split into hi and lo in fragment order by
+``pack_weights_tf32``. Each step takes one of three kernel designs, as
+``conv3x3_path`` plans it from the dtype and the shape: ``"tf32"`` (f32,
+3xTF32 on mma.sync), ``"mma"`` (bf16 on mma.sync, the small and narrow
 steps) or ``"wgmma"`` (bf16 on wgmma with persistent blocks, the large
 steps).
 """
@@ -29,10 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from drba_tpu_torch._build import CONV, check_cuda_input, dtype_code, stream_of, use_kernel
+from drba_tpu_torch.ops.tf32 import pack_frags, split_tf32, tf32_read, unpack_frags
 
 RESIDUALS = ("none", "input", "extra")
 # the kernel designs of csrc/conv_chain.cu, by the code its C entry takes
-PATHS = ("fma", "mma", "wgmma")
+PATHS = ("tf32", "mma", "wgmma")
 # the fewest warpgroup tiles (64 columns x its rows) for the wgmma design:
 # 8 for each of the H100's 2 x 132 warpgroups. Below that, each block's
 # one-time weight load and the launch's tensor maps outweigh its tiles
@@ -64,15 +67,17 @@ def wgmma_takes(cin: int, cout: int) -> bool:
 
 
 def conv3x3_path(n: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype) -> str:
-    """The kernel design a step of this shape takes: ``"fma"`` for f32;
-    ``"wgmma"`` for bf16 steps with Cin a multiple of 16 and at least 64,
+    """The kernel design a step of this shape takes: ``"tf32"`` for every
+    f32 step (3xTF32 on mma.sync; it replaced the FMA design, which the
+    H100 measured slower at every GMFSS and RIFE step); ``"wgmma"`` for
+    bf16 steps with Cin a multiple of 16 and at least 64,
     Cout a multiple of 64 up to 256, weights that fit resident in a block
     (``wgmma_blocks``) and ``WGMMA_MIN_TILES`` tiles; ``"mma"`` for the
     other bf16 steps (RIFE's ResConvs, Cin 9/12/14, Cout 2, and GridNet's
     256 -> 128 head, where the wgmma design streams its weights and
     measured slower than mma.sync on the H100)."""
     if dtype != torch.bfloat16:
-        return "fma"
+        return "tf32"
     if not (wgmma_takes(cin, cout) and cin >= 64):
         return "mma"
     nb, rows, resident = wgmma_blocks(cin, cout)
@@ -84,7 +89,7 @@ class ChainStep(NamedTuple):
     """One conv of the chain: ``y = conv3x3(pre(x)) + b``, then the epilogue.
 
     w: (Cout, Cin, 3, 3) PyTorch layout; b, beta: (Cout,); wp: ``w`` packed
-    for the bf16 kernel (``pack_weights``), which needs it.
+    for the kernel of its dtype (``pack_step_weights``), which needs it.
     beta: the ResConv epilogue ``y = leaky_relu(y * beta + x, 0.2)``.
     pre_alpha: the scalar slope of a PReLU on the conv's input (one value,
         shape () or (1,)); never with ``beta``.
@@ -114,10 +119,40 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
     return wp.reshape(cout, cin_pad // 16, 16, 9).permute(1, 3, 0, 2).contiguous()
 
 
-def unpack_weights(wp: torch.Tensor, cin: int) -> torch.Tensor:
-    """The inverse of ``pack_weights``: (ceil(Cin/16), 9, Cout, 16) -> (Cout, Cin, 3, 3)."""
-    chunks, _, cout, _ = wp.shape
-    return wp.permute(2, 0, 3, 1).reshape(cout, chunks * 16, 3, 3)[:, :cin].contiguous()
+def pack_weights_tf32(w: torch.Tensor) -> torch.Tensor:
+    """f32 (Cout, Cin, 3, 3) -> (ceil(Cin/8), 9, ceil(Cout/8), 32, 4), zero
+    past Cin and Cout.
+
+    The f32 kernel's B fragments, split: per K chunk of 8 input channels,
+    tap (raster order) and n8 tile of output channels, lane 4 g + t holds
+    (hi b0, hi b1, lo b0, lo b1) with b0 = w[8 nt + g, 8 c + 2 t] and b1 =
+    w[8 nt + g, 8 c + 2 t + 1] (``ops/tf32.pack_frags`` of the tap's
+    (Cin, Cout) matrix; hi + lo == w exactly, ``split_tf32``).
+    """
+    cout, cin = w.shape[:2]
+    ci, co = -(-cin // 8) * 8, -(-cout // 8) * 8
+    taps = w.new_zeros((9, ci, co), dtype=torch.float32)
+    taps[:, :cin, :cout] = w.float().permute(2, 3, 1, 0).reshape(9, cin, cout)
+    return torch.stack([pack_frags(t) for t in taps], dim=1).contiguous()
+
+
+def pack_step_weights(w: torch.Tensor) -> torch.Tensor:
+    """``w`` packed for the kernel of its dtype: split by
+    ``pack_weights_tf32`` for f32, ``pack_weights`` for bf16."""
+    return pack_weights_tf32(w) if w.dtype == torch.float32 else pack_weights(w)
+
+
+def unpack_weights(wp: torch.Tensor, cin: int, cout: int | None = None) -> torch.Tensor:
+    """The inverse of either packing -> (Cout, Cin, 3, 3): ``pack_weights``'
+    (ceil(Cin/16), 9, Cout, 16), or ``pack_weights_tf32``'s (ceil(Cin/8), 9,
+    ceil(Cout/8), 32, 4) as hi + lo (``cout`` cuts its padding)."""
+    if wp.dim() == 5:
+        chunks, _, ntiles = wp.shape[:3]
+        taps = torch.stack([sum(unpack_frags(wp[:, t])) for t in range(9)])  # (9, Ci, Co)
+        w = taps.reshape(3, 3, chunks * 8, ntiles * 8).permute(3, 2, 0, 1)
+        return w[:cout, :cin].contiguous()
+    chunks, _, co, _ = wp.shape
+    return wp.permute(2, 0, 3, 1).reshape(co, chunks * 16, 3, 3)[:cout, :cin].contiguous()
 
 
 def conv3x3_packed_plain(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -137,10 +172,33 @@ def conv3x3_packed_plain(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor) -> 
     return (acc + b.float()).to(x.dtype)
 
 
+def conv3x3_tf32_plain(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """conv3x3(x) + b (NHWC f32, pad 1) computed from the split weights
+    (``pack_weights_tf32``) as the f32 kernel's 3xTF32 products are: per K
+    chunk of 8 channels and tap, x_lo w_hi + x_hi w_lo + x_hi w_hi (each lo
+    read as TF32, x split as ``split_tf32``), summed in f32 in that order."""
+    n, h, w, cin = x.shape
+    chunks, _, ntiles = wp.shape[:3]
+    xp = torch.zeros((n, h + 2, w + 2, chunks * 8), dtype=torch.float32, device=x.device)
+    xp[:, 1:h + 1, 1:w + 1, :cin] = x.float()
+    xh, xl = split_tf32(xp)
+    xl = tf32_read(xl)
+    acc = torch.zeros((n, h, w, ntiles * 8), dtype=torch.float32, device=x.device)
+    for g in range(chunks):
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            wh, wl = unpack_frags(wp[g:g + 1, tap])  # (8, Cout_pad) each
+            win = (slice(None), slice(dy, dy + h), slice(dx, dx + w), slice(8 * g, 8 * g + 8))
+            acc = acc + xl[win] @ wh
+            acc = acc + xh[win] @ tf32_read(wl)
+            acc = acc + xh[win] @ wh
+    return acc[..., :b.shape[0]] + b.float()
+
+
 def chain_step(w: torch.Tensor, b: torch.Tensor, beta: torch.Tensor | None = None,
                pre_alpha: torch.Tensor | None = None, plain_res: bool = False) -> ChainStep:
-    """A ChainStep with its weights packed once for the bf16 kernel."""
-    return ChainStep(w=w, b=b, beta=beta, wp=pack_weights(w), pre_alpha=pre_alpha,
+    """A ChainStep with its weights packed once for the kernel of their dtype."""
+    return ChainStep(w=w, b=b, beta=beta, wp=pack_step_weights(w), pre_alpha=pre_alpha,
                      plain_res=plain_res)
 
 
@@ -167,18 +225,26 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  alpha: torch.Tensor | None = None,
                  res: torch.Tensor | None = None, path: str | None = None) -> torch.Tensor:
     """One chain step on the kernel: x (N,H,W,Cin) -> (N,H,W,Cout), all one
-    dtype. bf16 reads ``wp`` (``pack_weights(w)``), f32 reads ``w``.
-    ``alpha``: the pre-PReLU's slope (one value); ``res``: (N,H,W,Cout)
-    added last. ``path``: the kernel design (``PATHS``); None takes
-    ``conv3x3_path``'s plan. A design that does not take the dtype or the
-    shape raises."""
+    dtype. The kernel reads ``wp``, ``w`` packed for its dtype
+    (``pack_step_weights``): bf16 ``pack_weights(w)``, f32 the split
+    ``pack_weights_tf32(w)``; any other layout is refused by its shape and
+    dtype. ``alpha``: the pre-PReLU's slope (one value); ``res``:
+    (N,H,W,Cout) added last. ``path``: the kernel design (``PATHS``); None
+    takes ``conv3x3_path``'s plan. A design that does not take the dtype or
+    the shape raises."""
     check_cuda_input("x", x, ndim=4)
     n, h, wd, cin = x.shape
     cout = w.shape[0]
-    if x.dtype == torch.bfloat16 and wp is None:
-        raise ValueError("the bf16 conv kernel reads packed weights: pass wp=pack_weights(w) "
-                         "(ChainSteps from chain_step hold them)")
-    packed = (-(-cin // 16), 9, cout, 16)
+    path = conv3x3_path(n, h, wd, cin, cout, x.dtype) if path is None else path
+    if path not in PATHS:
+        raise ValueError(f"path={path!r}; valid: {', '.join(PATHS)}")
+    f32 = x.dtype == torch.float32
+    if (path == "tf32") != f32:
+        raise ValueError(f"the {path} kernel does not take {x.dtype}")
+    if wp is None:
+        raise ValueError(f"the {path} conv kernel reads packed weights: pass "
+                         f"wp=pack_step_weights(w) (ChainSteps from chain_step hold them)")
+    packed = (-(-cin // 8), 9, -(-cout // 8), 32, 4) if f32 else (-(-cin // 16), 9, cout, 16)
     alpha = None if alpha is None else alpha.reshape(-1)
     for name, t, shape in (("w", w, (cout, cin, 3, 3)), ("b", b, (cout,)),
                            ("beta", beta, (cout,)), ("wp", wp, packed), ("alpha", alpha, (1,)),
@@ -193,11 +259,6 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"the ResConv epilogue needs Cin == Cout, got {cin} -> {cout}")
     if beta is not None and alpha is not None:
         raise ValueError("the pre-PReLU does not combine with the ResConv epilogue")
-    path = conv3x3_path(n, h, wd, cin, cout, x.dtype) if path is None else path
-    if path not in PATHS:
-        raise ValueError(f"path={path!r}; valid: {', '.join(PATHS)}")
-    if (path == "fma") != (x.dtype == torch.float32):
-        raise ValueError(f"the {path} kernel does not take {x.dtype}")
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     if path == "wgmma":
         if not wgmma_takes(cin, cout):
@@ -209,7 +270,7 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    CONV.launch(x.data_ptr(), w.data_ptr(), ptr(wp), b.data_ptr(), ptr(beta), ptr(alpha),
+    CONV.launch(x.data_ptr(), w.data_ptr(), wp.data_ptr(), b.data_ptr(), ptr(beta), ptr(alpha),
                 ptr(res), out.data_ptr(), n, h, wd, cin, cout, dtype_code(x),
                 PATHS.index(path), stream_of(x), device=x.device)
     return out
@@ -262,8 +323,8 @@ def conv_chain(x: torch.Tensor, steps: Sequence[ChainStep], residual: str = "non
         r = x if s.plain_res else None
         if i == len(steps) - 1 and residual != "none":
             r = x0 if residual == "input" else res
-        if kernel:
-            x = conv3x3_cuda(x, arg(s.w), arg(s.b), arg(s.beta), arg(s.wp), arg(s.pre_alpha),
+        if kernel:  # wp as packed: a cast would not make another dtype's layout
+            x = conv3x3_cuda(x, arg(s.w), arg(s.b), arg(s.beta), s.wp, arg(s.pre_alpha),
                              arg(r))
         else:
             x = _step_plain(x, s, r)

@@ -6,13 +6,20 @@ package's, in turns, at the 1080p path shapes, on one NVIDIA GPU.
     git show <rev>:drba_tpu_torch/csrc/conv_chain.cu > .chip_check/conv_chain_old.cu
     python3 scripts/torch_warp_conv_compare.py [--warp .chip_check/warp_old.cu] \
         [--conv .chip_check/conv_chain_old.cu]
+    git show 9e2a442:drba_tpu_torch/csrc/conv_chain.cu > .chip_check/conv_fma.cu
+    python3 scripts/torch_warp_conv_compare.py --conv .chip_check/conv_fma.cu --dtype f32
 
 The other sources are built with the package's nvcc flags next to
 themselves and called through their own C entries, in the interface each
 had: the warp before the two-direction warp (one image and a 2-channel
-flow), the conv as it stood before the plan of designs (the packed weights
-and the eight-pointer entry without a design code: e.g. ``git show
-a63d220:drba_tpu_torch/csrc/conv_chain.cu``). The warp is timed at the RIFE
+flow), the conv's eight-pointer entry with the design code that came with
+the plan of designs (f080fd1 on), or, in an older source, without it
+(e.g. ``git show a63d220:drba_tpu_torch/csrc/conv_chain.cu``); the design
+passed is the package plan's. With ``--dtype f32`` the conv runs in f32
+(TF32 off for cuDNN) on design 0 (the f32 design: the FMA kernel up to
+9e2a442, which reads the OIHW weights, 3xTF32 since, which reads the split
+ones: both are passed), at the same shapes and f32's chain sites at
+GridNet's L2 and FeatureNet's levels 2-3. The warp is timed at the RIFE
 path's five launches of a T=3 window, which the old build ran as that path
 did: the tap warps on stacked inputs, stage 4 and the merge as two
 one-direction launches each (inputs made once, outside the timing). The
@@ -57,6 +64,13 @@ GMFSS_STEPS = {
     "union head0 9->64 pre": (3, HU // 2, W // 2, 9, 64, True, "none"),
     "union L0 pre + extra": (3, HU // 2, W // 2, 64, 64, True, "extra"),
 }
+# f32's chain sites only (bf16 leaves them on cuDNN)
+F32_STEPS = {
+    "gridnet L2 pre + input": (3, H // 8, W // 8, 192, 192, True, "input"),
+    "gridnet head3 384->192 pre": (3, H // 8, W // 8, 384, 192, True, "none"),
+    "featurenet L2 pre": (1, H // 4, W // 4, 128, 128, True, "none"),
+    "featurenet L3 pre": (1, H // 8, W // 8, 192, 192, True, "none"),
+}
 
 
 def build_other(src: Path):
@@ -79,13 +93,15 @@ def main() -> None:
 
     from chip_smoke import cmd_line, smooth_flow, timed
     from drba_tpu_torch import _build, bounds
-    from drba_tpu_torch.ops.conv_chain import chain_step, conv3x3_cuda, conv3x3_path
+    from drba_tpu_torch.ops.conv_chain import PATHS, chain_step, conv3x3_cuda, conv3x3_path
     from drba_tpu_torch.ops.warp import backwarp, backwarp2, sample_positions
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warp", type=Path, help="another build's warp.cu (one-direction entry)")
-    ap.add_argument("--conv", type=Path, help="another build's conv_chain.cu (eight-pointer "
-                    "entry without a design code)")
+    ap.add_argument("--conv", type=Path, help="another build's conv_chain.cu (its "
+                    "eight-pointer entry, with or without a design code)")
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16",
+                    help="the conv's dtype (default bf16)")
     args = ap.parse_args()
     if not (args.warp or args.conv) or not torch.cuda.is_available():
         sys.exit(__doc__)
@@ -94,9 +110,11 @@ def main() -> None:
     if args.warp:
         old_warp = build_other(args.warp.resolve())
         old_warp.drba_warp.argtypes = [P, P, P] + [I] * 8 + [P]
+    f32 = args.dtype == "f32"
     if args.conv:
         old_conv = build_other(args.conv.resolve())
-        old_conv.drba_conv3x3.argtypes = [P] * 8 + [I] * 6 + [P]
+        coded = "int dtype, int path" in args.conv.read_text()  # the entry takes a design
+        old_conv.drba_conv3x3.argtypes = [P] * 8 + [I] * (7 if coded else 6) + [P]
     gpu = cmd_line(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"])
     print(gpu)
@@ -104,6 +122,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
+    cdt = torch.float32 if f32 else bf16  # the conv's dtype
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
 
     def check(rc):
@@ -175,38 +194,44 @@ def main() -> None:
                            (3, 64, 136, 240), (3, 32, 272, 480), (1, 192, 17, 30))}
     if old_conv is not None:
         convs.update(GMFSS_STEPS)
+        if f32:
+            convs.update(F32_STEPS)
     for label, (n, h, w, cin, cout, pre, residual) in convs.items():
         bound = 1.0 / (9 * cin) ** 0.5
-        x = (torch.rand(n, h, w, cin, generator=gen, device=dev) * 2 - 1).to(bf16)
-        extra = (torch.rand(n, h, w, cout, generator=gen, device=dev) * 2 - 1).to(bf16) \
+        x = (torch.rand(n, h, w, cin, generator=gen, device=dev) * 2 - 1).to(cdt)
+        extra = (torch.rand(n, h, w, cout, generator=gen, device=dev) * 2 - 1).to(cdt) \
             if residual == "extra" else None
         st = chain_step(((torch.rand(cout, cin, 3, 3, generator=gen, device=dev) * 2 - 1)
-                         * bound).to(bf16),
-                        ((torch.rand(cout, generator=gen, device=dev) * 2 - 1) * 0.05).to(bf16),
-                        (1 + 0.2 * torch.randn(cout, generator=gen, device=dev)).to(bf16)
+                         * bound).to(cdt),
+                        ((torch.rand(cout, generator=gen, device=dev) * 2 - 1) * 0.05).to(cdt),
+                        (1 + 0.2 * torch.randn(cout, generator=gen, device=dev)).to(cdt)
                         if residual == "beta" else None,
-                        pre_alpha=torch.tensor(0.25, device=dev).to(bf16) if pre else None)
+                        pre_alpha=torch.tensor(0.25, device=dev).to(cdt) if pre else None)
         res = {"plain": x, "input": x, "extra": extra}.get(residual)
-        out = torch.empty(n, h, w, cout, dtype=bf16, device=dev)
+        out = torch.empty(n, h, w, cout, dtype=cdt, device=dev)
+        path = conv3x3_path(n, h, w, cin, cout, cdt)
+        dtype_code = 0 if f32 else 1  # csrc/common.cuh
+        design = (dtype_code, PATHS.index(path)) if coded else (dtype_code,)
         ptr = lambda t: None if t is None else t.data_ptr()
-        fo = (lambda x=x, st=st, res=res, out=out, n=n, h=h, w=w, cin=cin, cout=cout:
+        fo = (lambda x=x, st=st, res=res, out=out, n=n, h=h, w=w, cin=cin, cout=cout,
+              design=design:
               (check(old_conv.drba_conv3x3(x.data_ptr(), st.w.data_ptr(), st.wp.data_ptr(),
                                            st.b.data_ptr(), ptr(st.beta), ptr(st.pre_alpha),
-                                           ptr(res), out.data_ptr(), n, h, w, cin, cout, 1,
-                                           stream())), out)[1])
+                                           ptr(res), out.data_ptr(), n, h, w, cin, cout,
+                                           *design, stream())), out)[1])
         fn = (lambda x=x, st=st, res=res: conv3x3_cuda(x, st.w, st.b, st.beta, st.wp,
                                                        st.pre_alpha, res))
         nchw = x.permute(0, 3, 1, 2)
         lib = (lambda x=nchw, st=st: F.conv2d(x, st.w, st.b, padding=1), "F.conv2d (cuDNN)")
         group = "conv" if label.startswith("ifnet") and n == 3 else \
             ("conv (extra)" if label.startswith("ifnet") else "conv (gmfss)")
-        path = conv3x3_path(n, h, w, cin, cout, bf16)
         cases.append((group, f"conv {label} ({n},{h},{w},{cin})->{cout} [{path}]", fo, fn,
-                      bounds.conv3x3_work(n, h, w, cin, cout, 2, beta=residual == "beta",
-                                          alpha=pre, res=residual == "extra"), lib))
+                      bounds.conv3x3_work(n, h, w, cin, cout, 4 if f32 else 2,
+                                          beta=residual == "beta", alpha=pre,
+                                          res=residual == "extra"), lib))
 
     rows = []
-    print(f"{'shape (bf16)':<72} {'max|old-new|':>12} {'old ms':>8} {'new ms':>8} "
+    print(f"{'shape (' + args.dtype + ')':<72} {'max|old-new|':>12} {'old ms':>8} {'new ms':>8} "
           f"{'old/new':>7} {'bound ms':>9} {'new share':>9} {'lib ms':>8} {'new/lib':>8}")
     for group, label, fo, fn, work, lib in cases:
         diff = float((fo().float() - fn().float()).abs().max())

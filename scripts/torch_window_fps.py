@@ -11,12 +11,15 @@ For each model: a seed-0 bf16 model on the card, three synthetic 1080p
 frames at the model's padded size, the reuse chained; ``inference_ts_drba``
 at T = 2 and T = 3 (24 -> 60 alternates them), 5 calls each on CUDA events,
 twice in turns; prints the window ms and the fps over a T=2+3 pair beside
-the card's name and power limit. Compare two trees by running them as
-parent, change, change, parent, one after another on one card.
+the card's name and power limit, and a digest (SHA-256) of one T=3
+window's frames: equal digests are bitwise equal outputs. Compare two trees
+by running them as parent, change, change, parent, one after another on
+one card.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import subprocess
 import sys
@@ -54,8 +57,11 @@ def main() -> None:
                 times[len(ts)].append(cs.timed(
                     lambda: m.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True), 5))
         t2, t3 = (sum(times[n]) / 2 for n in (2, 3))
+        out = torch.stack(m.inference_ts_drba(I0, I1, I2, ts3, reuse, linear=True)[0])
+        digest = hashlib.sha256(out.contiguous().view(torch.int16).cpu().numpy().tobytes())
         print(f"{root}: {name} window bf16 1080p kernel path: T=2 {t2:.2f} ms, T=3 {t3:.2f} ms, "
-              f"{5e3 / (t2 + t3):.2f} fps  [{gpu}]", flush=True)
+              f"{5e3 / (t2 + t3):.2f} fps, T=3 frames sha256 {digest.hexdigest()[:16]}  "
+              f"[{gpu}]", flush=True)
         del m
         torch.cuda.empty_cache()
 

@@ -270,7 +270,9 @@ def test_models_pack_exactly_the_convs_the_chain_sites_read(union, monkeypatch):
     """GMFSS and GMFSS_UNION hold the conv kernel's packed weights (``.wp``)
     of the chain sites' convs and of no other conv: a window reads every one
     of them, each with its packed weights, and each unpacks to its conv's
-    weights."""
+    weights. The models compute in f32, so the sites include FeatureNet's
+    levels 2-3 and GridNet's L2, and the weights are split
+    (``pack_weights_tf32``)."""
     from drba_tpu_torch.models.gmfss import GMFSS
     from drba_tpu_torch.models.gmfss_union import GMFSS_UNION
     from drba_tpu_torch.ops.conv_chain import unpack_weights
@@ -281,14 +283,16 @@ def test_models_pack_exactly_the_convs_the_chain_sites_read(union, monkeypatch):
         (conv, p.get(f"{conv}.wp") is not None)) or step(p, conv, *a, **k))
     m = (GMFSS_UNION if union else GMFSS)(config=F32, device="cpu")
     m.inference_ts_drba(*_frames(3, 128, 128), [0.5, 1.3], None, linear=True)
-    tables = (nets.METRICNET_CHAIN, nets.FEATURENET_CHAIN, nets.gridnet_chain_convs(union))
+    tables = (nets.METRICNET_CHAIN, nets.featurenet_chain_convs(f32=True),
+              nets.gridnet_chain_convs(union, f32=True))
     assert {c for c, _ in read} == set().union(*tables)
     assert all(packed for _, packed in read)
     for p, convs in zip(m.params[1:], tables):
         assert {k for k in p if k.endswith(".wp")} == {f"{c}.wp" for c in convs}
         for c in convs:
             w = p[f"{c}.weight"]
-            assert torch.equal(unpack_weights(p[f"{c}.wp"], w.shape[1]), w), c
+            assert p[f"{c}.wp"].dim() == 5, c  # split, in fragment order
+            assert torch.equal(unpack_weights(p[f"{c}.wp"], w.shape[1], w.shape[0]), w), c
 
 
 def test_cuda_conv_backend_on_cpu_raises():

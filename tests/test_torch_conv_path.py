@@ -1,9 +1,9 @@
 """The conv kernel's plan of designs (``ops/conv_chain.conv3x3_path``) and
 the wrapper's refusals, on the CPU.
 
-csrc/conv_chain.cu has three designs: the f32 FMA kernel, the bf16
-``mma.sync`` kernel for the small and narrow steps, and the bf16 ``wgmma``
-kernel with persistent blocks for the large ones. The plan is Python, so
+csrc/conv_chain.cu has three designs: the f32 kernel (3xTF32 on
+``mma.sync``), the bf16 ``mma.sync`` kernel for the small and narrow steps,
+and the bf16 ``wgmma`` kernel with persistent blocks for the large ones. The plan is Python, so
 the shapes each model's steps send to each design are checked here; the
 kernels themselves run only on the card (tests/test_torch_gpu.py).
 """
@@ -57,6 +57,14 @@ MMA_STEPS = {
     "gridnet head": (3, H // 2, W // 2, 12, 64),
     "union head0": (3, HU // 2, W // 2, 9, 64),
 }
+# the steps only f32 sends to the kernel (bf16 leaves them on cuDNN):
+# GridNet's 192-channel L2 blocks and FeatureNet's levels 2-3
+F32_STEPS = {
+    "gridnet L2": (3, H // 8, W // 8, 192, 192),
+    "gridnet head3 first step": (3, H // 8, W // 8, 384, 192),
+    "featurenet L2": (1, H // 4, W // 4, 128, 128),
+    "featurenet L3": (1, H // 8, W // 8, 192, 192),
+}
 
 
 @pytest.mark.parametrize("step", list(GMFSS_STEPS))
@@ -69,10 +77,10 @@ def test_plan_keeps_the_deep_narrow_and_odd_steps_on_mma(step):
     assert conv3x3_path(*MMA_STEPS[step], BF16) == "mma"
 
 
-@pytest.mark.parametrize("step", list(GMFSS_STEPS) + list(MMA_STEPS))
-def test_plan_sends_every_f32_step_to_the_fma_kernel(step):
-    shape = GMFSS_STEPS.get(step) or MMA_STEPS[step]
-    assert conv3x3_path(*shape, F32) == "fma"
+@pytest.mark.parametrize("step", list(GMFSS_STEPS) + list(MMA_STEPS) + list(F32_STEPS))
+def test_plan_sends_every_f32_step_to_the_tf32_kernel(step):
+    shape = GMFSS_STEPS.get(step) or MMA_STEPS.get(step) or F32_STEPS[step]
+    assert conv3x3_path(*shape, F32) == "tf32"
 
 
 def test_wgmma_blocks_keep_their_weights_where_they_fit():
@@ -105,7 +113,7 @@ def _step(cin, cout, dtype=BF16):
                       torch.randn(cout, generator=g).to(dtype))
 
 
-@pytest.mark.parametrize("path", [None, "fma", "mma", "wgmma"])
+@pytest.mark.parametrize("path", [None, "tf32", "mma", "wgmma"])
 def test_conv3x3_cuda_with_a_path_raises_on_cpu_tensors(path):
     st = _step(64, 64)
     x = torch.zeros(1, 8, 8, 64, dtype=BF16)
@@ -127,7 +135,7 @@ def launches(monkeypatch):
 
 @pytest.mark.parametrize("shape,dtype,path", [
     ((3, 40, 130, 64, 64), BF16, "wgmma"), ((3, 40, 130, 64, 64), BF16, "mma"),
-    ((1, 8, 8, 12, 64), BF16, "mma"), ((1, 8, 8, 64, 64), F32, "fma")])
+    ((1, 8, 8, 12, 64), BF16, "mma"), ((1, 8, 8, 64, 64), F32, "tf32")])
 def test_conv3x3_cuda_passes_the_design_to_the_kernel(launches, shape, dtype, path):
     n, h, w, cin, cout = shape
     st = _step(cin, cout, dtype)
@@ -143,8 +151,8 @@ def test_conv3x3_cuda_passes_the_design_to_the_kernel(launches, shape, dtype, pa
     (64, 320, BF16, "wgmma", "up to 256"),
     (64, 64, F32, "wgmma", "does not take"),
     (64, 64, F32, "mma", "does not take"),
-    (64, 64, BF16, "fma", "does not take"),
-    (64, 64, BF16, "tensor", "valid: fma, mma, wgmma")])
+    (64, 64, BF16, "tf32", "does not take"),
+    (64, 64, BF16, "tensor", "valid: tf32, mma, wgmma")])
 def test_conv3x3_cuda_refuses_a_design_the_step_does_not_fit(launches, cin, cout, dtype, path,
                                                               match):
     st = _step(cin, cout, dtype)

@@ -310,6 +310,111 @@ def test_conv_wgmma_refuses_shapes_it_does_not_take(dev):
         conv3x3_cuda(x, w, torch.zeros(64, device=dev), path="wgmma")
 
 
+def _f32_step(gen, dev, cin, cout, pre=False, plain=False, beta=False):
+    bound = 1.0 / (9 * cin) ** 0.5
+    return chain_step(
+        (torch.rand(cout, cin, 3, 3, generator=gen, device=dev) * 2 - 1) * bound,
+        (torch.rand(cout, generator=gen, device=dev) * 2 - 1) * 0.05,
+        1 + 0.2 * torch.randn(cout, generator=gen, device=dev) if beta else None,
+        pre_alpha=torch.tensor(-0.3, device=dev) if pre else None, plain_res=plain)
+
+
+@pytest.mark.parametrize("nhw", [(1, 19, 37), (3, 17, 70), (3, 72, 200)])
+@pytest.mark.parametrize("cin,cout,epilogue", [
+    (ci, co, e) for ci, co in ((64, 64), (128, 128), (192, 192), (384, 192), (64, 256),
+                               (9, 64), (12, 64), (14, 64), (64, 2))
+    for e in ("none", "prelu", "plain", "input", "extra", "beta")
+    if ci == co or e in ("none", "prelu", "extra")])
+def test_conv_tf32_kernel_matches_plain(dev, nhw, cin, cout, epilogue):
+    """The f32 design (3xTF32 on mma.sync), forced with path="tf32", against
+    the plain step on ragged maps (no multiple of its 32-column tile or its
+    rows), with every epilogue: the pre-PReLU (a negative slope on a patch
+    that straddles the frame's zero padding), the plain residual, the
+    chain's input and an extra tensor as the final residual, and the
+    ResConv beta (Cin == Cout). Cin 9 / 14 (no multiple of 4: staged by
+    plain loads) and 12 (cp.async of 4 channels), each padded to 8 in K;
+    Cout 2 (one masked n8 tile, unpaired stores), 256 (four 64-channel
+    blocks); the maps take the launcher's tile plans from 2 to 8 rows."""
+    from drba_tpu_torch.ops.conv_chain import _step_plain, conv3x3_cuda
+
+    n, h, w = nhw
+    gen = torch.Generator(device=dev).manual_seed(cin * 7 + cout + n + h)
+    x = torch.rand(n, h, w, cin, generator=gen, device=dev) * 2 - 1
+    extra = torch.rand(n, h, w, cout, generator=gen, device=dev) * 2 - 1
+    st = _f32_step(gen, dev, cin, cout, pre=epilogue in ("prelu", "plain", "input", "extra"),
+                   plain=epilogue == "plain", beta=epilogue == "beta")
+    res = {"plain": x, "input": x, "extra": extra}.get(epilogue)
+    n0 = _build.CONV.launches
+    got = conv3x3_cuda(x, st.w, st.b, st.beta, st.wp, st.pre_alpha, res, path="tf32")
+    assert _build.CONV.launches == n0 + 1
+    want = _step_plain(x, st, res)
+    # f32 sums of 9 * Cin products in another order, each product 3xTF32
+    # (about 2^-21 of it off); values up to ~3
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_conv_tf32_kernel_matches_its_emulation(dev):
+    """The kernel's products as ``conv3x3_tf32_plain`` emulates them (the
+    same split, the same three TF32 products per K chunk and tap): within
+    f32 summation order of each other, far closer than either is to a
+    single TF32 product."""
+    from drba_tpu_torch.ops.conv_chain import conv3x3_cuda, conv3x3_tf32_plain
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand(2, 21, 45, 128, generator=gen, device=dev) * 2 - 1
+    st = _f32_step(gen, dev, 128, 64)
+    got = conv3x3_cuda(x, st.w, st.b, wp=st.wp)
+    emu = conv3x3_tf32_plain(x, st.wp, st.b)
+    torch.testing.assert_close(got, emu, atol=2e-5, rtol=0)
+
+
+def test_conv_tf32_refuses_weights_not_split_for_it(dev):
+    """The f32 kernel reads only ``pack_weights_tf32``'s layout: the bf16
+    layout (even cast to f32), no packed weights at all, and a bf16 design
+    for an f32 step are refused before anything launches; the C entry
+    refuses an f32 call on a bf16 design as well."""
+    from drba_tpu_torch.ops.conv_chain import PATHS, conv3x3_cuda, pack_weights
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.zeros(1, 20, 70, 64, device=dev)
+    st = _f32_step(gen, dev, 64, 64)
+    n0 = _build.CONV.launches
+    with pytest.raises(ValueError, match="wp: expected"):
+        conv3x3_cuda(x, st.w, st.b, wp=pack_weights(st.w))
+    with pytest.raises(TypeError, match="wp"):
+        conv3x3_cuda(x, st.w, st.b, wp=st.wp.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="packed weights"):
+        conv3x3_cuda(x, st.w, st.b)
+    for path in ("mma", "wgmma"):
+        with pytest.raises(ValueError, match="does not take"):
+            conv3x3_cuda(x, st.w, st.b, wp=st.wp, path=path)
+    assert _build.CONV.launches == n0
+    out = torch.empty_like(x)
+    for path in ("mma", "wgmma"):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.CONV.launch(x.data_ptr(), st.w.data_ptr(), st.wp.data_ptr(), st.b.data_ptr(),
+                               None, None, None, out.data_ptr(), 1, 20, 70, 64, 64, 0,
+                               PATHS.index(path), torch.cuda.current_stream(dev).cuda_stream,
+                               device=dev)
+    assert _build.CONV.launches == n0
+
+
+def test_gmfss_f32_window_launch_counts(dev):
+    """An f32 T=3 window runs 44 conv chain steps: FeatureNet's levels 1-3
+    for I2 (3), MetricNet (5), GridNet's L0 (14), L1 (12) and L2 (10: the
+    four stride-1 blocks' two steps, the two stride-2 blocks' trailing
+    conv), where bf16 runs 32 (``test_gmfss_window_launch_counts``)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    base = torch.rand(1, 128, 192 + 12, 3, generator=gen, device=dev)
+    fr = [base[:, :, 6 * i:6 * i + 192].contiguous() for i in range(3)]
+    m = _graph_model("gmfss", torch.float32, dev)
+    _, reuse = m.inference_ts_drba(*fr, [0.7, 1.1], None, linear=True)
+    before = _build.counts()
+    m.inference_ts_drba(*fr, [0.6, 1.0, 1.4], reuse, linear=True)
+    after = _build.counts()
+    assert after["conv_chain"] - before["conv_chain"] == 44
+
+
 def test_rife_1080p_window_kernel_path_matches_plain(dev):
     """The 1080p window on the kernel path against the plain path, in f32 and
     bf16, with the same seed-0 model; every kernel of the RIFE path launches."""

@@ -9,12 +9,20 @@
   (K = 128, 256, 1024) against float64: 3xTF32 stays within the f32
   tolerances that chip_smoke.py holds the kernels to (attention 2e-5, the
   layer 1e-4 + 1e-4 |ref|); one TF32 product does not.
+* The f32 conv weights split in the conv kernel's fragment order
+  (``pack_weights_tf32``): hi + lo == w, each element where the kernel
+  reads it, Cin and Cout padded to 8 with zeros; ``pack_step_weights`` by
+  dtype.
+* The conv kernel's 3xTF32 products (``conv3x3_tf32_plain``) at the conv
+  depths K = 9 Cin of the f32 chain steps (Cin 9 to 384) against float64:
+  within chip_smoke.py's f32 conv tolerance (1e-4); one TF32 product not.
 * ``cli.main --fp32`` leaves cuDNN and matmuls in full f32 (both TF32 flags
   False), on a tiny cv2 clip on the CPU.
 
 Inputs come from numpy seeds.
 """
 
+import importlib
 import os
 
 import numpy as np
@@ -123,7 +131,68 @@ def test_pack_layer_weights_by_dtype_unpacks_to_the_weights(dtype, cross):
         assert w0 is None and wt.ffn_p is None
 
 
+@pytest.mark.parametrize("cin,cout", [(9, 64), (14, 2), (64, 64), (192, 192), (384, 192)])
+def test_pack_weights_tf32_round_trips_in_the_conv_fragment_layout(cin, cout):
+    cc = importlib.import_module("drba_tpu_torch.ops.conv_chain")
+
+    w = _randn(cin * cout, cout, cin, 3, 3, scale=0.1)
+    p = cc.pack_weights_tf32(w)
+    assert tuple(p.shape) == (-(-cin // 8), 9, -(-cout // 8), 32, 4) and p.is_contiguous()
+    assert torch.equal(cc.unpack_weights(p, cin, cout), w)
+    hi, lo = al.split_tf32(w)
+    # csrc/conv_chain.cu: lane 4 g + t of (chunk c, tap, n8 tile nt) holds
+    # input channels 8 c + 2 t, + 1 of output channel 8 nt + g
+    for c, tap, nt, lane in ((0, 0, 0, 0), (p.shape[0] - 1, 8, p.shape[2] - 1, 31),
+                             (p.shape[0] // 2, 4, p.shape[2] // 2, 13)):
+        g, t = lane // 4, lane % 4
+        o, i, ky, kx = 8 * nt + g, 8 * c + 2 * t, tap // 3, tap % 3
+        for e, src in ((0, hi), (2, lo)):
+            for d in (0, 1):
+                want = src[o, i + d, ky, kx] if o < cout and i + d < cin else 0.0
+                assert p[c, tap, nt, lane, e + d] == want
+
+
+def test_pack_step_weights_takes_the_layout_of_the_dtype():
+    cc = importlib.import_module("drba_tpu_torch.ops.conv_chain")
+
+    w = _randn(0, 64, 32, 3, 3, scale=0.1)
+    assert cc.pack_step_weights(w).dim() == 5
+    wb = cc.pack_step_weights(w.to(torch.bfloat16))
+    assert wb.dtype == torch.bfloat16 and torch.equal(wb, cc.pack_weights(w.to(torch.bfloat16)))
+    assert torch.equal(cc.chain_step(w, torch.zeros(64)).wp, cc.pack_weights_tf32(w))
+
+
 # --------------------------------------------------------------------- the product's accuracy
+
+
+CONV_TOL = 1e-4  # chip_smoke.py: f32 conv steps against their plain version (max abs)
+
+
+@pytest.mark.parametrize("cin", [9, 14, 64, 128, 192, 256, 384])
+def test_three_tf32_conv_keeps_the_f32_conv_tolerance_and_one_does_not(cin):
+    """A 3x3 step at K = 9 Cin as the f32 conv kernel computes it, inputs in
+    [-1, 1) and weights within 1 / sqrt(9 Cin) as chip_smoke.py draws them,
+    against float64: 3xTF32 within the f32 conv tolerance with room to
+    spare; one TF32 product (x and w rounded to TF32) beyond it."""
+    import torch.nn.functional as F
+
+    cc = importlib.import_module("drba_tpu_torch.ops.conv_chain")
+
+    rng = np.random.default_rng(cin)
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 12, 20, cin)).astype(np.float32))
+    w = torch.from_numpy((rng.uniform(-1, 1, (64, cin, 3, 3)) / (9 * cin) ** 0.5)
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.uniform(-0.05, 0.05, 64).astype(np.float32))
+    want = F.conv2d(x.double().permute(0, 3, 1, 2), w.double(), b.double(),
+                    padding=1).permute(0, 2, 3, 1)
+    wp = cc.pack_weights_tf32(w)
+    err3 = float((cc.conv3x3_tf32_plain(x, wp, b).double() - want).abs().max())
+    one = wp.clone()
+    one[..., 2:] = 0  # no lo terms: x_hi w_hi alone
+    err1 = float((cc.conv3x3_tf32_plain(al.split_tf32(x)[0], one, b).double() - want)
+                 .abs().max())
+    assert err3 <= CONV_TOL / 20, err3
+    assert err1 > CONV_TOL, err1
 
 
 def _tf32_read(x: torch.Tensor) -> torch.Tensor:

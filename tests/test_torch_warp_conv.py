@@ -259,7 +259,8 @@ def _op_calls():
                             lambda: splat_cuda.splat_normalise_cuda(acc, 4, 1, torch.float32),
                             acc),
         "warp": (warp_cuda, WARP, lambda: warp_cuda.warp_cuda(img, z(1, 4, 4, 2)), img),
-        "conv": (conv_chain, CONV, lambda: conv_chain.conv3x3_cuda(x, z(8, 8, 3, 3), z(8)), x),
+        "conv": (conv_chain, CONV, lambda: conv_chain.conv3x3_cuda(
+            x, z(8, 8, 3, 3), z(8), wp=conv_chain.pack_weights_tf32(z(8, 8, 3, 3))), x),
         "window": (attention, WINDOW, lambda: attention._window_cuda(q, q, q, None, False), q),
         "flash": (attention, FLASH,
                   lambda: attention._flash_cuda(q, q, z(2, 64, 2), None, False), q),

@@ -37,7 +37,8 @@ Phases (any failure exits non-zero and prints no result):
      that each kernel of the path was launched during its run (launch counts
      are reset just before each run and read just after); the steady-state
      windows replay their captured CUDA graph (``graphs.py``), whose
-     replays count the launches their capture recorded;
+     replays count the launches their capture recorded; the models' graphs
+     printed by kind (``window``, ``plain``, ``pass``, ``unfused``);
   5. windows: one window of each model on the kernel path against the plain
      path (f32 and bf16), the window time both ways (each through its
      graph), and a profile of one kernel-path window's eager pieces
@@ -49,7 +50,13 @@ Phases (any failure exits non-zero and prints no result):
      window (``inference_ts_drba``) against its eager pieces within the
      gates (f32 and bf16), and, in bf16 at T = 2 and 3, both timed in turns
      (CUDA events), their wall, host and device-busy time per window and
-     idle share, and each graph's memory pool; in f32, GMFSS's and
+     idle share, and each graph's memory pool; in bf16 also drba_tpu's
+     other programs as graphs against their eager bodies, per call
+     (``inference_ts`` at T = 1 and 2 on a given reuse, the chain start's
+     pass, for GMFSS and GMFSS_UNION ``inference_ts`` without a reuse): the
+     bf16 gate, a replay's hand-written launches equal to the eager call's,
+     both timed the same ways, a replay's host time below the eager call's
+     (else the script fails); in f32, GMFSS's and
      GMFSS_UNION's windows timed on the plain path's and the kernel path's
      eager pieces (before any f32 graph) and through the graph, in turns,
      and one replay of each profiled: every window, flash and layer launch
@@ -62,31 +69,40 @@ Phases (any failure exits non-zero and prints no result):
      less k, fewer kernel launches than the uninterrupted run, and the
      frames bitwise where two uninterrupted runs are, else within the bf16
      gate; the segmented writer (cv2 or ffmpeg) is left to the CPU tests;
-  7. devices: ``run_pipeline_parallel`` over two replicas on the one card
-     (two dispatch threads and streams, the windows' eager pieces) for the
+  7. scene cuts twice: RIFE and GMFSS ``run_pipeline -s -st 0.3`` twice on
+     one model instance over 16 frames, frames 4 and 10 colour-inverted
+     (four cuts): in the second run every ``plain``, ``pass`` and ``window``
+     call replays (else the script fails), the two runs' frames within the
+     bf16 gate, the graphs printed by kind with their replays and pools;
+  8. devices: ``run_pipeline_parallel`` over two replicas on the one card
+     (two dispatch threads and streams, each replica's passes and windows
+     through its own ``pass`` and ``unfused`` graphs) for the
      four slices and an 18-frame GMFSS stream, against the serial run
      (graphed; count, frames within the bf16
-     gate, every kernel of the path launched), both timed in turns;
+     gate, every kernel of the path launched), both timed in turns; each
+     replica's graphs and replays (the RIFE and 18-frame runs, where each
+     replica runs three or more windows of one T, fail unless they replay);
      ``exchange_accounting`` of one GMFSS group; eight GMFSS windows alone
      through the serial chain and the planner over one and two replicas;
-  8. uhd (after the earlier phases' models and graph pools are freed): RIFE
+  9. uhd (after the earlier phases' models and graph pools are freed): RIFE
      and GMFSS at ``-scale 0.5`` on 4K frames (2176x3840): a T = 3 and a
      T = 2 window each through its graph against the plain path's eager
      pieces (the bf16 gate), the window ms, each graph's pool bytes and
      launches per replay; then a 6-frame 4K RIFE ``run_pipeline``: the
      planned frames, all finite, every kernel of the path launched;
-  9. gate: ``bench_torch.gate_composed``, the composed fast path (kernels,
+ 10. gate: ``bench_torch.gate_composed``, the composed fast path (kernels,
      half-resolution DRM splats, bf16) against the exact plain path in bf16
      and in f32, min frame SSIM >= 0.995 at injected pans of 8, 20 and 40 px
      (a reading below fails the script); and one SSIM reading each, not
      gated, of a GMFSS and a GMFSS_UNION window against their f32 plain path;
- 10. f32 pools (last, after the earlier pools are freed): what holds an
+ 11. f32 pools (last, after the earlier pools are freed): what holds an
      f32 GMFSS and an f32 GMFSS_UNION graph's pool (the allocator's history
      during each capture, by the port's source lines).
 
 The line before the last is one JSON object with a summary per kernel (and
 ``*_f32`` rows for the f32 designs of window, flash, layer and conv, whose
-launches are the f32 windows'); the last line is ``{"ok": true, "device":
+launches are the f32 windows'; ``ms_at_library_shapes``: the kernel's time
+summed over the shapes its ``library_ms`` covers); the last line is ``{"ok": true, "device":
 {...}}``. TF32 is off for PyTorch's f32 convolutions and products
 (``config.full_f32_products``, as the CLI sets it); the main path computes
 in bf16, where TF32 does not apply.
@@ -309,7 +325,8 @@ def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
     summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "work": bounds.Work(0.0),
-                   "library_ms": None, "library_call": LIBRARY[n]} for n in REPLACES}
+                   "library_ms": None, "ms_at_library": None, "library_call": LIBRARY[n]}
+               for n in REPLACES}
     for n in F32_ROWS:
         summary[f"{n}_f32"] = dict(summary[n], library_call=LIBRARY[n].replace(
             "in bf16", "in f32") + " (f32, TF32 off)")
@@ -340,8 +357,9 @@ def phase_kernels(dev):
             s["ms"] += tk
             s["plain_ms"] += tp
             s["work"] = s["work"] + work
-            if tl is not None:
+            if tl is not None:  # and the kernel's time on the library call's shapes
                 s["library_ms"] = (s["library_ms"] or 0.0) + tl
+                s["ms_at_library"] = (s["ms_at_library"] or 0.0) + tk
 
     print("kernels vs plain PyTorch (1080p RIFE and GMFSS path shapes):")
     # splat: the path's softsplat calls of a T=3 window, each a scatter and a
@@ -817,11 +835,9 @@ def phase_slice(name, dev, scdet=False, uhd=False):
           f"{checked['frames']} frames checked finite, wall {wall:.2f} s "
           "(first run, includes warm-up)")
     print(f"slice {path}: kernel launches during the run: {counts}")
-    entries = graphs.state(model).entries
-    print(f"slice {path}: window graphs " + ", ".join(
-        f"T={key[0]} {e.replays} replays, pool {e.pool_bytes / 2**20:.1f} MiB"
-        for key, e in entries.items()))
-    if not any(e.replays for e in entries.values()):
+    print(f"slice {path}: graphs {graph_entries(model)}")
+    if not any(e.replays for key, e in graphs.state(model).entries.items()
+               if key[0] == "window"):
         fail(f"{path}: no window replayed a captured graph")
     if stats.frames_out != plan or len(io.written) != plan:
         fail(f"{path}: frames_out {stats.frames_out} / written {len(io.written)} != plan {plan}")
@@ -842,9 +858,25 @@ def phase_slice(name, dev, scdet=False, uhd=False):
 
 def eager_window(m, I0, I1, I2, ts, reuse):
     """The eager pieces ``inference_ts_drba`` runs as one graph on the card:
-    ``next_reuse`` (with the chain's features), then ``drba_window``."""
-    nxt = m.next_reuse(I1, I2, reuse.feat0 if hasattr(reuse, "feat0") else reuse[2])
-    return m.drba_window(I0, I1, I2, ts, reuse, nxt, linear=True), nxt
+    the window's pass (with the chain's features), then its timesteps (the
+    model's ``_fused_window``, called directly: no graph)."""
+    from drba_tpu_torch import graphs
+
+    host = graphs.host_timesteps(ts)
+    out, nxt = m._fused_window(I0, I1, I2, graphs.timesteps(m, host), host, reuse, True)
+    return list(out.unbind(0)), nxt
+
+
+def graph_entries(m) -> str:
+    """Model ``m``'s captured graphs by kind (``graphs.py``): each entry's T
+    (or, for a pass, which features it takes), replays and pool."""
+    from drba_tpu_torch import graphs
+
+    parts = []
+    for key, e in sorted(graphs.state(m).entries.items(), key=lambda kv: str(kv[0])):
+        what = f"features given {key[-1]}" if key[0] == "pass" else f"T={key[1]}"
+        parts.append(f"{key[0]} {what}: {e.replays} replays, pool {e.pool_bytes / 2**20:.1f} MiB")
+    return "; ".join(parts) or "none"
 
 
 def phase_window(name, dev, gpu_line, dnames):
@@ -933,6 +965,7 @@ def phase_window(name, dev, gpu_line, dnames):
             del runs
             eager_kernels = profile_window(name, lambda: eager_window(m, I0, I1, I2, ts3, reuse))
             graph_vs_eager(name, m, (I0, I1, I2), reuse, (ts2, ts3), eager_kernels, gpu_line)
+            calls_vs_eager(name, m, (I0, I1, I2), reuse, gpu_line)
         # each model's graphs hold their memory pools until the model goes
         del m, plain
         torch.cuda.empty_cache()
@@ -1110,8 +1143,6 @@ def graph_vs_eager(name, m, frames, reuse, ts_pair, eager_kernels, gpu_line):
     wall (host clock around the call and a synchronise), its host time (the
     call's return), its device-busy time (torch.profiler) and idle share
     (1 - busy / wall); and each captured graph's memory pool."""
-    import torch
-
     from drba_tpu_torch import graphs
 
     ways = {"graph": lambda ts: m.inference_ts_drba(*frames, ts, reuse, linear=True),
@@ -1122,17 +1153,7 @@ def graph_vs_eager(name, m, frames, reuse, ts_pair, eager_kernels, gpu_line):
             ev.setdefault((way, len(ts)), []).append(timed(lambda: ways[way](ts), 5))
     for ts in ts_pair:
         for way, fn in ways.items():
-            host, wall = [], []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn(ts)
-                t1 = time.perf_counter()
-                torch.cuda.synchronize()
-                host.append((t1 - t0) * 1e3)
-                wall.append((time.perf_counter() - t0) * 1e3)
-            p_wall, busy, kernels = profile_call(lambda: fn(ts))
-            wall_ms, host_ms = sum(wall) / len(wall), sum(host) / len(host)
+            wall_ms, host_ms, p_wall, busy, kernels = single_calls(lambda: fn(ts))
             ev_ms = sum(ev[(way, len(ts))]) / 2
             print(f"window {name} bf16 1080p T={len(ts)} {way}: {ev_ms:.2f} ms a window back to "
                   f"back (CUDA events, in turns); one window: wall {wall_ms:.2f} ms, host "
@@ -1147,9 +1168,111 @@ def graph_vs_eager(name, m, frames, reuse, ts_pair, eager_kernels, gpu_line):
                     print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
                           f"{e.key[:90]}")
     for key, e in graphs.state(m).entries.items():
-        print(f"window {name} graph T={key[0]} {key[1][1]}x{key[1][2]} {key[2]}: pool "
-              f"{e.pool_bytes} bytes ({e.pool_bytes / 2**20:.1f} MiB), launches a replay "
-              f"{dict(e.launches)}")
+        if key[0] == "window":
+            print(f"window {name} graph T={key[1]} {key[2][1]}x{key[2][2]} {key[3]}: pool "
+                  f"{e.pool_bytes} bytes ({e.pool_bytes / 2**20:.1f} MiB), launches a replay "
+                  f"{dict(e.launches)}")
+
+
+def single_calls(fn, n: int = 5):
+    """Single calls of ``fn``, each from an idle card: (wall ms with its
+    synchronise, host ms until it returns, both over ``n`` calls; then one
+    profiled call's wall ms, device-busy ms and device kernels)."""
+    import torch
+
+    host, wall = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    p_wall, busy, kernels = profile_call(fn)
+    return sum(wall) / n, sum(host) / n, p_wall, busy, kernels
+
+
+def gated(label, got, want):
+    """``got`` against ``want`` (tensors or trees of them) under the bf16
+    gate; returns (max abs, mean abs, share off by more than 1e-2)."""
+    import torch
+
+    from drba_tpu_torch.parallel.batch import _leaves
+
+    def flat(x):  # a list of frames, a (T, ...) tensor or a reuse
+        return torch.cat([t.float().reshape(-1) for t in _leaves(tuple(x) if isinstance(
+            x, list) else x)])
+
+    g, w = flat(got), flat(want)
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        fail(f"{label}: {tuple(g.shape)} values against {tuple(w.shape)}, or non-finite")
+    d = (g - w).abs()
+    mx, mean, share = float(d.max()), float(d.mean()), float((d > 1e-2).float().mean())
+    mean_tol, share_tol = GATES["bf16"]
+    if mean > mean_tol or share > share_tol:
+        fail(f"{label}: mean {mean:.3e} (tol {mean_tol:g}), share(>1e-2) {share:.3e} (tol "
+             f"{share_tol:g})")
+    return mx, mean, share
+
+
+def calls_vs_eager(name, m, frames, reuse, gpu_line):
+    """drba_tpu's other programs as graphs against their eager bodies, bf16:
+    ``inference_ts`` at T = 1 and 2 on a given reuse (``plain``), the chain
+    start's ``pass``, and for GMFSS and GMFSS_UNION ``inference_ts`` without
+    a reuse (a ``pass``, then a ``plain`` call). Each warmed (its first call
+    eager, its second captures), then: outputs within the bf16 gate, the
+    hand-written kernel launches of a replay equal to the eager call's (the
+    launch counters; the profiler's count printed beside), ms back to back
+    (CUDA events, in turns), and per single call wall, host and device-busy
+    ms, idle share; the host ms of every replay below the eager call's."""
+    from drba_tpu_torch import _build, graphs
+
+    I0, I1, _ = frames
+    r01 = reuse.swapped() if hasattr(reuse, "swapped") else None  # the I0 -> I1 pass
+
+    def plain(ts):
+        return lambda: m._plain(I0, I1, graphs.timesteps(m, ts), r01)
+
+    calls = {"inference_ts T=1": (lambda: m.inference_ts(I0, I1, [0.4], reuse=r01),
+                                  plain([0.4])),
+             "inference_ts T=2": (lambda: m.inference_ts(I0, I1, [0.2, 0.6], reuse=r01),
+                                  plain([0.2, 0.6])),
+             "chain-start pass": ((lambda: m._calc_flow(I1, I0)) if name == "rife" else
+                                  (lambda: m.reuse(I1, I0)), lambda: m._pass(I1, I0))}
+    if name != "rife":
+        calls["inference_ts T=2, no reuse"] = (
+            lambda: m.inference_ts(I0, I1, [0.2, 0.6]),
+            lambda: m._plain(I0, I1, graphs.timesteps(m, [0.2, 0.6]), m._pass(I0, I1)))
+    for label, (graph, eager) in calls.items():
+        for _ in range(2):  # a new kind's key: its first call eager, its second captures
+            graph()
+        mx, mean, share = gated(f"{name} {label} graph vs eager", graph(), eager())
+        counts = {}
+        for way, fn in (("graph", graph), ("eager", eager)):
+            _build.reset_counts()
+            fn()
+            counts[way] = _build.counts()
+        if counts["graph"] != counts["eager"]:
+            fail(f"{name} {label}: a replay launched {counts['graph']}, the eager call "
+                 f"{counts['eager']}")
+        ev = {}
+        for way, fn in (("graph", graph), ("eager", eager), ("eager", eager), ("graph", graph)):
+            ev.setdefault(way, []).append(timed(fn, 5))
+        host = {}
+        for way, fn in (("graph", graph), ("eager", eager)):
+            wall_ms, host[way], p_wall, busy, kernels = single_calls(fn)
+            print(f"call {name} bf16 1080p {label} {way}: {sum(ev[way]) / 2:.2f} ms back to "
+                  f"back (CUDA events, in turns); one call: wall {wall_ms:.2f} ms, host "
+                  f"{host[way]:.2f} ms, device busy {busy:.2f} ms, idle "
+                  f"{100 * (1 - busy / wall_ms):.1f}%; hand-written launches (profiler) "
+                  f"{own_launches(kernels)}  [{gpu_line}]")
+        print(f"call {name} {label}: graph vs eager max_abs {mx:.3e}  mean_abs {mean:.3e}  "
+              f"share(>1e-2) {share:.3e}; launches a call {counts['graph']}")
+        if host["graph"] >= host["eager"]:
+            fail(f"{name} {label}: a replay's host time {host['graph']:.2f} ms is not below "
+                 f"the eager call's {host['eager']:.2f} ms")
+    print(f"call {name}: graphs {graph_entries(m)}")
 
 
 def profile_window(name, fn):
@@ -1303,6 +1426,86 @@ def phase_resume(dev):
     return launches
 
 
+def phase_scdet_twice(dev, gpu_line):
+    """``run_pipeline -s -st 0.3`` twice on one model instance, RIFE and
+    GMFSS, over a 16-frame stream whose frames 4 and 10 are colour-inverted
+    (four cuts): the first run captures (head, cut windows' ``plain`` calls,
+    chain starts' passes, tail, windows); in the second every ``plain``,
+    ``pass`` and ``window`` call must replay (no call left eager or
+    capturing); the two runs' written frames within the bf16 gate; every
+    kernel of the path launched in each run. Returns both runs' launch
+    counts."""
+    import torch
+
+    from drba_tpu_torch import _build, graphs
+    from drba_tpu_torch.pipeline import planned_outputs, run_pipeline
+
+    launches = {k.name: 0 for k in _build.KERNELS}
+    n, cuts = 16, (4, 10)
+    plan = planned_outputs(n, SRC_FPS, DST_FPS)
+    frames = synthetic_frames(n)
+    for i in cuts:
+        frames[i] = 255 - frames[i]
+    for name in ("rife", "gmfss"):
+        model = make_model(name, dev)
+        st = graphs.state(model)
+        written, walls = [], []
+        for run in range(2):
+            calls = dict(st.calls)
+            replays = {k: e.replays for k, e in st.entries.items()}
+            io = _FrameIO(frames)
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            stats = run_pipeline(model, io, enable_scdet=True, scdet_threshold=0.3)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = _build.counts()
+            for k, v in counts.items():
+                launches[k] += v
+            for k in PATH_KERNELS[name]:
+                if counts[k] == 0:
+                    fail(f"scdet twice {name} run {run + 1}: kernel {k} was not launched")
+            if stats.frames_out != plan or len(io.written) != plan or \
+                    stats.scene_cuts != 2 * len(cuts):
+                fail(f"scdet twice {name} run {run + 1}: {stats.frames_out} frames (plan "
+                     f"{plan}), {stats.scene_cuts} cuts")
+            written.append(io.written)
+        by_kind = Counter()
+        for key, e in st.entries.items():
+            by_kind[key[0]] += e.replays - replays.get(key, 0)
+        left = {k[0]: st.calls[k] - calls.get(k, 0) for k in st.calls
+                if st.calls[k] != calls.get(k, 0)}
+        bit, mean, share = frames_vs(f"scdet twice {name}", written[1], written[0])
+        print(f"scdet twice {name} bf16 1080p, {n} frames, frames {cuts} inverted: "
+              f"{plan} frames a run, {2 * len(cuts)} cuts; wall {walls[0]:.2f} s (captures) "
+              f"then {walls[1]:.2f} s; second run's replays by kind {dict(by_kind)}, calls "
+              f"not replayed {left or 'none'}; second run against the first: "
+              f"{'bitwise equal' if bit else f'mean {mean:.3e}, share(>1e-2) {share:.3e}'}"
+              f"  [{gpu_line}]")
+        print(f"scdet twice {name}: graphs {graph_entries(model)}")
+        if left or set(by_kind) != {"window", "plain", "pass"} or not all(by_kind.values()):
+            fail(f"scdet twice {name}: the second run's calls were not all replays: replays "
+                 f"{dict(by_kind)}, calls eager or capturing {left}")
+        mean_tol, share_tol = GATES["bf16"]
+        if mean > mean_tol or share > share_tol:
+            fail(f"scdet twice {name}: mean {mean:.3e} share {share:.3e} between the runs")
+        del model, st
+        torch.cuda.empty_cache()
+    return launches
+
+
+def replica_graphs(label, planner, must_replay: bool) -> None:
+    """Each replica's graphs after a planned run; with ``must_replay`` fail
+    where a replica's windows (its ``unfused`` graphs) did not replay."""
+    from drba_tpu_torch import graphs
+
+    for k, rep in enumerate(planner.replicas):
+        print(f"{label} replica {k}: graphs {graph_entries(rep)}")
+        ran = [e.replays for key, e in graphs.state(rep).entries.items() if key[0] == "unfused"]
+        if must_replay and not (ran and all(ran)):
+            fail(f"{label} replica {k}: its windows did not replay ({graph_entries(rep)})")
+
+
 def phase_devices(dev, gpu_line):
     """``run_pipeline_parallel`` over two replicas on the one card against
     the serial loop; returns the parallel runs' launch counts."""
@@ -1314,10 +1517,18 @@ def phase_devices(dev, gpu_line):
     from drba_tpu_torch.pipeline import calc_ts, planned_outputs, run_pipeline
     from drba_tpu_torch.utils import TMapper, to_inp
 
+    import drba_tpu_torch.parallel.pipeline as parallel_pipeline
+
     launches = {k.name: 0 for k in _build.KERNELS}
     devices = [dev, dev]
     runs = [(p, p if p != "scdet" else "rife", None) for p in N_FRAMES] + \
         [("gmfss", "gmfss", N_TIMING)]
+    made = []  # the planners of the two-thread runs, for their replicas' graphs
+
+    class Recorded(WindowPlanner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
     for path, name, n in runs:
         model = make_model(name, dev)
         scdet = path == "scdet"
@@ -1333,8 +1544,12 @@ def phase_devices(dev, gpu_line):
             if label == "serial":
                 stats = run_pipeline(model, io, enable_scdet=scdet, scdet_threshold=0.3)
             else:
-                stats = run_pipeline_parallel(model, io, devices, enable_scdet=scdet,
-                                              scdet_threshold=0.3)
+                parallel_pipeline.WindowPlanner = Recorded
+                try:
+                    stats = run_pipeline_parallel(model, io, devices, enable_scdet=scdet,
+                                                  scdet_threshold=0.3)
+                finally:
+                    parallel_pipeline.WindowPlanner = WindowPlanner
             torch.cuda.synchronize()
             walls[label].append(time.perf_counter() - t0)
             if stats.frames_out != plan or len(io.written) != plan:
@@ -1348,6 +1563,12 @@ def phase_devices(dev, gpu_line):
                         fail(f"devices {path}: kernel {kk} was not launched")
                 print(f"devices {path}: kernel launches during the two-thread run: {counts}")
             written.setdefault(label, io.written)
+            if label != "serial":  # each run replicates the model: its replicas capture anew
+                planner = made.pop()  # and their graphs' pools go with them
+                if i == 1:  # each replica runs three or more windows of one T only here
+                    replica_graphs(f"devices {path}{f' ({n_frames} frames)' if n else ''}",
+                                   planner, must_replay=path == "rife" or n is not None)
+                del planner
         bit, mean, share = frames_vs(f"devices {path}", written["two threads"], written["serial"])
         fps = {k: plan / (sum(v) / len(v)) for k, v in walls.items()}
         print(f"devices {path}{f' ({n_frames} frames)' if n else ''}: {plan} frames each; two "
@@ -1435,6 +1656,9 @@ def window_threads(model, devices, gpu_line):
                 torch.cuda.synchronize()
             busy[label] = sum(e.self_device_time_total for e in prof.key_averages()
                               if e.self_device_time_total > 0 and e.self_cpu_time_total == 0) / 1e3
+        for label, planner in planners.items():
+            replica_graphs(f"devices {type(model).__name__} windows alone, {label}", planner,
+                           must_replay=True)
     finally:
         for p in planners.values():
             p.close()
@@ -1509,10 +1733,11 @@ def phase_uhd(dev, gpu_line):
                     fail(f"uhd {name} T={len(ts)}: kernel {k} was not launched in the replay")
             del out_p, out_g, d
         for key, e in graphs.state(m).entries.items():
-            print(f"uhd {name} graph T={key[0]} {key[1][1]}x{key[1][2]}: pool {e.pool_bytes} "
-                  f"bytes ({e.pool_bytes / 2**20:.1f} MiB), launches a replay "
-                  f"{dict(e.launches)}; peak allocated with the plain model beside it "
-                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+            if key[0] == "window":
+                print(f"uhd {name} graph T={key[1]} {key[2][1]}x{key[2][2]}: pool "
+                      f"{e.pool_bytes} bytes ({e.pool_bytes / 2**20:.1f} MiB), launches a "
+                      f"replay {dict(e.launches)}; peak allocated with the plain model beside "
+                      f"it {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         del m, plain, I0, I1, I2, reuse
         torch.cuda.empty_cache()
     for k, n in phase_slice("rife", dev, uhd=True).items():
@@ -1619,7 +1844,8 @@ def main() -> None:
         counts = phase_window(name, dev, gpu_line, ("f32",))["f32"]
         for k in launches_f32:
             launches_f32[k] += counts[k]
-    for phase in (phase_resume(dev), phase_devices(dev, gpu_line)):
+    for phase in (phase_resume(dev), phase_scdet_twice(dev, gpu_line),
+                  phase_devices(dev, gpu_line)):
         for k, n in phase.items():
             launches[k] += n
     release_memory(dev)
@@ -1637,7 +1863,8 @@ def main() -> None:
                         "replaces": REPLACES[k.name], "launches": launches[k.name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": s["library_ms"],
-                        "library_call": s["library_call"]})
+                        "library_call": s["library_call"],
+                        "ms_at_library_shapes": s["ms_at_library"]})
         if k.name in F32_ROWS:  # the f32 design: the f32 windows' launches
             s = summary[f"{k.name}_f32"]
             b_ms, b_by = bound_ms(s["work"])
@@ -1645,7 +1872,8 @@ def main() -> None:
                             "replaces": REPLACES[k.name], "launches": launches_f32[k.name],
                             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                             "plain_ms": s["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": s["library_ms"], "library_call": s["library_call"]})
+                            "library_ms": s["library_ms"], "library_call": s["library_call"],
+                            "ms_at_library_shapes": s["ms_at_library"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

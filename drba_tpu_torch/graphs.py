@@ -1,47 +1,70 @@
-"""One dispatch per window on the card: the fused window as a CUDA graph
-(counterpart of ``_drba_window_fused``, drba_tpu/models/rife.py:157-179,
-gmfss.py:69-84 and gmfss_union.py:87-104, which compile a window's next
-reuse pass and all its T timesteps into one XLA program).
+"""One dispatch per model call on the card: drba_tpu's four jitted programs
+as CUDA graphs. Their counterparts, each one XLA program per call:
 
-``inference_ts_drba`` of RIFE, GMFSS and GMFSS_UNION on a CUDA device runs
-each window through :func:`run_window`. Per model instance a cache holds
-one captured window per (T, frame shape, dtype, ``linear``, device), and,
-where ``linear`` is False, per timestep values, since the bisection
-schedule is host control flow: what ``jax.jit`` keeps per static
-signature. At 24 -> 60 fps that is two graphs per model (T = 2 and 3).
+* ``window``: the fused window ``_drba_window_fused`` (drba_tpu/models/
+  rife.py:157-179, gmfss.py:69-84, gmfss_union.py:87-104), a window's next
+  reuse pass and all its T timesteps (``inference_ts_drba``, the model's
+  ``_fused_window``);
+* ``plain``: the plain batch ``_ts_batch`` behind ``inference_ts``
+  (rife.py:182-205, gmfss.py:87-102, gmfss_union.py:108-111), the model's
+  ``_plain``; on GMFSS and GMFSS_UNION on a given reuse;
+* ``pass``: the flow/reuse pass (``_flow_jit``, rife.py:207-208;
+  ``_reuse_jit``, gmfss.py:118-122, gmfss_union.py:152-156), the model's
+  ``_pass`` behind ``_calc_flow`` / ``reuse`` and ``next_reuse``: the chain
+  starts, the planner's per-replica passes, resume's recomputed pass;
+* ``unfused``: the window's timesteps apart from its pass, ``_drba_window``
+  (rife.py:103-108, gmfss.py:35-37, gmfss_union.py:37-42), behind
+  ``drba_window``: the planner's replicas run it.
 
-An entry's first call copies the inputs into its static buffers, runs the
-window once eagerly on a side stream and returns that run's frames (the
-warm-up: it builds the kernels and fills the one-time caches that may not
-run under capture: shared-memory attributes, the tensor-map entry point,
-the label and constant caches, the cuBLAS and cuDNN handles), then captures
-the window (the model's ``_fused_window``: its ``next_reuse`` and its
-timesteps) on the same stream into a graph. A model's graphs share one
-memory pool: they replay one at a time, in the caller's stream order, and
-each replay's outputs are copied out before the next can reuse the
-memory; at 1080p a float32 GMFSS window's capture alone reserves tens of
-GB, so two pools of their own would not fit beside the eager chain start.
+Per model instance a cache holds one captured graph per kind and static
+signature, what ``jax.jit`` keeps per static signature: the frame shape,
+dtype and device; for ``window``, ``plain`` and ``unfused`` the number of
+timesteps T (their values are data, compared on the device); for ``window``
+and ``unfused`` ``linear`` and, where it is False, the timestep values,
+since the bisection schedule is host control flow; for ``pass`` which of
+its optional features are given. At 24 -> 60 fps that is two window
+graphs per model (T = 2 and 3).
+
+When an entry is captured. A ``window`` key's first call copies the inputs
+into its static buffers, runs the call once eagerly on a side stream and
+returns that run's outputs (the warm-up: it builds the kernels and fills
+the one-time caches that may not run under capture: shared-memory
+attributes, the tensor-map entry point, the label and constant caches, the
+cuBLAS and cuDNN handles), then captures the call on the same stream into
+a graph. A key of the other kinds runs its first call eagerly and captures
+nothing, since the head and the tail are one-off calls and a clip with no
+cuts must not pay for captures it never replays; its second call does
+what a window's first does. Every later call copies the inputs in (the
+timesteps from a pinned ring, without a host sync), replays, and copies
+the outputs out into fresh tensors, which outlive the next replay; a
+tensor that is one of the call's inputs passed through is handed back as
+the caller's own.
+
+A model's graphs share one memory pool: they replay one at a time, in the
+caller's stream order, and each replay's outputs are copied out before the
+next can reuse the memory; at 1080p a float32 GMFSS window's capture alone
+reserves GBs, so pools of their own would not fit beside each other.
 ``Entry.pool_bytes`` is what an entry's capture added to the device's
-reserved memory. Each later call copies the inputs in (the timesteps from a pinned ring),
-replays, and copies the frames and the next reuse out into fresh tensors,
-which outlive the next replay; a reuse tensor that is one of the window's
-inputs passed through is handed back as the caller's own.
+reserved memory. The graph keeps the static buffers' addresses (the conv's
+TMA tensor maps are encoded once, at capture, against them): a replay
+never runs on other tensors. A capture or a replay that fails raises;
+nothing falls back to the eager call. Captures run one at a time in the
+process, whatever thread asks (the planner's replicas capture on their
+dispatch threads): another thread's synchronise would break one in
+flight. ``_build.counts()`` stays the launches the card ran: a capture's
+launches are recorded, not counted, and each replay adds them.
 
-The graph keeps the static buffers' addresses (the conv's TMA tensor maps
-are encoded once, at capture, against them): a replay never runs on other
-tensors. A capture or a replay that fails raises; nothing falls back to the
-eager window. ``_build.counts()`` stays the launches the card ran: a
-capture's launches are recorded, not counted, and each replay adds them.
-
-The CPU never captures: there the models run their eager window, and
-:func:`timesteps` makes a plain tensor.
+The CPU never captures: there (``on`` is False) the models run their eager
+bodies, and :func:`timesteps` makes a plain tensor.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import threading
 import weakref
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
@@ -49,6 +72,14 @@ import torch
 
 from drba_tpu_torch import _build
 from drba_tpu_torch.parallel.batch import _leaves, _map
+
+# the call of a key that captures: the window's first (its chain replays
+# from the next window on), the other kinds' second
+CAPTURE_AT = {"window": 1, "plain": 2, "pass": 2, "unfused": 2}
+# one capture at a time in the process: a capture's device synchronise and
+# cache release on one thread break a capture in flight on another (the
+# planner's replicas capture on their dispatch threads)
+_CAPTURING = threading.Lock()
 
 
 def host_timesteps(ts) -> np.ndarray:
@@ -106,27 +137,28 @@ class CudaGraph:
 
 @dataclass
 class Entry:
-    """One captured window: static inputs (I0, I1, I2, the reuse's tensors)
-    and timesteps, the graph, its static outputs (the (T, N, H, W, 3) frames
-    and the next reuse), the launches its capture recorded, the bytes its
-    capture reserved, and its replays so far."""
+    """One captured call: static inputs (the call's tensors, reuse trees
+    flattened) and timesteps (None for a pass), the graph, its static
+    outputs (the (T, ...) frames and the reuse, either None where the kind
+    has none), the launches its capture recorded, the bytes its capture
+    reserved, and its replays so far."""
 
     graph: object
     inputs: list
-    ts: torch.Tensor
-    out: torch.Tensor
+    ts: torch.Tensor | None
+    out: torch.Tensor | None
     nxt: object
     launches: dict
     pool_bytes: int
     replays: int = 0
 
-    def load(self, inputs: list) -> None:
+    def load(self, inputs: list, kind: str) -> None:
         """Copy the call's inputs into the static buffers (current stream)."""
         if len(inputs) != len(self.inputs):
-            raise ValueError(f"the window takes {len(self.inputs)} tensors, got {len(inputs)}")
+            raise ValueError(f"the {kind} takes {len(self.inputs)} tensors, got {len(inputs)}")
         for dst, src in zip(self.inputs, inputs):
             if src.shape != dst.shape or src.dtype != dst.dtype or src.device != dst.device:
-                raise ValueError(f"window input {tuple(src.shape)} {src.dtype} on {src.device} "
+                raise ValueError(f"{kind} input {tuple(src.shape)} {src.dtype} on {src.device} "
                                  f"differs from the captured {tuple(dst.shape)} {dst.dtype} on "
                                  f"{dst.device}")
             dst.copy_(src)
@@ -142,11 +174,13 @@ def _shares(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _hand_out(out, nxt, statics: list, inputs: list, copy: bool):
-    """(frames, next reuse) for the caller: a tensor that is a static input
-    is handed back as the caller's input; every other tensor is copied where
-    ``copy`` (a replay's static outputs) or where it shares a static
-    input's memory, else handed out as it is (the warm-up's own)."""
-    stream = torch.cuda.current_stream(out.device) if out.is_cuda and not copy else None
+    """(frames, reuse) for the caller (frames a list, or None): a tensor that
+    is a static input is handed back as the caller's input; every other
+    tensor is copied where ``copy`` (a replay's static outputs) or where it
+    shares a static input's memory, else handed out as it is (the
+    warm-up's own)."""
+    device = statics[0].device
+    stream = torch.cuda.current_stream(device) if device.type == "cuda" and not copy else None
 
     def take(t):
         for s, x in zip(statics, inputs):
@@ -158,17 +192,19 @@ def _hand_out(out, nxt, statics: list, inputs: list, copy: bool):
             t.record_stream(stream)
         return t
 
-    return list(take(out).unbind(0)), _map(take, nxt)
+    return (None if out is None else list(take(out).unbind(0))), _map(take, nxt)
 
 
 class WindowGraphs:
-    """The captured windows of one model instance and its timestep ring;
-    used by one thread at a time, as the model is."""
+    """The captured calls of one model instance, its calls per key before
+    a capture, and its timestep ring; used by one thread at a time, as the
+    model is."""
 
-    def __init__(self, model, graph_factory=CudaGraph):
+    def __init__(self, model, graph_factory=None):
         self.owner = weakref.ref(model)
         self.entries: dict = {}
-        self.graph_factory = graph_factory
+        self.calls: Counter = Counter()
+        self.graph_factory = CudaGraph if graph_factory is None else graph_factory
         self._ring = None
         self._side = None
         self._pool = None
@@ -200,25 +236,45 @@ class WindowGraphs:
             yield self._side
         cur.wait_stream(self._side)
 
+    def timesteps(self, host: np.ndarray, device: torch.device) -> torch.Tensor:
+        """A fresh (T,) float32 tensor on ``device`` holding ``host``."""
+        if device.type != "cuda":
+            return torch.from_numpy(host.copy())
+        return self.upload(host, torch.empty(host.shape[0], dtype=torch.float32, device=device))
+
+    def call(self, kind: str, key: tuple, fn, args: tuple, host=None):
+        """One call of ``kind`` under its static signature ``key`` -> (frames,
+        reuse): ``fn(args, ts)`` is the eager body -> ((T, ...) frames or
+        None, reuse or None); ``args`` a tuple of tensors, reuse trees and
+        None; ``host`` the timesteps' host values, which reach ``fn`` as a
+        (T,) float32 tensor on the inputs' device (None: the kind takes no
+        timesteps)."""
+        key = (kind, *key)
+        leaves = _leaves(args)
+        entry = self.entries.get(key)
+        if entry is not None:
+            entry.load(leaves, kind)
+            if host is not None:
+                self._load_ts(host, entry.ts)
+            entry.graph.replay()
+            entry.replays += 1
+            _build.add_counts(entry.launches)
+            return _hand_out(entry.out, entry.nxt, entry.inputs, leaves, copy=True)
+        self.calls[key] += 1
+        if self.calls[key] < CAPTURE_AT[kind]:
+            out, nxt = fn(args, None if host is None else self.timesteps(host, leaves[0].device))
+            return (None if out is None else list(out.unbind(0))), nxt
+        return self._capture(key, fn, args, leaves, host)
+
     def run(self, fused, I0, I1, I2, ts, reuse, linear: bool):
         """The window (I0, I1, I2) at timesteps ``ts`` on the chain's
         ``reuse`` -> (frames, next reuse), through the entry's graph.
         ``fused(I0, I1, I2, ts, ts_host, reuse, linear)`` is the model's
         eager window -> ((T, N, H, W, 3) frames, next reuse)."""
         host = host_timesteps(ts)
-        key = (len(host), tuple(I1.shape), I1.dtype, bool(linear), I1.device)
-        if not linear:
-            key += (tuple(host.tolist()),)
-        inputs = [I0, I1, I2, *_leaves(reuse)]
-        entry = self.entries.get(key)
-        if entry is None:
-            return self._capture(key, fused, inputs, reuse, host, linear)
-        entry.load(inputs)
-        self._load_ts(host, entry.ts)
-        entry.graph.replay()
-        entry.replays += 1
-        _build.add_counts(entry.launches)
-        return _hand_out(entry.out, entry.nxt, entry.inputs, inputs, copy=True)
+        return self.call("window", _window_key(host, I1, linear),
+                         lambda a, t: fused(*a[:3], t, host, a[3], linear),
+                         (I0, I1, I2, reuse), host)
 
     def _load_ts(self, host: np.ndarray, ts: torch.Tensor) -> None:
         if ts.is_cuda:
@@ -226,43 +282,53 @@ class WindowGraphs:
         else:
             ts.copy_(torch.from_numpy(host))
 
-    def _capture(self, key, fused, inputs, reuse, host, linear):
-        device = inputs[1].device
-        statics = [x.clone() for x in inputs]
-        ts = torch.empty(len(host), dtype=torch.float32, device=device)
-        self._load_ts(host, ts)
-        counter = itertools.count(3)
-        s_reuse = _map(lambda _: statics[next(counter)], reuse)
+    def _capture(self, key, fn, args, leaves, host):
+        device = leaves[0].device
+        statics = [x.clone() for x in leaves]
+        counter = itertools.count()
+        s_args = _map(lambda _: statics[next(counter)], args)
+        ts = None if host is None else self.timesteps(host, device)
 
-        def window():
-            return fused(statics[0], statics[1], statics[2], ts, host, s_reuse, linear)
+        def body():
+            return fn(s_args, ts)
 
         graph = self.graph_factory()
-        with self._on_side(device) as side:
-            warm_out, warm_nxt = window()
+        with _CAPTURING, self._on_side(device) as side:
+            warm_out, warm_nxt = body()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
                 torch.cuda.empty_cache()
             before = torch.cuda.memory_reserved(device) if device.type == "cuda" else 0
             try:
                 with _build.recording() as launches:
-                    out, nxt = graph.capture(window, side,
+                    out, nxt = graph.capture(body, side,
                                              self.pool() if device.type == "cuda" else None)
             except Exception as e:
-                raise RuntimeError(f"capturing the window (T, shape, dtype, linear, device) = "
-                                   f"{key[:5]} failed") from e
+                raise RuntimeError(f"capturing the {key[0]} {key[1:]} failed") from e
             pool = (torch.cuda.memory_reserved(device) - before) if device.type == "cuda" else 0
         self.entries[key] = Entry(graph, statics, ts, out, nxt, dict(launches), pool)
-        return _hand_out(warm_out, warm_nxt, statics, inputs, copy=False)
+        return _hand_out(warm_out, warm_nxt, statics, leaves, copy=False)
+
+
+def _window_key(host: np.ndarray, I1: torch.Tensor, linear: bool) -> tuple:
+    """(T, frame shape, dtype, linear, device), and the timestep values
+    where ``linear`` is False."""
+    key = (len(host), tuple(I1.shape), I1.dtype, bool(linear), I1.device)
+    return key if linear else key + (tuple(host.tolist()),)
 
 
 def state(model) -> WindowGraphs:
-    """``model``'s own captured windows and timestep ring, made at first
-    use. A shallow copy of the model (the planner's replicas) gets its own."""
+    """``model``'s own captured calls and timestep ring, made at first use.
+    A shallow copy of the model (the planner's replicas) gets its own."""
     st = model.__dict__.get("_window_graphs")
     if st is None or st.owner() is not model:
         st = model._window_graphs = WindowGraphs(model)
     return st
+
+
+def on(model) -> bool:
+    """Whether ``model``'s calls run through its graphs: on a CUDA device."""
+    return model.device.type == "cuda"
 
 
 def timesteps(model, ts) -> torch.Tensor:
@@ -271,11 +337,47 @@ def timesteps(model, ts) -> torch.Tensor:
     host = host_timesteps(ts)
     if model.device.type != "cuda":
         return torch.from_numpy(host.copy())
-    out = torch.empty(host.shape[0], dtype=torch.float32, device=model.device)
-    return state(model).upload(host, out)
+    return state(model).timesteps(host, model.device)
 
 
 def run_window(model, I0, I1, I2, ts, reuse, linear: bool):
     """``model``'s steady-state window (a reuse given, ``ts`` not empty) on
     its CUDA device, through its captured graph -> (frames, next reuse)."""
     return state(model).run(model._fused_window, I0, I1, I2, ts, reuse, linear)
+
+
+def plain(model, I0, I1, ts, reuse=None) -> list:
+    """``model``'s plain interpolation of (I0, I1) at ``ts`` (not empty) on
+    ``reuse`` (GMFSS, GMFSS_UNION; None for RIFE) -> frames; through the
+    ``plain`` graphs where ``on(model)``, else its eager ``_plain``."""
+    if not on(model):
+        return list(model._plain(I0, I1, model._ts(ts), reuse).unbind(0))
+    host = host_timesteps(ts)
+    key = (len(host), tuple(I0.shape), I0.dtype, I0.device)
+    return state(model).call("plain", key, lambda a, t: (model._plain(a[0], a[1], t, a[2]), None),
+                             (I0, I1, reuse), host)[0]
+
+
+def flow_pass(model, a, b, *feats):
+    """``model``'s flow/reuse pass of (a, b), with the optional features
+    ``feats`` (None where not given); through the ``pass`` graphs where
+    ``on(model)``, else its eager ``_pass``."""
+    if not on(model):
+        return model._pass(a, b, *feats)
+    key = (tuple(a.shape), a.dtype, a.device, tuple(f is not None for f in feats))
+    return state(model).call("pass", key, lambda x, _t: (None, model._pass(*x)),
+                             (a, b, *feats))[1]
+
+
+def unfused(model, I0, I1, I2, ts, reuse10, reuse21, linear: bool) -> list:
+    """``model``'s window timesteps apart from its pass (``reuse10`` the
+    chain's, ``reuse21`` the window's ``next_reuse``) -> frames; through
+    the ``unfused`` graphs where ``on(model)``, else its eager ``_window``."""
+    host = host_timesteps(ts)
+    if not on(model):
+        return list(model._window(I0, I1, I2, model._ts(host), host, reuse10, reuse21,
+                                  linear).unbind(0))
+    return state(model).call(
+        "unfused", _window_key(host, I1, linear),
+        lambda a, t: (model._window(*a[:3], t, host, a[3], a[4], linear), None),
+        (I0, I1, I2, reuse10, reuse21), host)[0]

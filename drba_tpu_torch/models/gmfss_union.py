@@ -7,9 +7,8 @@ its per-pixel timestep, and its frame is the middle 3 channels of the union
 GridNet's 9-channel head (model_gmfss_union/GMFSS.py:152). ``pad_size`` is 128
 so that the half-resolution IFNet still sees frames divisible by 64. The same
 duck-typed API as ``models/gmfss.GMFSS``; the T timesteps of a window are
-folded into the batch axis. On a CUDA device a window with a reuse runs
-``next_reuse`` and its timesteps as one captured graph (``graphs.py``;
-``_fused_window``).
+folded into the batch axis. On a CUDA device each call runs a captured
+graph (``graphs.py``), as in ``models/gmfss.GMFSS``.
 """
 
 from __future__ import annotations
@@ -122,34 +121,43 @@ class GMFSS_UNION:
     def _ts(self, ts) -> torch.Tensor:
         return graphs.timesteps(self, ts)
 
-    def reuse(self, img0, img1, feat0=None) -> Reuse:
+    def _pass(self, img0, img1, feat0=None) -> Reuse:
+        """The eager reuse pass: what a ``pass`` graph captures."""
         return gmfss_reuse(self.params, img0, img1, self.scale, feat0=feat0, union=True,
                            warp_backend=self.config.warp_backend,
                            attn_backend=self.config.attn_backend,
                            conv_backend=self.config.conv_backend)
 
+    def reuse(self, img0, img1, feat0=None) -> Reuse:
+        """The (img0, img1) reuse; on a CUDA device through the model's
+        ``pass`` graphs (``graphs.flow_pass``)."""
+        return graphs.flow_pass(self, img0, img1, feat0)
+
+    def _plain(self, I0, I1, ts, reuse: Reuse):
+        """The eager plain batch at the (T,) timesteps tensor ``ts`` on the
+        I0 -> I1 ``reuse`` -> (T, 1, H, W, 3): what a ``plain`` graph
+        captures."""
+        return _ts_batch(self.params, self.rife_params, I0, I1, ts, reuse, self.scale_list,
+                         backend=self.config.splat_backend,
+                         warp_backend=self.config.warp_backend,
+                         conv_backend=self.config.conv_backend)
+
     def inference_ts(self, I0, I1, ts: Sequence[float], reuse=None, return_reuse=False):
         """Plain interpolation at timesteps in [0, 1]. ``reuse`` (an I0 -> I1
-        ``Reuse``) skips the GMFlow pass; ``return_reuse`` hands the pass back."""
+        ``Reuse``) skips the GMFlow pass; ``return_reuse`` hands the pass back.
+        On a CUDA device the pass and the timesteps each replay a graph."""
         if len(ts) == 0:
             return ([], None) if return_reuse else []
         if reuse is None:
             reuse = self.reuse(I0, I1)
-        out = _ts_batch(self.params, self.rife_params, I0, I1, self._ts(ts), reuse,
-                        self.scale_list, backend=self.config.splat_backend,
-                        warp_backend=self.config.warp_backend,
-                        conv_backend=self.config.conv_backend)
-        frames = list(out.unbind(0))
+        frames = graphs.plain(self, I0, I1, ts, reuse)
         return (frames, reuse) if return_reuse else frames
 
     def next_reuse(self, I1, I2, feat1=None) -> Reuse:
         """The reuse ``inference_ts_drba`` hands the window after (., I1, I2):
         ``reuse(I1, I2)`` swapped. ``feat1``: I1's feature pyramid, where the
         chain has it."""
-        return gmfss_reuse(self.params, I1, I2, self.scale, feat0=feat1, union=True,
-                           warp_backend=self.config.warp_backend,
-                           attn_backend=self.config.attn_backend,
-                           conv_backend=self.config.conv_backend).swapped()
+        return graphs.flow_pass(self, I1, I2, feat1).swapped()
 
     def _window(self, I0, I1, I2, ts, ts_host, reuse10, reuse21, linear):
         return _drba_window(self.params, self.rife_params, I0, I1, I2, ts, ts_host, reuse10,
@@ -158,28 +166,29 @@ class GMFSS_UNION:
                             self.config.drm_splat_scale, self.config.conv_backend)
 
     def _fused_window(self, I0, I1, I2, ts, ts_host, reuse10, linear):
-        """``next_reuse`` and the timesteps of a window on the chain's reuse:
-        what one captured graph runs -> ((T, 1, H, W, 3), next reuse)."""
-        nxt = self.next_reuse(I1, I2, feat1=reuse10.feat0)
+        """``next_reuse`` and the timesteps of a window on the chain's reuse,
+        eagerly: what one captured graph runs -> ((T, 1, H, W, 3), next
+        reuse)."""
+        nxt = self._pass(I1, I2, reuse10.feat0).swapped()
         return self._window(I0, I1, I2, ts, ts_host, reuse10, nxt, linear), nxt
 
     def drba_window(self, I0, I1, I2, ts, reuse10: Reuse | None, reuse21: Reuse,
                     linear: bool = False):
         """The window's timesteps, unfused from its GMFlow pass: ``reuse10``
         is the chain's I1 -> I0 reuse (None starts the chain with that pass),
-        ``reuse21`` this window's ``next_reuse(I1, I2)``."""
+        ``reuse21`` this window's ``next_reuse(I1, I2)``. On a CUDA device
+        through the model's ``unfused`` graphs (``graphs.unfused``)."""
         reuse10 = self.reuse(I1, I0) if reuse10 is None else reuse10
-        host = graphs.host_timesteps(ts)
-        return list(self._window(I0, I1, I2, self._ts(host), host, reuse10, reuse21,
-                                 linear).unbind(0))
+        return graphs.unfused(self, I0, I1, I2, ts, reuse10, reuse21, linear)
 
     def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
         """DRM-adjusted interpolation over a 3-frame window; ``ts`` in
         [0.5, 1.5). Returns (frames, reuse) with the reuse of (I2, I1) for the
         next window. On a CUDA device the GMFlow pass and the timesteps
-        replay one captured graph (``graphs.run_window``)."""
+        replay one captured graph (``graphs.run_window``), and a chain start
+        (``reuse`` None) replays a ``pass`` graph before it."""
         reuse10 = self.reuse(I1, I0) if reuse is None else reuse
-        if len(ts) and self.device.type == "cuda":
+        if len(ts) and graphs.on(self):
             return graphs.run_window(self, I0, I1, I2, ts, reuse10, linear)
         nxt = self.next_reuse(I1, I2, feat1=reuse10.feat0)
         if len(ts) == 0:

@@ -7,8 +7,9 @@ Uniform model API:
     the composition of ``next_reuse(I1, I2)`` (the window's flow pass,
     reversed: the next window's reuse) and ``drba_window`` (its timesteps),
     which the multi-device planner (``parallel/batch.py``) runs apart; on a
-    CUDA device, with a reuse, the two run as one captured graph
-    (``graphs.py``; ``_fused_window``)
+    CUDA device each call runs a captured graph (``graphs.py``): with a
+    reuse the two as one (``_fused_window``), and ``inference_ts``, the
+    flow pass and ``drba_window`` each as its own
 
 As in the JAX package, the T timesteps of a window are folded into the batch
 axis, so one IFNet call serves the whole window; integer timesteps pass the
@@ -60,6 +61,13 @@ def _select_integer_ts(out, ts, *frames):
     for k in range(len(frames) - 1, -1, -1):
         out = torch.where(tb == k, frames[k][None], out)
     return out
+
+
+def _reversed(flows):
+    """An (a, b) pass as the (b, a) reuse: (flow_ab, flow_ba, f_a, f_b) ->
+    (flow_ba, flow_ab, f_b, f_a)."""
+    flow_ab, flow_ba, f_a, f_b = flows
+    return flow_ba, flow_ab, f_b, f_a
 
 
 def _fold(x):
@@ -130,31 +138,41 @@ class RIFE:
     def _ts(self, ts) -> torch.Tensor:
         return graphs.timesteps(self, ts)
 
-    def _calc_flow(self, a, b, f0=None, f1=None):
+    def _pass(self, a, b, f0=None, f1=None):
+        """The eager flow pass: what a ``pass`` graph captures."""
         return _calc_flow(self.params, a, b, self.scale_list[0], f0=f0, f1=f1,
                           splat_backend=self.config.splat_backend,
                           conv_backend=self.config.conv_backend)
 
+    def _calc_flow(self, a, b, f0=None, f1=None):
+        """Bidirectional flow (a, b) -> (flow_ab, flow_ba, f_a, f_b); on a CUDA
+        device through the model's ``pass`` graphs (``graphs.flow_pass``)."""
+        return graphs.flow_pass(self, a, b, f0, f1)
+
+    def _plain(self, I0, I1, ts, reuse=None):
+        """The eager plain batch at the (T,) timesteps tensor ``ts`` -> (T, N,
+        H, W, 3): what a ``plain`` graph captures; ``reuse`` is ignored."""
+        return _ts_batch(self.params, I0, I1, ts, self.scale_list,
+                         warp_backend=self.config.warp_backend,
+                         conv_backend=self.config.conv_backend)
+
     def inference_ts(self, I0, I1, ts: Sequence[float], reuse=None, return_reuse=False):
-        """Interpolate at plain timesteps in [0, 1] (models/rife.py:27-39).
+        """Interpolate at plain timesteps in [0, 1] (models/rife.py:27-39); on
+        a CUDA device through the model's ``plain`` graphs (``graphs.plain``).
 
         ``reuse`` is accepted for API uniformity and ignored; the returned
         reuse is always None.
         """
         if len(ts) == 0:
             return ([], None) if return_reuse else []
-        out = _ts_batch(self.params, I0, I1, self._ts(ts), self.scale_list,
-                        warp_backend=self.config.warp_backend,
-                        conv_backend=self.config.conv_backend)
-        frames = list(out.unbind(0))
+        frames = graphs.plain(self, I0, I1, ts)
         return (frames, None) if return_reuse else frames
 
     def next_reuse(self, I1, I2, f1=None):
         """The reuse ``inference_ts_drba`` hands the window after (., I1, I2):
         the I1 -> I2 pass reversed, (flow21, flow12, f2, f1). ``f1``: I1's
         encoder features, where the chain has them."""
-        flow12, flow21, f1, f2 = self._calc_flow(I1, I2, f0=f1)
-        return flow21, flow12, f2, f1
+        return _reversed(graphs.flow_pass(self, I1, I2, f1, None))
 
     def _window(self, I0, I1, I2, ts, ts_host, reuse10, reuse21, linear):
         flow10, _flow01, f1, f0 = reuse10
@@ -165,19 +183,20 @@ class RIFE:
                             self.config.conv_backend)
 
     def _fused_window(self, I0, I1, I2, ts, ts_host, reuse, linear):
-        """``next_reuse`` and the timesteps of a window on the chain's reuse:
-        what one captured graph runs -> ((T, N, H, W, 3), next reuse)."""
-        nxt = self.next_reuse(I1, I2, f1=reuse[2])
+        """``next_reuse`` and the timesteps of a window on the chain's reuse,
+        eagerly: what one captured graph runs -> ((T, N, H, W, 3), next
+        reuse)."""
+        nxt = _reversed(self._pass(I1, I2, f0=reuse[2]))
         return self._window(I0, I1, I2, ts, ts_host, reuse, nxt, linear), nxt
 
     def drba_window(self, I0, I1, I2, ts, reuse10, reuse21, linear: bool = False):
         """The window's timesteps, unfused from its flow pass: ``reuse10`` is
         the chain's (flow10, flow01, f1, f0) (None starts the chain with the
-        I1 -> I0 pass), ``reuse21`` this window's ``next_reuse(I1, I2)``."""
+        I1 -> I0 pass), ``reuse21`` this window's ``next_reuse(I1, I2)``. On a
+        CUDA device through the model's ``unfused`` graphs
+        (``graphs.unfused``)."""
         reuse10 = self._calc_flow(I1, I0) if reuse10 is None else reuse10
-        host = graphs.host_timesteps(ts)
-        return list(self._window(I0, I1, I2, self._ts(host), host, reuse10, reuse21,
-                                 linear).unbind(0))
+        return graphs.unfused(self, I0, I1, I2, ts, reuse10, reuse21, linear)
 
     def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
         """DRM-adjusted interpolation over a 3-frame window.
@@ -185,11 +204,12 @@ class RIFE:
         ``ts`` values lie in [0.5, 1.5) (window time, centred on I1). Returns
         (frames, reuse); reuse carries the I1<->I2 flows and encoder features
         to the next window. On a CUDA device the flow pass and the timesteps
-        replay one captured graph (``graphs.run_window``).
+        replay one captured graph (``graphs.run_window``), and a chain start
+        (``reuse`` None) replays a ``pass`` graph before it.
         """
         if reuse is None:
             reuse = self._calc_flow(I1, I0)
-        if len(ts) and self.device.type == "cuda":
+        if len(ts) and graphs.on(self):
             return graphs.run_window(self, I0, I1, I2, ts, reuse, linear)
         nxt = self.next_reuse(I1, I2, f1=reuse[2])
         if len(ts) == 0:

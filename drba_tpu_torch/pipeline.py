@@ -340,8 +340,9 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
     ``profile`` a wall-clock report per stage (``window``, ``emit-wait``,
     ``prefetch-wait``, ``scdet``, ``finish``) is attached to the stats;
     kernels launch asynchronously, so ``window`` measures the host's dispatch
-    (on a CUDA device, of a steady-state window: its graph's copies and
-    replay; ``utils/profiling.py``).
+    (on a CUDA device, once each call's key is warm, a graph's copies and
+    replay: the steady-state windows', and the cut windows' plain calls and
+    chain-start passes too; ``utils/profiling.py``).
     """
     stats = PipelineStats()
     t_start = time.perf_counter()

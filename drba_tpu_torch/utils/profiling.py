@@ -4,10 +4,13 @@
   ``emit-wait``, ``prefetch-wait``, ``scdet``, ``finish``), reported at the
   end of a run. Kernels launch asynchronously, so ``window`` measures the
   host's dispatch plus any waits inside it, which is what the frame loop
-  experiences. On a CUDA device a steady-state window replays its captured
-  graph (``graphs.py``), so there ``window`` is the host time of the copies
-  in and out and of the replay's launch; the first window of each T (its
-  eager warm-up and capture) and the chain's eager starts add their own.
+  experiences. On a CUDA device every model call replays a captured graph
+  once its key is warm (``graphs.py``): the steady-state windows, and the
+  windows beside a scene cut, the chain starts, the head and the tail
+  (their ``plain`` calls and passes), so there ``window`` is the host time
+  of the copies in and out and of the replays' launches; each key's eager
+  first calls and its capture (the first window of each T; the second call
+  of a plain call or a pass) add their own.
 * ``device_trace``: ``torch.profiler`` over a block, written as a Chrome
   trace (``chrome://tracing`` or Perfetto) into a directory.
 """

@@ -1021,9 +1021,13 @@ def _start(m, I0, I1):
 
 
 def _eager_window(m, I0, I1, I2, ts, reuse):
-    """The eager pieces the graph fuses: next_reuse, then the timesteps."""
-    nxt = m.next_reuse(I1, I2, reuse.feat0 if hasattr(reuse, "feat0") else reuse[2])
-    return m.drba_window(I0, I1, I2, ts, reuse, nxt, linear=True), nxt
+    """The eager pieces the graph fuses: the window's pass, then its
+    timesteps (the model's ``_fused_window``, called directly: no graph)."""
+    from drba_tpu_torch import graphs
+
+    host = graphs.host_timesteps(ts)
+    out, nxt = m._fused_window(I0, I1, I2, graphs.timesteps(m, host), host, reuse, True)
+    return list(out.unbind(0)), nxt
 
 
 def _tensors(tree):
@@ -1097,3 +1101,50 @@ def test_steady_state_windows_make_no_host_sync(dev, name):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["rife", "gmfss", "gmfss_union"])
+def test_plain_and_pass_replays_match_eager_without_host_sync(dev, name):
+    """``inference_ts`` on a given reuse (a ``plain`` graph) and the chain
+    start's pass (a ``pass`` graph): each key's first call eager, its second
+    captures; then one replay of each under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no blocking copy, no
+    read-back, no synchronise), within the window test's bf16 gates of the
+    eager bodies, with the launches of the eager calls."""
+    from drba_tpu_torch import graphs
+    from drba_tpu_torch.parallel.batch import _leaves
+
+    m = _graph_model(name, torch.bfloat16, dev)
+    I0, I1 = _graph_windows(name, torch.bfloat16, dev, n=1)[0][:2]
+    ts = [0.2, 0.6]
+    r01 = None if name == "rife" else m._pass(I0, I1)
+    calls = {"pass": ((lambda: _start(m, I0, I1)), lambda: m._pass(I1, I0)),
+             "plain": ((lambda: m.inference_ts(I0, I1, ts, reuse=r01)),
+                       lambda: m._plain(I0, I1, graphs.timesteps(m, ts), r01))}
+    for graph, _ in calls.values():
+        for _ in range(2):  # eager, then the capture
+            graph()
+    torch.cuda.synchronize()
+    got, counts = {}, {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for kind, (graph, _) in calls.items():
+            c0 = _build.counts()
+            got[kind] = graph()
+            counts[kind] = {k: v - c0[k] for k, v in _build.counts().items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    st = graphs.state(m)
+    assert sorted((k[0], e.replays) for k, e in st.entries.items()) == [("pass", 1),
+                                                                        ("plain", 1)]
+    mean_tol, share_tol = _GRAPH_GATES[torch.bfloat16]
+    for kind, (_, eager) in calls.items():
+        c0 = _build.counts()
+        want = eager()
+        assert counts[kind] == {k: v - c0[k] for k, v in _build.counts().items()}
+        g = torch.cat([t.float().reshape(-1) for t in _leaves(tuple(got[kind]))])
+        w = torch.cat([t.float().reshape(-1) for t in _leaves(want)])
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        d = (g - w).abs()
+        assert float(d.mean()) <= mean_tol, kind
+        assert float((d > 1e-2).float().mean()) <= share_tol, kind

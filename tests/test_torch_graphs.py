@@ -131,7 +131,7 @@ def test_windows_alternating_T_reuse_two_entries_and_match_drba_tpu(rife):
 
 
 def test_cache_key(rife):
-    """One entry per (T, frame shape, dtype, linear, device); linear windows
+    """One entry per ("window", T, frame shape, dtype, linear, device); linear windows
     of other timestep values share it, nonlinear ones do not (their
     bisection schedule is host control flow)."""
     m = copy.copy(rife)
@@ -143,9 +143,9 @@ def test_cache_key(rife):
         st.run(m._fused_window, *tf, ts, reuse, linear)
     shape, f32, cpu = (1, H, W, 3), torch.float32, torch.device("cpu")
     assert set(st.entries) == {
-        (3, shape, f32, True, cpu), (2, shape, f32, True, cpu),
-        (3, shape, f32, False, cpu, tuple(np.float32(TS3).tolist())),
-        (3, shape, f32, False, cpu, tuple(np.float32([0.7, 1.1, 1.3]).tolist()))}
+        ("window", 3, shape, f32, True, cpu), ("window", 2, shape, f32, True, cpu),
+        ("window", 3, shape, f32, False, cpu, tuple(np.float32(TS3).tolist())),
+        ("window", 3, shape, f32, False, cpu, tuple(np.float32([0.7, 1.1, 1.3]).tolist()))}
 
 
 @pytest.mark.parametrize("name", ["rife", "gmfss"])

@@ -10,6 +10,21 @@ Phases (any failure exits non-zero and prints no result):
      and nvcc versions; exits 1 when torch sees no CUDA device;
   2. build: compiles every hand-written kernel from drba_tpu_torch/csrc, one
      nvcc per source, all in parallel;
+ 2b. host (the writers' host runtime and the parameter cache, on the card
+     machine's host): builds ``csrc/host.cpp`` (``_build.HOST``); checks
+     ``bgr8_to_rgb8`` and ``rgbf32_to_bgr8`` bitwise and ``bgr8_to_rgbf32``
+     within 1e-7 against numpy at 1080x1920 and 2160x3840, and times the
+     rgb24 flip three ways in turns (native, ``[..., ::-1].tobytes()``,
+     ``np.copyto`` of the reversed view; median ms a frame, beside
+     ``os.cpu_count()``); passes 64 1080p frames through a ``FrameRing``
+     from a producer thread to a consumer (bytes checked, frames/s); writes
+     seeded stand-in ``.pkl`` state dicts for the three models' ``train_log_*``
+     directories, converts them with ``python -m drba_tpu_torch.convert_weights``,
+     and builds RIFE, GMFSS and GMFSS_UNION from an ``.npz``-only tree and
+     from a ``.pkl``-only tree (``cli.load_model``): params bitwise equal
+     to each other and to the stand-ins, one bf16 1080p T=3 window of each
+     bitwise equal (or, where two runs of one model differ by the splat's
+     atomics, within the bf16 gate), the load times from each;
   3. kernels: each kernel against its plain PyTorch version at the 1080p
      shapes of the RIFE and GMFSS paths, in f32 and bf16, with the tolerance
      stated beside each check; times both with CUDA events, beside the
@@ -105,13 +120,18 @@ launches are the f32 windows'; ``ms_at_library_shapes``: the kernel's time
 summed over the shapes its ``library_ms`` covers); the last line is ``{"ok": true, "device":
 {...}}``. TF32 is off for PyTorch's f32 convolutions and products
 (``config.full_f32_products``, as the CLI sets it); the main path computes
-in bf16, where TF32 does not apply.
+in bf16, where TF32 does not apply. A crash in native code prints every
+thread's Python stack (``faulthandler``); after the last line the script
+frees the card's memory and exits 0 without the interpreter's teardown.
 """
 
 from __future__ import annotations
 
+import faulthandler
+import gc
 import importlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -309,6 +329,224 @@ def sdpa_call(q, k, v, mask=None):
         if best is None or t < best[0]:
             best = (t, fn, be.name)
     return best[1], best[2]
+
+
+def tensors_of(obj, path=""):
+    """(path, tensor) of every tensor in a model's params (dicts, named
+    tuples, lists), in a fixed order."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        yield path, obj
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            yield from tensors_of(obj[k], f"{path}.{k}")
+    elif isinstance(obj, (tuple, list)):
+        for i, v in enumerate(obj):
+            yield from tensors_of(v, f"{path}[{i}]")
+
+
+def host_converters(gpu_line):
+    """The converters of ``utils/native.py`` against numpy at 1080p and 4K,
+    and the rgb24 flip timed three ways in turns."""
+    import statistics
+
+    import numpy as np
+
+    from drba_tpu_torch.utils import native
+
+    rng = np.random.default_rng(0)
+    for (h, w), reps in (((1080, 1920), 30), ((2160, 3840), 15)):
+        frame = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        out = np.empty_like(frame)
+        if not np.array_equal(native.bgr8_to_rgb8(frame, out=out),
+                              native.bgr8_to_rgb8_plain(frame)):
+            fail(f"host: bgr8_to_rgb8 differs from numpy at {h}x{w}")
+        x = rng.uniform(-0.1, 1.1, (h, w, 3)).astype(np.float32)
+        if not np.array_equal(native.rgbf32_to_bgr8(x), native.rgbf32_to_bgr8_plain(x)):
+            fail(f"host: rgbf32_to_bgr8 differs from numpy at {h}x{w}")
+        err = float(np.abs(native.bgr8_to_rgbf32(frame) - native.bgr8_to_rgbf32_plain(frame)).max())
+        if err > 1e-7:  # times 1/255 against numpy's division
+            fail(f"host: bgr8_to_rgbf32 off by {err:.3e} (> 1e-7) at {h}x{w}")
+        ways = {"native": lambda: native.bgr8_to_rgb8(frame, out=out),
+                "[..., ::-1].tobytes()": lambda: frame[..., ::-1].tobytes(),
+                "np.copyto": lambda: np.copyto(out, frame[..., ::-1])}
+        ms = {k: [] for k in ways}
+        for _ in range(reps):
+            for k, fn in ways.items():
+                t0 = time.perf_counter()
+                fn()
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        print(f"host {h}x{w}: bgr8_to_rgb8 and rgbf32_to_bgr8 bitwise equal to numpy, "
+              f"bgr8_to_rgbf32 max abs {err:.3e} (<= 1e-7); rgb24 flip, median ms a frame "
+              f"over {reps} in turns: " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+              + f" (native {med['[..., ::-1].tobytes()'] / med['native']:.2f}x tobytes); "
+              f"os.cpu_count() {os.cpu_count()}  [{gpu_line}]")
+
+
+def host_ring(gpu_line):
+    """64 1080p frames through a ``FrameRing`` from a producer thread to a
+    consumer thread; the bytes checked."""
+    import threading
+
+    import numpy as np
+
+    from drba_tpu_torch.utils import native
+
+    n, slot = 64, 1080 * 1920 * 3
+    frames = np.random.default_rng(1).integers(0, 256, (n, slot), dtype=np.uint8)
+    got = np.empty_like(frames)
+    ring = native.FrameRing(slot, 8)
+    popped = []
+
+    def consumer():
+        i = 0
+        while True:
+            rc = ring.pop(got[i] if i < n else np.empty(slot, np.uint8))
+            if rc == -1:
+                break
+            if rc > 0:
+                popped.append(rc)
+                i += 1
+
+    t = threading.Thread(target=consumer)
+    t0 = time.perf_counter()
+    t.start()
+    for f in frames:
+        while (rc := ring.push(f)) == 0:
+            pass
+        if rc != 1:
+            fail(f"host: FrameRing.push returned {rc}")
+    ring.close()
+    t.join(timeout=120)
+    dt = time.perf_counter() - t0
+    if t.is_alive() or popped != [slot] * n or not np.array_equal(got, frames):
+        fail(f"host: FrameRing passed {len(popped)} of {n} frames, or not their bytes")
+    print(f"host ring: {n} 1080p frames producer -> consumer thread (8 slots), bytes equal, "
+          f"{n / dt:.1f} frames/s ({n * slot / dt / 1e9:.2f} GB/s)  [{gpu_line}]")
+
+
+def host_cache(dev, gpu_line):
+    """The ``.npz`` parameter cache: stand-in checkpoints converted by
+    ``python -m drba_tpu_torch.convert_weights``; each model from an
+    ``.npz``-only and from a ``.pkl``-only tree, params and one window."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from drba_tpu_torch import convert
+    from drba_tpu_torch.cli import _MODELS, load_model
+    from drba_tpu_torch.config import DEFAULT
+    from drba_tpu_torch.convert_weights import specs_for
+    from drba_tpu_torch.models.layers import init_from_spec
+    from drba_tpu_torch.pipeline import calc_ts
+    from drba_tpu_torch.utils import TMapper, to_inp
+
+    with tempfile.TemporaryDirectory(prefix="drba_weights_") as tmp:
+        made, standin = os.path.join(tmp, "made"), {}
+        for j, (_, _, sub) in enumerate(_MODELS.values()):
+            os.makedirs(os.path.join(made, sub))
+            for i, (pkl, spec) in enumerate(specs_for(sub).items()):
+                p = convert.from_jax_params(init_from_spec(spec, seed=100 + 10 * j + i), spec)
+                standin[(sub, pkl)] = p
+                torch.save(convert.to_torch_state_dict(p, spec), os.path.join(made, sub, pkl))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "drba_tpu_torch.convert_weights",
+                               "--weights", made], capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0 or f"done, {len(standin)} checkpoints converted" not in proc.stdout:
+            fail(f"host: convert_weights failed (rc {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        print(f"host cache: python -m drba_tpu_torch.convert_weights wrote {len(standin)} .npz "
+              f"in {time.perf_counter() - t0:.2f} s")
+        trees = {ext: os.path.join(tmp, ext) for ext in ("npz", "pkl")}
+        for ext, root in trees.items():
+            for sub in {s for s, _ in standin}:
+                os.makedirs(os.path.join(root, sub))
+                for f in os.listdir(os.path.join(made, sub)):
+                    if f.endswith("." + ext):
+                        shutil.copy(os.path.join(made, sub, f), os.path.join(root, sub, f))
+
+        # the loads alone (CPU, f32), in turns: each network equal to its stand-in
+        secs = {ext: 0.0 for ext in trees}
+        for ext in ("pkl", "npz", "npz", "pkl"):
+            for (sub, pkl), spec_p in standin.items():
+                spec = specs_for(sub)[pkl]
+                t0 = time.perf_counter()
+                got = convert.load_network(os.path.join(trees[ext], sub), pkl, spec, strict=True)
+                secs[ext] += (time.perf_counter() - t0) / 2
+                bad = [k for k in spec if not torch.equal(got[k], spec_p[k])]
+                if bad:
+                    fail(f"host: {sub}/{pkl} from the {ext} tree differs from its stand-in "
+                         f"at {bad[:3]}")
+        print(f"host cache: {len(standin)} networks from .pkl {secs['pkl']:.3f} s, from .npz "
+              f"{secs['npz']:.3f} s (convert.load_network, mean of two in turns), each "
+              f"bitwise equal to its stand-in  [{gpu_line}]")
+
+        frames = synthetic_frames(3)
+        ts3 = calc_ts(0, TMapper(SRC_FPS, DST_FPS), -1)
+        for name in _MODELS:
+            models, build = {}, {}
+            for ext, root in trees.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                models[ext] = load_model(name, root, 1.0, DEFAULT.replace(strict_load=True), dev)
+                torch.cuda.synchronize()
+                build[ext] = time.perf_counter() - t0
+            a = list(tensors_of((models["npz"].params, getattr(models["npz"], "rife_params", None))))
+            b = list(tensors_of((models["pkl"].params, getattr(models["pkl"], "rife_params", None))))
+            if [k for k, _ in a] != [k for k, _ in b] or not all(
+                    x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(a, b)):
+                fail(f"host: {name} built from .npz and from .pkl hold other params")
+            m = models["npz"]
+            size = padded_size(m)
+            I0, I1, I2 = (to_inp(f, size, m.config.compute_dtype, dev) for f in frames)
+
+            # each model's chain-start pass once (a second call of its key would capture)
+            reuse = {e: mm._calc_flow(I1, I0) if name == "rife" else mm.reuse(I1, I0)
+                     for e, mm in models.items()}
+            w_pkl, w_npz, w_pkl2 = (
+                torch.stack(eager_window(models[e], I0, I1, I2, ts3, reuse[e])[0])
+                for e in ("pkl", "npz", "pkl"))
+            if not torch.isfinite(w_npz).all():
+                fail(f"host: {name} window from .npz not finite")
+            if torch.equal(w_npz, w_pkl):
+                how = "bitwise equal"
+            elif torch.equal(w_pkl, w_pkl2):
+                fail(f"host: {name} window from .npz differs from .pkl's, where two runs of the "
+                     f".pkl model are bitwise equal")
+            else:
+                d = (w_npz.float() - w_pkl.float()).abs()
+                mean, share = float(d.mean()), float((d > 1e-2).float().mean())
+                if mean > GATES["bf16"][0] or share > GATES["bf16"][1]:
+                    fail(f"host: {name} window from .npz vs .pkl: mean {mean:.3e}, "
+                         f"share {share:.3e} beyond the bf16 gate")
+                how = (f"within the bf16 gate (mean abs {mean:.3e}; two runs of the .pkl model "
+                       f"also differ: the splat's atomics)")
+            print(f"host cache: {name} from .npz and from .pkl ({len(a)} param tensors bitwise "
+                  f"equal); built in {build['npz']:.2f} / {build['pkl']:.2f} s (npz / pkl, "
+                  f"cli.load_model to the card); one bf16 T={len(ts3)} {size[0]}x{size[1]} "
+                  f"window {how}  [{gpu_line}]")
+            del models, m, reuse
+            torch.cuda.empty_cache()
+
+
+def phase_host(dev, gpu_line):
+    """Phase 2b: the writers' host runtime and the parameter cache."""
+    from drba_tpu_torch import _build
+    from drba_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    try:
+        native.load()
+    except RuntimeError as e:
+        fail(f"host: {e}")
+    print(f"build host: {_build.CSRC.name}/{_build.HOST.source} with {_build.find_cxx()} "
+          f"{' '.join(_build.HOST_FLAGS)} in {time.perf_counter() - t0:.1f} s")
+    host_converters(gpu_line)
+    host_ring(gpu_line)
+    host_cache(dev, gpu_line)
 
 
 def phase_kernels(dev):
@@ -1796,6 +2034,8 @@ def phase_gate(dev, gpu_line):
 
 
 def main() -> None:
+    # a crash in native code (a driver, a library) prints every thread's stack
+    faulthandler.enable()
     import torch
 
     if not torch.cuda.is_available():
@@ -1828,6 +2068,7 @@ def main() -> None:
 
     from drba_tpu_torch.bounds import bound_ms
 
+    phase_host(dev, gpu_line)
     summary = phase_kernels(dev)
     launches = {k.name: 0 for k in _build.KERNELS}
     for name, scdet in (("rife", False), ("gmfss", False), ("gmfss_union", False),
@@ -1880,5 +2121,22 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+def leave() -> None:
+    """Free what is left on the card while the CUDA runtime is whole, then
+    exit 0 without the interpreter's teardown. Every check has passed by
+    now; the teardown would only destroy CUDA graphs, the profiler's state
+    and the kernels' statically linked CUDA runtimes in an order none of
+    them chose."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
 if __name__ == "__main__":
     main()
+    leave()

@@ -1,10 +1,13 @@
-"""Build and load the hand-written CUDA kernels; count their launches.
+"""Build and load the hand-written CUDA kernels (and the writers' host
+library); count the kernels' launches.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. The build runs at
 a kernel's first launch, never at import, into ``drba_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by a hash of the sources and flags, so a
-fresh checkout builds from its own sources alone.
+fresh checkout builds from its own sources alone. ``csrc/host.cpp``, the
+video writers' frame converters and frame ring (``utils/native.py``), is
+built the same way by the host's C++ compiler (:class:`HostLibrary`).
 
 Every C entry returns ``cudaGetLastError()`` after its launch and
 :meth:`Kernel.launch` raises if it is not 0. There is no fallback: a missing
@@ -129,21 +132,7 @@ class Kernel:
 
     def build(self) -> Path:
         """Compile the source unless a library of the same hash exists."""
-        out = self.library_path()
-        with _BUILD_LOCKS.setdefault(self.source, threading.Lock()):
-            if out.exists():
-                return out
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / self.source)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            _BUILD_LOGS[self.source] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed for {self.source} (rc {proc.returncode}):\n"
-                                   f"{_BUILD_LOGS[self.source]}")
-            os.replace(tmp, out)
-            return out
+        return _compile([find_nvcc(), *NVCC_FLAGS], self.source, self.library_path())
 
     def load(self) -> None:
         """Build (if needed) and load the library and the C entries."""
@@ -188,6 +177,31 @@ _BUILD_LOCKS: dict = {}
 _BUILD_LOGS: dict = {}
 _RECORDING = threading.local()
 
+
+def _compile(compiler: list, source: str, out: Path) -> Path:
+    """Compile ``csrc/<source>`` with ``compiler`` (the command and its flags)
+    into ``out`` unless it exists: into a temporary name first, then renamed,
+    so that processes building the same library at once each load a whole
+    file. A failed build raises with the compiler's output."""
+    with _BUILD_LOCKS.setdefault(source, threading.Lock()):
+        if out.exists():
+            return out
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [*compiler, "-o", str(tmp), str(CSRC / source)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run {compiler[0]} to build {source}: {e}") from e
+        _BUILD_LOGS[source] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{compiler[0]} failed for {source} (rc {proc.returncode}):\n"
+                               f"{_BUILD_LOGS[source]}")
+        os.replace(tmp, out)
+        return out
+
+
 SPLAT = Kernel("splat", "splat.cu", {
     # ten, flow, metric, acc; n, h, w, c, mode; 3 dtypes; stream
     "drba_splat_scatter": [_P] * 4 + [_I] * 8 + [_P],
@@ -214,6 +228,70 @@ LAYER = Kernel("transformer_layer", "attn_layer.cu", {
     "drba_layer_tail": [_P] * 9 + [_I, _L, _I, _P],
 })
 KERNELS = (SPLAT, WARP, CONV, WINDOW, FLASH, LAYER)
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
+
+
+def find_cxx() -> str:
+    """The host's C++ compiler: ``$CXX``, else ``c++``."""
+    cxx = os.environ.get("CXX") or "c++"
+    path = shutil.which(cxx)
+    if path is None:
+        raise RuntimeError(f"C++ compiler {cxx!r} not found (set CXX or put c++ on PATH); "
+                           "the host library cannot be built")
+    return path
+
+
+class HostLibrary:
+    """A ``csrc`` host (CPU) source built by the C++ compiler into a shared
+    library with a plain C interface, loaded with ``ctypes``.
+
+    Built at first :meth:`load`, never at import, into ``BUILD_DIR``, named
+    by a hash of the source, the compiler and ``HOST_FLAGS``. ``entries``
+    maps each C entry to ``(restype, argtypes)``. No fallback: a missing
+    compiler or a failed build raises.
+    """
+
+    def __init__(self, source: str, entries: dict):
+        self.source = source
+        self.entries = dict(entries)
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def library_path(self, cxx: str) -> Path:
+        h = hashlib.sha256((CSRC / self.source).read_bytes())
+        h.update(" ".join((cxx, *HOST_FLAGS)).encode())
+        return BUILD_DIR / f"{Path(self.source).stem}-{h.hexdigest()[:16]}.so"
+
+    def load(self) -> ctypes.CDLL:
+        """Build (if needed) and load the library; returns it."""
+        with self._lock:
+            if self._lib is None:
+                cxx = find_cxx()
+                lib = ctypes.CDLL(str(_compile([cxx, *HOST_FLAGS], self.source,
+                                               self.library_path(cxx))))
+                for entry, (restype, argtypes) in self.entries.items():
+                    fn = getattr(lib, entry)
+                    fn.restype = restype
+                    fn.argtypes = argtypes
+                self._lib = lib
+            return self._lib
+
+
+# the writers' host runtime (utils/native.py): src, dst, h, w, threads for
+# each converter; the SPSC frame ring
+_CONVERT = (None, [_P, _P, _L, _L, _I])
+HOST = HostLibrary("host.cpp", {
+    "drba_bgr8_to_rgbf32": _CONVERT,
+    "drba_bgr8_to_rgb8": _CONVERT,
+    "drba_rgbf32_to_bgr8": _CONVERT,
+    "drba_ring_create": (_P, [_L, _L]),        # slot bytes, capacity
+    "drba_ring_destroy": (None, [_P]),
+    "drba_ring_push": (_I, [_P, _P, _L]),      # ring, data, bytes
+    "drba_ring_pop": (_L, [_P, _P, _L]),       # ring, out, out's bytes
+    "drba_ring_close": (None, [_P]),
+    "drba_ring_size": (_L, [_P]),
+})
 
 
 def build_all() -> dict:

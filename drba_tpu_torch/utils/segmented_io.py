@@ -10,6 +10,9 @@
   raises.
 * ``completed_frames`` tells ``run_pipeline`` how many output frames exist
   (its ``skip_outputs``); the run goes on into the next segment.
+* Each frame goes to a segment's ffmpeg as rgb24, flipped by the host
+  library (``utils/native.py``) into a reused buffer; without ffmpeg, to a
+  ``cv2.VideoWriter``.
 * ``finish_writing`` stream-concatenates the segments with ffmpeg (no
   re-encode) and muxes the source's audio in; without ffmpeg it re-muxes by
   decoding the segments with cv2.
@@ -32,6 +35,7 @@ import threading
 
 import numpy as np
 
+from drba_tpu_torch.utils import native
 from drba_tpu_torch.utils.video_io import select_encoder
 
 
@@ -61,6 +65,8 @@ class SegmentedVideoIO:
         self.manifest_path = os.path.join(self.work_dir, "manifest.json")
         self._manifest = self._load_manifest()
         self.completed_frames = sum(s["frames"] for s in self._manifest["segments"])
+        if shutil.which("ffmpeg"):
+            native.load()  # the rgb24 flip's library: build it (or raise) before any frame
 
         self.read_buffer: queue.Queue = queue.Queue(maxsize=read_queue)
         self.write_buffer: queue.Queue = queue.Queue(maxsize=write_queue)
@@ -145,6 +151,7 @@ class SegmentedVideoIO:
         index = len(self._manifest["segments"])
         fname = proc = writer = None
         n = 0
+        rgb = None  # the flip's buffer, reused while the frame shape holds
         while True:
             item = self.write_buffer.get()
             if item is None:
@@ -156,7 +163,9 @@ class SegmentedVideoIO:
                     fname, proc, writer = self._open_segment(index)
                     n = 0
                 if proc is not None:
-                    proc.stdin.write(np.ascontiguousarray(item[..., ::-1]).tobytes())  # BGR -> rgb24
+                    if rgb is None or rgb.shape != item.shape:
+                        rgb = np.empty(item.shape, np.uint8)
+                    proc.stdin.write(native.bgr8_to_rgb8(item, out=rgb))  # BGR -> rgb24
                 else:
                     writer.write(item)
                 n += 1

@@ -2,8 +2,9 @@
 
 A decoder thread (``cv2.VideoCapture`` into a bounded queue) and an encoder
 thread draining a bounded queue into an ``ffmpeg`` rawvideo pipe when an
-``ffmpeg`` binary exists (keeping the source's audio), else a
-``cv2.VideoWriter``. ``cv2`` is imported where it is used, so the package
+``ffmpeg`` binary exists (keeping the source's audio; each frame flipped to
+rgb24 by the host library, ``utils/native.py``, into a reused buffer), else
+a ``cv2.VideoWriter``. ``cv2`` is imported where it is used, so the package
 imports without it.
 """
 
@@ -16,6 +17,9 @@ import shutil
 import subprocess
 import threading
 
+import numpy as np
+
+from drba_tpu_torch.utils import native
 from drba_tpu_torch.utils.log import get_logger
 
 
@@ -76,6 +80,7 @@ class VideoFI_IO:
         self._ffmpeg = None
         self._writer = None
         if shutil.which("ffmpeg"):
+            native.load()  # the rgb24 flip's library: build it (or raise) before ffmpeg starts
             cmd = ["ffmpeg", "-y", "-f", "rawvideo", "-pix_fmt", "rgb24",
                    "-r", f"{self.dst_fps}", "-s", f"{self.width}x{self.height}",
                    "-i", "pipe:0", "-i", input_path, "-map", "0:v", "-map", "1:a?",
@@ -111,6 +116,7 @@ class VideoFI_IO:
             self.capture.release()
 
     def _write_loop(self):
+        rgb = None  # the flip's buffer, reused while the frame shape holds
         while True:
             item = self.write_buffer.get()
             if item is None:
@@ -119,7 +125,9 @@ class VideoFI_IO:
                 continue  # drain: unblock producers, drop frames
             try:
                 if self._ffmpeg is not None:
-                    self._ffmpeg.stdin.write(item[..., ::-1].tobytes())  # BGR -> rgb24
+                    if rgb is None or rgb.shape != item.shape:
+                        rgb = np.empty(item.shape, np.uint8)
+                    self._ffmpeg.stdin.write(native.bgr8_to_rgb8(item, out=rgb))  # BGR -> rgb24
                 else:
                     self._writer.write(item)
             except Exception as e:  # surfaced by write_frame / finish_writing

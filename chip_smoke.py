@@ -6,8 +6,8 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
-  1. environment: the card's name and power limit (nvidia-smi), torch, CUDA
-     and nvcc versions; exits 1 when torch sees no CUDA device;
+  1. environment: the card's name and power limit (nvidia-smi), torch,
+     numpy, CUDA and nvcc versions; exits 1 when torch sees no CUDA device;
   2. build: compiles every hand-written kernel from drba_tpu_torch/csrc, one
      nvcc per source, all in parallel;
  2b. host (the writers' host runtime and the parameter cache, on the card
@@ -24,7 +24,12 @@ Phases (any failure exits non-zero and prints no result):
      from a ``.pkl``-only tree (``cli.load_model``): params bitwise equal
      to each other and to the stand-ins, one bf16 1080p T=3 window of each
      bitwise equal (or, where two runs of one model differ by the splat's
-     atomics, within the bf16 gate), the load times from each;
+     atomics, within the bf16 gate), the load times from each; loads the
+     ten networks from partial ``.pkl`` files at seeds 7-11 (missing keys
+     take the seed-0 init) bitwise against the ``.npz`` ``convert_weights``
+     writes from each, and from state dicts of numpy arrays (numpy scalar
+     and 0-d slopes) under numpy 2's and numpy 1's module names bitwise
+     against their tensor twins;
   3. kernels: each kernel against its plain PyTorch version at the 1080p
      shapes of the RIFE and GMFSS paths, in f32 and bf16, with the tolerance
      stated beside each check; times both with CUDA events, beside the
@@ -532,6 +537,119 @@ def host_cache(dev, gpu_line):
             torch.cuda.empty_cache()
 
 
+def respell_numpy(path, module):
+    """Rewrite a ``torch.save`` file so that its pickle names numpy's
+    multiarray module as ``module``: numpy 1 wrote ``numpy.core.multiarray``,
+    numpy 2 writes ``numpy._core.multiarray``."""
+    import io
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        records = {n: z.read(n) for n in z.namelist()}
+    for n, b in records.items():
+        if n.endswith("/data.pkl"):
+            for old in (b"numpy._core.multiarray", b"numpy.core.multiarray"):
+                b = b.replace(old + b"\n", module.encode() + b"\n")
+            records[n] = b
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as z:
+        for n, b in records.items():
+            z.writestr(n, b)
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())
+
+
+def host_pkl(gpu_line):
+    """The ``.pkl`` cases ``drba_tpu``'s loader reads, on this machine's
+    torch and numpy: a partial state dict loaded at a seed other than 0
+    (missing keys take the seed-0 init) against the ``.npz`` that
+    ``convert_weights`` writes from it and against the expected params; a
+    state dict of numpy arrays (slopes as numpy scalars and 0-d arrays),
+    under numpy 2's and numpy 1's module names, against its tensor twin."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from drba_tpu_torch import convert, convert_weights
+    from drba_tpu_torch.cli import _MODELS
+    from drba_tpu_torch.models.layers import init_from_spec
+
+    nets = [(sub, pkl, i) for _, _, sub in _MODELS.values()
+            for i, pkl in enumerate(convert_weights.specs_for(sub))]
+    seed = 7  # config.seed: network i of a model loads at seed + i
+
+    def bad_keys(got, want):
+        return [k for k in want
+                if got[k].dtype != torch.float32 or not torch.equal(got[k], want[k])]
+
+    with tempfile.TemporaryDirectory(prefix="drba_pkl_") as tmp:
+        want, n_missing = {}, 0
+        for sub, pkl, i in nets:
+            spec = convert_weights.specs_for(sub)[pkl]
+            full = convert.from_jax_params(init_from_spec(spec, seed=200 + 10 * i + len(sub)),
+                                           spec)
+            fill = convert.from_jax_params(init_from_spec(spec), spec)
+            keep = {k for j, k in enumerate(spec) if j >= 3 and j % 7}
+            want[(sub, pkl)] = {k: full[k] if k in keep else fill[k] for k in spec}
+            n_missing += len(spec) - len(keep)
+            os.makedirs(os.path.join(tmp, sub), exist_ok=True)
+            sd = convert.to_torch_state_dict(full, spec)
+            torch.save({k: v for k, v in sd.items() if k in keep}, os.path.join(tmp, sub, pkl))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            n = convert_weights.main(["--weights", tmp])
+        if n != len(nets):
+            fail(f"host: convert_weights converted {n} of {len(nets)} partial .pkl:\n"
+                 f"{out.getvalue()}")
+        for sub, pkl, i in nets:
+            spec = convert_weights.specs_for(sub)[pkl]
+            d = os.path.join(tmp, sub)
+            npz = os.path.join(d, os.path.splitext(pkl)[0] + ".npz")
+            from_npz = convert.load_network(d, pkl, spec, seed=seed + i)
+            os.rename(npz, npz + ".off")
+            from_pkl = convert.load_network(d, pkl, spec, seed=seed + i)
+            bad = bad_keys(from_pkl, from_npz) + bad_keys(from_pkl, want[(sub, pkl)])
+            if bad:
+                fail(f"host: partial {sub}/{pkl} at seed {seed + i}: .pkl, its .npz and the "
+                     f"seed-0 fill disagree at {bad[:3]}")
+        print(f"host pkl: {len(nets)} partial .pkl ({n_missing} keys missing) loaded at seeds "
+              f"{seed}-{seed + 4}, each bitwise equal to the .npz convert_weights wrote from it "
+              f"and to its keys with the seed-0 fill  [{gpu_line}]")
+
+        spellings = ("numpy._core.multiarray", "numpy.core.multiarray")
+        for sub, pkl, _ in nets:
+            spec = convert_weights.specs_for(sub)[pkl]
+            d = os.path.join(tmp, "nd", sub)
+            os.makedirs(d, exist_ok=True)
+            sd = convert.to_torch_state_dict(want[(sub, pkl)], spec)
+            torch.save(sd, os.path.join(d, "twin.pkl"))
+            arrays, n_scalar = {}, 0
+            for k, v in sd.items():
+                v = v.numpy()
+                if spec[k][0] == "scalar":  # a numpy scalar, a 0-d array, a (1,) array
+                    v = (np.float32(v[0]), np.array(v[0], np.float32), v)[n_scalar % 3]
+                    n_scalar += 1
+                arrays[k] = v
+            twin = convert.load_network(d, "twin.pkl", spec, strict=True)
+            for module in spellings:
+                path = os.path.join(d, f"{module}.pkl")
+                torch.save(arrays, path)
+                respell_numpy(path, module)
+                if module not in str(torch.serialization.get_unsafe_globals_in_checkpoint(path)):
+                    fail(f"host: {path} does not name {module}")
+                got = convert.load_network(d, f"{module}.pkl", spec, strict=True)
+                bad = bad_keys(got, twin)
+                if bad:
+                    fail(f"host: {sub}/{pkl} as numpy arrays ({module}) differs from its "
+                         f"tensor twin at {bad[:3]}")
+        print(f"host pkl: {len(nets)} state dicts of numpy arrays (slopes as numpy scalars and "
+              f"0-d arrays), pickled under {' and '.join(spellings)}, each bitwise equal to its "
+              f"tensor twin (numpy {np.__version__}, torch {torch.__version__})  [{gpu_line}]")
+
+
 def phase_host(dev, gpu_line):
     """Phase 2b: the writers' host runtime and the parameter cache."""
     from drba_tpu_torch import _build
@@ -547,6 +665,7 @@ def phase_host(dev, gpu_line):
     host_converters(gpu_line)
     host_ring(gpu_line)
     host_cache(dev, gpu_line)
+    host_pkl(gpu_line)
 
 
 def phase_kernels(dev):
@@ -2054,7 +2173,10 @@ def main() -> None:
     print(gpu_line)
     driver = cmd_line(["nvidia-smi", "-i", "0", "--query-gpu=driver_version",
                        "--format=csv,noheader"])
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
+    import numpy as np
+
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, numpy "
+          f"{np.__version__}, CUDA "
           f"{torch.version.cuda}, driver {driver}, "
           f"nvcc: {cmd_line([_build.find_nvcc(), '--version'])}, "
           f"device {torch.cuda.get_device_name(0)}, no Triton kernel used")

@@ -9,11 +9,18 @@ parameter cache (counterpart of drba_tpu/convert.py).
      arrays), read through ``from_jax_params``, so one weights directory
      serves both packages;
   2. ``<name>.pkl``: the reference state dict, which already holds PyTorch
-     tensors in the port's layouts, except ``nn.Linear``'s (O, I), which is
-     transposed; ``module.`` prefixes are stripped and per-channel vectors
-     (the ResConv ``beta``, stored (1, C, 1, 1)) flattened;
-  3. the seeded random init (``init_from_spec``, drawn as ``drba_tpu`` draws
-     it).
+     tensors (or numpy arrays) in the port's layouts, except ``nn.Linear``'s
+     (O, I), which is transposed; ``module.`` prefixes are stripped and
+     per-channel vectors (the ResConv ``beta``, stored (1, C, 1, 1))
+     flattened; spec keys the file lacks take the seed-0 init, whatever the
+     network's seed, as in ``drba_tpu``;
+  3. the network's seeded random init (``init_from_spec``, drawn as
+     ``drba_tpu`` draws it).
+
+A ``.pkl`` is read as data (``torch.load(weights_only=True)``): besides
+tensors, only numpy's array, scalar and dtype reconstruction is allowed,
+under numpy 1's and numpy 2's module names alike; any other global is
+refused, and the error names it.
 
 The JAX layouts (``from_jax_params``; ``to_jax_params`` reverses them):
 
@@ -31,6 +38,8 @@ dropped.
 from __future__ import annotations
 
 import os
+import pickle
+import zipfile
 from typing import Mapping
 
 import numpy as np
@@ -60,8 +69,9 @@ def from_jax_params(params: Mapping[str, np.ndarray], spec: Mapping[str, tuple])
 
 
 def from_torch_state_dict(state: Mapping[str, object], spec: Mapping[str, tuple],
-                          seed: int = 0, strict: bool = False) -> dict:
-    """A reference state dict -> port params; missing keys keep the seeded init."""
+                          strict: bool = False) -> dict:
+    """A reference state dict (tensors or ndarrays) -> port params; missing
+    keys keep the seed-0 init, as ``drba_tpu`` fills them."""
     flat = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in state.items()}
     extra = sorted(set(flat) - set(spec))
     missing = sorted(set(spec) - set(flat))
@@ -69,7 +79,7 @@ def from_torch_state_dict(state: Mapping[str, object], spec: Mapping[str, tuple]
         raise ValueError(f"strict load failed: {len(missing)} missing spec keys "
                          f"(e.g. {missing[:3]}), {len(extra)} unexpected checkpoint keys "
                          f"(e.g. {extra[:3]})")
-    params = from_jax_params(init_from_spec(spec, seed=seed), spec)
+    params = from_jax_params(init_from_spec(spec), spec)
     for key, desc in spec.items():
         if key in flat:
             v = torch.as_tensor(flat[key]).detach().to("cpu", torch.float32)
@@ -154,25 +164,49 @@ def load_npz(path: str, spec: Mapping[str, tuple], strict: bool = False) -> dict
     return from_jax_params(arrays, spec)
 
 
-def load_pickle(path: str, spec: Mapping[str, tuple], seed: int = 0,
-                strict: bool = False) -> dict:
-    """Read a reference ``.pkl`` state dict into port params."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    return from_torch_state_dict(state, spec, seed=seed, strict=strict)
+def _numpy_globals() -> list:
+    """What a state dict of numpy arrays names beside tensors: the array and
+    scalar reconstructors under both numpy modules' names (numpy 1 pickles
+    ``numpy.core.multiarray``, numpy 2 ``numpy._core.multiarray``), and the
+    dtype classes its arrays are built with."""
+    reconstruct = np.empty(0).__reduce__()[0]
+    scalar = np.float32(0).__reduce__()[0]
+    allowed = [np.ndarray, np.dtype, *{type(np.dtype(c)) for c in "?bhilqBHILQefd"}]
+    for module in ("numpy.core.multiarray", "numpy._core.multiarray"):
+        allowed += [(reconstruct, f"{module}._reconstruct"), (scalar, f"{module}.scalar")]
+    return allowed
+
+
+def load_pickle(path: str, spec: Mapping[str, tuple], strict: bool = False) -> dict:
+    """Read a reference ``.pkl`` state dict (tensors or numpy arrays) into
+    port params, as data: any global beyond numpy's arrays is refused."""
+    with torch.serialization.safe_globals(_numpy_globals()):
+        try:
+            state = torch.load(path, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError as e:
+            refused = (torch.serialization.get_unsafe_globals_in_checkpoint(path)
+                       if zipfile.is_zipfile(path) else [])
+            if not refused:  # a legacy file, or not a global: torch's error says what
+                raise
+            raise pickle.UnpicklingError(
+                f"{path}: refused {sorted(refused)}: a weights .pkl is read as data and "
+                f"may hold only tensors and numpy arrays") from e
+    return from_torch_state_dict(state, spec, strict=strict)
 
 
 def load_network(weights_dir: str | None, filename: str, spec: Mapping[str, tuple],
                  seed: int = 0, strict: bool = False) -> dict:
     """Resolve a network's params as ``drba_tpu`` does: ``<name>.npz`` in
-    ``weights_dir``, else the reference ``<name>.pkl``, else the seeded
-    random init. ``strict`` fails when neither file is there."""
+    ``weights_dir``, else the reference ``<name>.pkl`` (missing keys at seed
+    0), else the random init at ``seed``. ``strict`` fails when neither file
+    is there."""
     if weights_dir is not None:
         pkl = os.path.join(weights_dir, filename)
         npz = os.path.splitext(pkl)[0] + ".npz"
         if os.path.exists(npz):
             return load_npz(npz, spec, strict=strict)
         if os.path.exists(pkl):
-            return load_pickle(pkl, spec, seed=seed, strict=strict)
+            return load_pickle(pkl, spec, strict=strict)
         if strict:
             raise FileNotFoundError(f"strict load: checkpoint {pkl} (or .npz cache) not found")
         log.warning("%s (or .npz cache) not found; using random init", pkl)

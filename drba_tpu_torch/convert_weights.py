@@ -62,8 +62,7 @@ def main(argv=None) -> int:
             if os.path.exists(dst) and not args.force:
                 print(f"skip (cached):  {dst}")
                 continue
-            # keys the .pkl lacks keep the seed-0 init, as drba_tpu's tool keeps them
-            params = load_pickle(src, spec, seed=0)
+            params = load_pickle(src, spec)
             save_npz(dst, params, spec)
             print(f"converted:      {src} -> {dst} ({len(params)} tensors)")
             converted += 1

@@ -135,10 +135,15 @@ class Kernel:
         return _compile([find_nvcc(), *NVCC_FLAGS], self.source, self.library_path())
 
     def load(self) -> None:
-        """Build (if needed) and load the library and the C entries."""
+        """Build (if needed) and load the library and the C entries; with a
+        recorder active, as a ``build`` span (``utils/profiling.py``)."""
         with self._lock:
             if not self._fns:
-                lib = ctypes.CDLL(str(self.build()))
+                from drba_tpu_torch.utils import profiling  # the package imports this module
+
+                tr = profiling.active()
+                with tr.span("build", kernel=self.name) if tr is not None else profiling.NULL:
+                    lib = ctypes.CDLL(str(self.build()))
                 self.build_log = _BUILD_LOGS.get(self.source, "")
                 for entry, argtypes in self.entries.items():
                     fn = getattr(lib, entry)

@@ -22,6 +22,7 @@ import torch
 from drba_tpu_torch.config import BACKENDS, Config, full_f32_products, model_device
 from drba_tpu_torch.parallel.mesh import make_devices
 from drba_tpu_torch.pipeline import run_pipeline
+from drba_tpu_torch.utils import profiling
 from drba_tpu_torch.utils.log import get_logger
 
 
@@ -65,7 +66,9 @@ def parse_args(argv=None):
                    help="forward splat: auto (the CUDA kernel on a CUDA tensor), torch (the "
                         "plain version), cuda (the kernel, raising on the CPU)")
     p.add_argument("--profile", dest="profile", action="store_true",
-                   help="print wall-clock timings per pipeline stage at the end")
+                   help="print wall-clock timings per pipeline stage, per span of the frame "
+                        "loop's threads and the model's load and calls, and the graph counters "
+                        "at the end")
     p.add_argument("--seg-frames", dest="seg_frames", type=int, default=0,
                    help="write the output in crash-safe segments of N frames, concatenated "
                         "(with the source's audio) at the end; enables --resume")
@@ -83,18 +86,27 @@ _MODELS = {"rife": ("rife", "RIFE", "train_log_rife_426_heavy"),
 
 def load_model(model_type: str, weights_root: str, scale: float, config: Config, device):
     """Build the model of ``model_type``; random seeded weights where its
-    weights directory is absent."""
+    weights directory is absent. With a recorder active, a ``load`` span
+    (the weights read, converted, cast and packed)."""
     import importlib
 
     module, cls, sub = _MODELS[model_type]
     wdir = os.path.join(weights_root, sub)
-    model_cls = getattr(importlib.import_module(f"drba_tpu_torch.models.{module}"), cls)
-    return model_cls(weights=wdir if os.path.isdir(wdir) else None, scale=scale, config=config,
-                     device=device)
+    tr = profiling.active()
+    with tr.span("load", model=model_type) if tr is not None else profiling.NULL:
+        model_cls = getattr(importlib.import_module(f"drba_tpu_torch.models.{module}"), cls)
+        return model_cls(weights=wdir if os.path.isdir(wdir) else None, scale=scale,
+                         config=config, device=device)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    # --profile: one recorder over the model's load and the run
+    with profiling.tracer() if args.profile else profiling.NULL:
+        return _main(args)
+
+
+def _main(args):
     if args.model_type not in _MODELS:
         raise ValueError(f"model_type must be one of {', '.join(_MODELS)}, "
                          f"got {args.model_type!r}")

@@ -54,6 +54,12 @@ dispatch threads): another thread's synchronise would break one in
 flight. ``_build.counts()`` stays the launches the card ran: a capture's
 launches are recorded, not counted, and each replay adds them.
 
+With a recorder active (``utils/profiling.py``) each call is a ``call``
+span with its kind, T (0 for a pass) and outcome (``replay``, ``eager`` or
+``capture``), counted in ``graphs.<outcome>.<kind>``; a capture adds its
+seconds (the warm-up's eager run included) to ``graphs.capture_s`` and its
+reserved bytes to ``graphs.pool_bytes``.
+
 The CPU never captures: there (``on`` is False) the models run their eager
 bodies, and :func:`timesteps` makes a plain tensor.
 """
@@ -72,6 +78,7 @@ import torch
 
 from drba_tpu_torch import _build
 from drba_tpu_torch.parallel.batch import _leaves, _map
+from drba_tpu_torch.utils import profiling
 
 # the call of a key that captures: the window's first (its chain replays
 # from the next window on), the other kinds' second
@@ -250,6 +257,21 @@ class WindowGraphs:
         (T,) float32 tensor on the inputs' device (None: the kind takes no
         timesteps)."""
         key = (kind, *key)
+        tr = profiling.active()
+        if tr is None:
+            return self._call(kind, key, fn, args, host)
+        outcome = ("replay" if key in self.entries
+                   else "eager" if self.calls[key] + 1 < CAPTURE_AT[kind] else "capture")
+        with tr.span("call", kind=kind, T=0 if host is None else len(host),
+                     outcome=outcome) as sp:
+            out = self._call(kind, key, fn, args, host)
+        tr.add(f"graphs.{outcome}.{kind}")
+        if outcome == "capture":
+            tr.add("graphs.capture_s", sp.seconds)
+            tr.add("graphs.pool_bytes", self.entries[key].pool_bytes)
+        return out
+
+    def _call(self, kind: str, key: tuple, fn, args: tuple, host):
         leaves = _leaves(args)
         entry = self.entries.get(key)
         if entry is not None:

@@ -25,7 +25,6 @@ writes the uninterrupted run's frames.
 
 from __future__ import annotations
 
-import contextlib
 import queue
 import threading
 import time
@@ -36,7 +35,8 @@ import numpy as np
 import torch
 
 from drba_tpu_torch.utils import TMapper, get_valid_net_inp_size, to_inp, to_out
-from drba_tpu_torch.utils.profiling import StageTimes
+from drba_tpu_torch.utils import profiling
+from drba_tpu_torch.utils.profiling import NULL
 from drba_tpu_torch.utils.scdet import scene_ssim
 
 # how long emit() may wait for a free slot before the writer counts as stalled
@@ -96,10 +96,14 @@ class _Prefetcher:
     before it. On a CUDA device the uploads and scores run on a stream of the
     thread's own, the scores land in a ring of pinned host floats, and each
     frame carries an event (see :class:`_Frame`). A decode/upload failure
-    re-raises on the consuming thread at ``next()``.
+    re-raises on the consuming thread at ``next()``. With ``tracer`` (a
+    ``StageTimes``) it records each frame's ``read``, ``upload`` and
+    ``put-wait`` spans under the frame's index in the stream (from 2: the
+    loop reads the first two).
     """
 
-    def __init__(self, video_io, dst_size, dtype, device, prev=None, depth: int = 3):
+    def __init__(self, video_io, dst_size, dtype, device, prev=None, depth: int = 3,
+                 tracer=None):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._exc: Optional[BaseException] = None
         device = torch.device(device)
@@ -113,21 +117,27 @@ class _Prefetcher:
             self._ready.record(torch.cuda.current_stream(device))
             if prev is not None:
                 prev.record_stream(self._stream)
-        self._t = threading.Thread(target=self._loop,
+        self._tracer = tracer
+        self._t = threading.Thread(target=self._loop, name="prefetch",
                                    args=(video_io, dst_size, dtype, device, prev), daemon=True)
         self._t.start()
 
     def _loop(self, video_io, dst_size, dtype, device, prev):
+        tr = self._tracer
         try:
             if self._stream is not None:
                 self._stream.wait_event(self._ready)
             i = 0
             while True:
-                frame = video_io.read_frame()
+                k = 2 + i
+                with (tr.span("read", frame=k) if tr is not None else NULL) as sp:
+                    frame = video_io.read_frame()
+                    if frame is None and sp is not None:
+                        sp.discard()
                 if frame is None:
                     break
-                with torch.cuda.stream(self._stream) if self._stream is not None \
-                        else contextlib.nullcontext():
+                with (tr.span("upload", frame=k) if tr is not None else NULL), \
+                        (torch.cuda.stream(self._stream) if self._stream is not None else NULL):
                     x = to_inp(frame, dst_size, dtype, device)
                     score = event = None
                     if prev is not None:
@@ -139,7 +149,9 @@ class _Prefetcher:
                             score = slot.copy_(score, non_blocking=True)
                         event = torch.cuda.Event()
                         event.record(self._stream)
-                self._q.put(_Frame(frame, dst_size, dtype, x, score, event))
+                item = _Frame(frame, dst_size, dtype, x, score, event)
+                with tr.span("put-wait", frame=k) if tr is not None else NULL:
+                    self._q.put(item)
                 i += 1
         except Exception as e:  # re-raised by next()
             self._exc = e
@@ -161,12 +173,15 @@ class _Emitter:
     A semaphore bounds the frames in flight. ``emit`` waits for a slot with a
     timeout and raises if a download or write failed, or if no slot frees up
     within ``_STALL_S`` seconds; ``finish`` raises if the pool cannot drain.
+    With ``tracer`` (a ``StageTimes``) the threads record each frame's
+    ``download`` and ``write`` spans under its sequence number and block.
     """
 
-    def __init__(self, video_io, src_size, stats, depth: int = 12, workers: int = 4):
+    def __init__(self, video_io, src_size, stats, depth: int = 12, workers: int = 4,
+                 tracer=None):
         self._sem = threading.Semaphore(depth)
         self._q: queue.Queue = queue.Queue()
-        self._results: dict[int, Optional[np.ndarray]] = {}
+        self._results: dict[int, tuple] = {}  # seq -> (frame or None, block)
         self._cond = threading.Condition()
         self._video_io = video_io
         self._src_size = src_size
@@ -174,30 +189,34 @@ class _Emitter:
         self._exc: Optional[BaseException] = None
         self._seq = 0
         self._eof_seq: Optional[int] = None
-        self._workers = [threading.Thread(target=self._dl_loop, daemon=True)
-                         for _ in range(max(1, workers))]
+        self._tracer = tracer
+        self._workers = [threading.Thread(target=self._dl_loop, name=f"download-{k}", daemon=True)
+                         for k in range(max(1, workers))]
         for t in self._workers:
             t.start()
-        self._writer = threading.Thread(target=self._write_loop, daemon=True)
+        self._writer = threading.Thread(target=self._write_loop, name="writer", daemon=True)
         self._writer.start()
 
     def _dl_loop(self):
+        tr = self._tracer
         while True:
             item = self._q.get()
             if item is None:
                 return
-            seq, x = item
+            seq, x, block = item
             arr = None
             if self._exc is None:
                 try:
-                    arr = to_out(x, self._src_size)
+                    with tr.span("download", out=seq, block=block) if tr is not None else NULL:
+                        arr = to_out(x, self._src_size)
                 except Exception as e:  # re-raised by emit / finish
                     self._exc = self._exc or e
             with self._cond:
-                self._results[seq] = arr
+                self._results[seq] = (arr, block)
                 self._cond.notify_all()
 
     def _write_loop(self):
+        tr = self._tracer
         nxt = 0
         while True:
             with self._cond:
@@ -205,12 +224,13 @@ class _Emitter:
                     if self._eof_seq is not None and nxt >= self._eof_seq:
                         return
                     self._cond.wait(timeout=1.0)
-                arr = self._results.pop(nxt)
-            nxt += 1
+                arr, block = self._results.pop(nxt)
+            seq, nxt = nxt, nxt + 1
             self._sem.release()
             if arr is not None and self._exc is None:
                 try:
-                    self._video_io.write_frame(arr)
+                    with tr.span("write", out=seq, block=block) if tr is not None else NULL:
+                        self._video_io.write_frame(arr)
                     self._stats.frames_out += 1
                 except Exception as e:  # re-raised by emit / finish
                     self._exc = self._exc or e
@@ -219,7 +239,9 @@ class _Emitter:
         if self._exc is not None:
             raise RuntimeError("frame download/encode thread failed") from self._exc
 
-    def emit(self, x):
+    def emit(self, x, block: Optional[int] = None):
+        """Queue ``x`` for download and writing; ``block`` names the block
+        that made it in the spans."""
         self._check()
         deadline = time.monotonic() + _STALL_S
         while not self._sem.acquire(timeout=1.0):
@@ -227,7 +249,7 @@ class _Emitter:
             if time.monotonic() > deadline:
                 raise RuntimeError(f"emitter stalled: no frame written for {_STALL_S:.0f} s; "
                                    f"{self._stats.frames_out}/{self._seq} frames written")
-        self._q.put((self._seq, x))
+        self._q.put((self._seq, x, block))
         self._seq += 1
 
     def finish(self):
@@ -277,6 +299,11 @@ class PipelineStats:
     scene_cuts: int = 0
     stage_report: Optional[str] = None  # with ``profile``: wall-clock per stage
     wall_s: float = 0.0  # run_pipeline wall time (decode -> compute -> encode)
+    # with a recorder active (``profile``; utils/profiling.py): seconds and
+    # count by ``<thread>/<span>``, the span records, the counters
+    spans: Optional[dict] = None
+    records: Optional[list] = None
+    counters: Optional[dict] = None
 
 
 def _chained(reuse):
@@ -338,20 +365,43 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
     (``SegmentedVideoIO.completed_frames``; see the module docstring).
     ``max_frames`` stops reading after that many input frames. With
     ``profile`` a wall-clock report per stage (``window``, ``emit-wait``,
-    ``prefetch-wait``, ``scdet``, ``finish``) is attached to the stats;
-    kernels launch asynchronously, so ``window`` measures the host's dispatch
-    (on a CUDA device, once each call's key is warm, a graph's copies and
-    replay: the steady-state windows', and the cut windows' plain calls and
-    chain-start passes too; ``utils/profiling.py``).
+    ``prefetch-wait``, ``scdet``, ``finish``) and per span of the other
+    threads and the model calls is attached to the stats, and the spans
+    and counters as data (``utils/profiling.py``: the active recorder, or
+    one opened over the run); kernels launch asynchronously, so ``window``
+    measures the host's dispatch (on a CUDA device, once each call's key is
+    warm, a graph's copies and replay: the steady-state windows', and the
+    cut windows' plain calls and chain-start passes too).
+
+    Spans name the input frame's index (``frame``: frames 0 and 1 on this
+    thread, the rest on the prefetch thread; the body window that takes
+    frame k as I2 is block k - 1), the block (``block``: the head 0, the
+    tail last) and the output's sequence number (``out``).
     """
+    with profiling.tracer() if profile else NULL:
+        st = profiling.active()
+        stats = _run(model, video_io, progress, times, enable_scdet, scdet_threshold,
+                     skip_outputs, max_frames, st)
+    if st is not None:
+        stats.spans, stats.records, stats.counters = dict(st.spans), st.records, dict(st.counters)
+        if profile:
+            stats.stage_report = st.report()
+    return stats
+
+
+def _run(model, video_io, progress, times, enable_scdet, scdet_threshold, skip_outputs,
+         max_frames, st) -> PipelineStats:
+    """``run_pipeline``'s body; ``st`` the active recorder or None."""
     stats = PipelineStats()
     t_start = time.perf_counter()
-    st = StageTimes() if profile else None
     src_fps, dst_fps = video_io.src_fps, video_io.dst_fps
     if dst_fps <= src_fps:
         raise ValueError(f"dst fps must exceed src fps ({dst_fps} <= {src_fps})")
 
-    i0, i1 = video_io.read_frame(), video_io.read_frame()
+    with st.span("read", frame=0) if st is not None else NULL:
+        i0 = video_io.read_frame()
+    with st.span("read", frame=1) if st is not None else NULL:
+        i1 = video_io.read_frame()
     if i0 is None or i1 is None:
         raise ValueError("video has fewer than two frames")
     stats.frames_in = 2
@@ -359,23 +409,23 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
     size = get_valid_net_inp_size(i0, model.scale, div=model.pad_size)
     src_size, dst_size = size["src_size"], size["dst_size"]
     dtype, device = model.config.compute_dtype, model.device
-    I0 = to_inp(i0, dst_size, dtype, device)
-    I1 = to_inp(i1, dst_size, dtype, device)
+    with st.span("upload", frame=0) if st is not None else NULL:
+        I0 = to_inp(i0, dst_size, dtype, device)
+    with st.span("upload", frame=1) if st is not None else NULL:
+        I1 = to_inp(i1, dst_size, dtype, device)
+        # the head's cut flag, on this thread before any window is queued (its
+        # kernels are then loaded before the prefetch thread scores a frame)
+        left_scene = enable_scdet and bool(scene_ssim(I0, I1) < scdet_threshold)
 
     t_mapper = TMapper(src_fps, dst_fps, times)
     idx = 0
-    # the head's cut flag, on this thread before any window is queued (its
-    # kernels are then loaded before the prefetch thread scores a frame)
-    left_scene = enable_scdet and bool(scene_ssim(I0, I1) < scdet_threshold)
-    prefetch = _Prefetcher(video_io, dst_size, dtype, device, prev=I1 if enable_scdet else None)
-    emitter = _Emitter(video_io, src_size, stats)
-
-    def stage(name):
-        return st.stage(name) if st is not None else contextlib.nullcontext()
+    prefetch = _Prefetcher(video_io, dst_size, dtype, device, prev=I1 if enable_scdet else None,
+                           tracer=st)
+    emitter = _Emitter(video_io, src_size, stats, tracer=st)
 
     plan_pos = 0  # output frames planned so far, skipped and emitted
 
-    def emit_block(n_planned, build) -> bool:
+    def emit_block(n_planned, build, block: int) -> bool:
         """Plan ``n_planned`` frames; build and emit the part past
         ``skip_outputs``. Returns False for a block skipped whole (``build``
         not called)."""
@@ -384,13 +434,13 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
         plan_pos += n_planned
         if plan_pos <= skip_outputs:
             return False
-        with stage("window"):
+        with st.stage("window", block=block) if st is not None else NULL:
             frames = build()
         if len(frames) != n_planned:
             raise RuntimeError(f"window produced {len(frames)} frames, planned {n_planned}")
-        with stage("emit-wait"):
+        with st.stage("emit-wait", block=block) if st is not None else NULL:
             for x in frames[max(0, skip_outputs - start):]:
-                emitter.emit(x)
+                emitter.emit(x, block)
         return True
 
     reuse = None  # the reuse the next window takes
@@ -412,18 +462,19 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
 
     ts = calc_ts(idx, t_mapper, times)
     stats.scene_cuts += int(left_scene)
-    emit_block(len(ts), lambda: _head(model, I0, I1, ts, left_scene))
+    emit_block(len(ts), lambda: _head(model, I0, I1, ts, left_scene), 0)
     if progress:
         progress(1)
 
     # body (infer.py:112-156)
     while max_frames is None or stats.frames_in < max_frames:
-        with stage("prefetch-wait"):
+        k = stats.frames_in  # the frame this window takes as I2; the window is block k - 1
+        with st.stage("prefetch-wait", frame=k, block=k - 1) if st is not None else NULL:
             item = prefetch.next()
         if item is None:
             break
         I2 = item.take()
-        with stage("scdet"):
+        with st.stage("scdet", frame=k, block=k - 1) if st is not None else NULL:
             right_scene = enable_scdet and item.cut(scdet_threshold)
         stats.frames_in += 1
         stats.scene_cuts += int(right_scene)
@@ -434,7 +485,7 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
             frames, reuse = _window(model, I0, I1, I2, ts, ls, rs, None if ls else chain())
             return frames
 
-        if not emit_block(len(ts), build):
+        if not emit_block(len(ts), build, k - 1):
             # skipped: the chain the uninterrupted run leaves behind it
             reuse = skipped_pass = None
             if not right_scene and not left_scene:
@@ -449,14 +500,12 @@ def run_pipeline(model, video_io, progress: Optional[Callable[[int], None]] = No
             progress(1)
 
     ts = calc_ts(idx, t_mapper, times)
-    emit_block(len(ts), lambda: _tail(model, I0, I1, ts, chain()))
+    emit_block(len(ts), lambda: _tail(model, I0, I1, ts, chain()), idx + 1)
     if progress:
         progress(1)
 
-    with stage("finish"):
+    with st.stage("finish") if st is not None else NULL:
         emitter.finish()
         video_io.finish_writing()
     stats.wall_s = time.perf_counter() - t_start
-    if st is not None:
-        stats.stage_report = st.report()
     return stats

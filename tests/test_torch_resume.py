@@ -434,15 +434,6 @@ def test_demo_interpolates_every_clip_of_a_folder(tmp_path):
 # ------------------------------------------------------------------------------- debug helpers
 
 
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    from drba_tpu_torch.utils.profiling import device_trace
-
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    with open(tmp_path / "trace" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
-
-
 def test_mark_tensor_burns_text_in():
     from drba_tpu_torch.utils.debug import mark_tensor
 

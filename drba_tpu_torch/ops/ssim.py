@@ -25,7 +25,12 @@ def _kernel_np(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
-def _kernel(device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _kernel(device: torch.device) -> torch.Tensor:
+    """The 1-D Gaussian on ``device``, made once per device: a copy to a
+    CUDA device from pageable memory synchronises its stream, which the
+    scene score on the frame loop's prefetch stream must not do for each
+    frame (the loop thread's first score makes it). Callers only read it."""
     return torch.from_numpy(_kernel_np()).to(device)
 
 

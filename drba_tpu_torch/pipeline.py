@@ -5,7 +5,10 @@ Head interval, body loop over (I0, I1, I2) windows with the reuse chain
 carried across windows and a four-way scene-cut branch (infer.py:122-143),
 tail interval. Frames stay on the model's device between windows: decoded
 uint8 frames go up on a prefetch thread, finished frames come down on a small
-download pool and are written in order.
+download pool and are written in order. On a CUDA device no thread copies
+between the card and pageable host memory in the steady state: such a copy
+blocks the CUDA runtime until its stream reaches it, behind the window
+graph, and every other thread's launches and copies wait meanwhile.
 
 Scene detection (``enable_scdet``) scores each pair of consecutive frames by
 SSIM at 32x32 (``utils.scdet.scene_ssim``). On a CUDA device the prefetch
@@ -13,7 +16,11 @@ thread uploads each frame and computes its score on a stream of its own,
 then copies the score to pinned host memory and records an event; the loop
 makes its stream wait on that event before it uses the frame, and resolving
 a cut flag synchronises on the event alone, never on the kernels of earlier
-windows.
+windows. Nothing the prefetch thread calls per frame synchronises: the frame
+goes up through pinned memory (``utils.imageproc``). Its stream has the
+device's greatest priority, so its kernels run ahead of the window graph's
+queued work, and a frame's score is ready long before the loop asks for it.
+The frames and scores are what the loop's own stream would compute.
 
 Resume (``skip_outputs``): blocks (head, windows, tail) whose outputs all lie
 before the resume point run no model call; the block across it is computed
@@ -93,13 +100,19 @@ class _Prefetcher:
 
     With ``prev`` (the last frame uploaded before it, as the scene
     detection's first partner) it also scores each frame against the one
-    before it. On a CUDA device the uploads and scores run on a stream of the
-    thread's own, the scores land in a ring of pinned host floats, and each
-    frame carries an event (see :class:`_Frame`). A decode/upload failure
-    re-raises on the consuming thread at ``next()``. With ``tracer`` (a
-    ``StageTimes``) it records each frame's ``read``, ``upload`` and
-    ``put-wait`` spans under the frame's index in the stream (from 2: the
-    loop reads the first two).
+    before it. On a CUDA device nothing the thread calls per frame waits for
+    the card: each frame goes up through pinned memory (``to_inp``), the
+    scene score needs no copy up (``ops.ssim``'s Gaussian is made once per
+    device), the scores land in a ring of pinned host floats, and each frame
+    carries an event (see :class:`_Frame`). The thread's stream has the
+    device's greatest priority, so the card runs its few small kernels ahead
+    of the window graph's pending blocks. The frames and scores are
+    ``to_inp``'s and ``scene_ssim``'s, bit for bit. A decode/upload failure
+    re-raises on the consuming thread at ``next()``.
+    With ``tracer`` (a ``StageTimes``) it records each frame's ``read``,
+    ``upload`` and ``put-wait`` spans under the frame's index in the stream
+    (from 2: the loop reads the first two) and counts ``prefetch.staged``
+    (frames uploaded through pinned memory, on a CUDA device).
     """
 
     def __init__(self, video_io, dst_size, dtype, device, prev=None, depth: int = 3,
@@ -109,7 +122,9 @@ class _Prefetcher:
         device = torch.device(device)
         self._stream = None
         if device.type == "cuda":
-            self._stream = torch.cuda.Stream(device)
+            with torch.cuda.device(device):
+                priority = torch.cuda.Stream.priority_range()[1]  # the greatest
+            self._stream = torch.cuda.Stream(device, priority=priority)
             # frames in the queue, one being read, one being made: a slot is
             # free again long before the ring comes round to it
             self._scores = torch.empty(4 * depth + 4, dtype=torch.float32, pin_memory=True)
@@ -149,6 +164,8 @@ class _Prefetcher:
                             score = slot.copy_(score, non_blocking=True)
                         event = torch.cuda.Event()
                         event.record(self._stream)
+                if tr is not None and self._stream is not None:
+                    tr.add("prefetch.staged")
                 item = _Frame(frame, dst_size, dtype, x, score, event)
                 with tr.span("put-wait", frame=k) if tr is not None else NULL:
                     self._q.put(item)
@@ -168,11 +185,12 @@ class _Prefetcher:
 class _Emitter:
     """Parallel download pool + ordered writer.
 
-    Downloads (``to_out``: resize + quantise on the device, then the copy) run
-    on ``workers`` threads; the writer restores the order by sequence number.
-    A semaphore bounds the frames in flight. ``emit`` waits for a slot with a
-    timeout and raises if a download or write failed, or if no slot frees up
-    within ``_STALL_S`` seconds; ``finish`` raises if the pool cannot drain.
+    Downloads (``to_out``: resize + quantise on the device, then the copy
+    through pinned memory, waited for on an event) run on ``workers``
+    threads; the writer restores the order by sequence number. A semaphore
+    bounds the frames in flight. ``emit`` waits for a slot with a timeout and
+    raises if a download or write failed, or if no slot frees up within
+    ``_STALL_S`` seconds; ``finish`` raises if the pool cannot drain.
     With ``tracer`` (a ``StageTimes``) the threads record each frame's
     ``download`` and ``write`` spans under its sequence number and block.
     """
@@ -419,6 +437,8 @@ def _run(model, video_io, progress, times, enable_scdet, scdet_threshold, skip_o
 
     t_mapper = TMapper(src_fps, dst_fps, times)
     idx = 0
+    pinned = st is not None and torch.device(device).type == "cuda"
+    host_allocs = torch.cuda.host_memory_stats().get("num_host_alloc", 0) if pinned else 0
     prefetch = _Prefetcher(video_io, dst_size, dtype, device, prev=I1 if enable_scdet else None,
                            tracer=st)
     emitter = _Emitter(video_io, src_size, stats, tracer=st)
@@ -507,5 +527,8 @@ def _run(model, video_io, progress, times, enable_scdet, scdet_threshold, skip_o
     with st.stage("finish") if st is not None else NULL:
         emitter.finish()
         video_io.finish_writing()
+    if pinned:
+        st.add("pinned.host_allocs",
+               torch.cuda.host_memory_stats().get("num_host_alloc", 0) - host_allocs)
     stats.wall_s = time.perf_counter() - t_start
     return stats

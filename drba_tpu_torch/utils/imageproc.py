@@ -4,6 +4,16 @@
 Frames enter as HWC uint8 (BGR from the decoder) and leave the same way; the
 network size is reached by bilinear resize, as ``get_valid_net_inp_size`` in
 the reference does.
+
+On a CUDA device a frame crosses between host and card through pinned host
+memory, both ways, by a copy that does not block the host: a copy from or
+into pageable memory holds the CUDA runtime until its stream reaches it,
+behind whatever was queued before, and every other thread's launches and
+copies wait meanwhile. The pinned blocks come from PyTorch's caching host
+allocator, which hands a block out again only after the copies recorded on
+it have passed, so the blocks in use are those of the copies in flight. A
+frame that comes down is copied out of its block before it is returned: a
+writer's queue of frames holds no pinned memory.
 """
 
 from __future__ import annotations
@@ -31,15 +41,31 @@ def get_valid_net_inp_size(img: np.ndarray, scale: float, div: int = 64) -> dict
 
 def to_tensor(img: np.ndarray, dtype=torch.float32, device="cpu") -> torch.Tensor:
     """HWC uint8 -> (1,H,W,C) float in [0, 1] on ``device``; the frame crosses
-    to the device as uint8 and is normalised there."""
-    t = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+    to the device as uint8 and is normalised there. To a CUDA device it goes
+    through pinned memory, on the current stream, without blocking the host."""
+    t = torch.from_numpy(np.ascontiguousarray(img))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    else:
+        t = t.to(device)
     return t.to(dtype)[None] / 255.0
 
 
 def to_uint8(x: torch.Tensor) -> np.ndarray:
     """(1,H,W,C) float [0,1] -> HWC uint8 on the host (truncation, like
-    ``(x*255).astype(uint8)`` in the reference); quantised on the device."""
-    return (x[0].float() * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy()
+    ``(x*255).astype(uint8)`` in the reference); quantised on the device.
+    From a CUDA device the frame comes down into pinned memory, the calling
+    thread sleeps on an event behind the copy, and the frame is returned in
+    pageable memory."""
+    q = (x[0].float() * 255.0).clamp(0, 255).to(torch.uint8)
+    if not q.is_cuda:
+        return q.numpy()
+    staged = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
+    staged.copy_(q, non_blocking=True)
+    done = torch.cuda.Event(blocking=True)
+    done.record(torch.cuda.current_stream(q.device))
+    done.synchronize()
+    return staged.numpy().copy()
 
 
 def to_inp(img: np.ndarray, dst_size: tuple[int, int], dtype=torch.float32,

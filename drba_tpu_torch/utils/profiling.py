@@ -23,7 +23,10 @@ counters:
   threads named ``loop``, ``prefetch``, ``download`` (its workers
   ``download-k`` together) and ``writer``;
 * counters: ``graphs.<outcome>.<kind>`` (model calls), ``graphs.capture_s``
-  and ``graphs.pool_bytes`` (captures), ``records.dropped``.
+  and ``graphs.pool_bytes`` (captures), ``prefetch.staged`` (the prefetch
+  thread's frames uploaded through pinned memory), ``pinned.host_allocs``
+  (pinned blocks the caching host allocator created while the frame loop
+  ran, on a CUDA device), ``records.dropped``.
 
 Aggregates are exact and thread-safe. Each span is also kept as a
 :class:`Span` record, up to ``max_records`` (then counted in

@@ -853,6 +853,59 @@ def test_scene_flag_resolves_while_the_compute_stream_is_busy(dev):
     torch.testing.assert_close(x, 1 - prev, atol=1e-6, rtol=0)
 
 
+def test_download_comes_down_pinned_without_a_stream_sync(dev):
+    """``to_uint8`` from the card: the values of the pageable copy, bit for
+    bit, without a synchronising call (a pageable copy, a stream sync) while
+    the loop's stream is busy: the download waits on its own event."""
+    from drba_tpu_torch.utils.imageproc import to_uint8
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand(1, 108, 192, 3, generator=gen, device=dev).to(torch.bfloat16)
+    want = (x[0].float() * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # keep the stream busy behind the download
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = to_uint8(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.dtype == want.dtype and got.shape == (108, 192, 3)
+    assert (got == want).all()
+
+
+def test_emitter_holds_no_pinned_memory_behind_a_slow_sink(dev):
+    """The download pool's frames come down through pinned memory but reach
+    the sink in pageable memory: a sink that keeps every frame (an encoder
+    whose queue fills) leaves the caching host allocator no more blocks
+    than the copies in flight, and the frames are the pageable copy's."""
+    from drba_tpu_torch.pipeline import PipelineStats, _Emitter
+
+    class _KeepAll:
+        def __init__(self):
+            self.frames = []
+
+        def write_frame(self, arr):
+            self.frames.append(arr)
+
+    n, workers = 48, 4
+    gen = torch.Generator(device=dev).manual_seed(6)
+    xs = [torch.rand(1, 64, 128, 3, generator=gen, device=dev) for _ in range(n)]
+    want = [(x[0] * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy() for x in xs]
+    torch.cuda.synchronize()
+    before = torch.cuda.host_memory_stats()["allocations.current"]
+    sink, stats = _KeepAll(), PipelineStats()
+    em = _Emitter(sink, (64, 128), stats, workers=workers)
+    for x in xs:
+        em.emit(x)
+    em.finish()
+    assert stats.frames_out == n and len(sink.frames) == n
+    grown = torch.cuda.host_memory_stats()["allocations.current"] - before
+    assert grown <= 2 * workers, grown
+    assert not any(torch.from_numpy(a).is_pinned() for a in sink.frames)
+    for got, w in zip(sink.frames, want):
+        assert (got == w).all()
+
+
 # ------------------------------------------------------------- dispatch threads, the planner
 
 

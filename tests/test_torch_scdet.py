@@ -8,15 +8,20 @@ loops run seed-0 random-weight RIFE and GMFSS in float32 on 64x128 frames at
 mid-stream and twice in a row, so that every branch (left cut, right cut,
 cuts on both sides) runs; they must give drba_tpu's scene cuts, frame counts
 and uint8 frames, with the flip-share rule of test_torch_gmfss_pipeline.py.
+
+The prefetch thread's frames and scores are held bitwise to ``to_inp`` and
+``scene_ssim`` on the same frames, on the CPU and, marked ``gpu``, on a CUDA
+device, where the thread must make no synchronising call. JAX is imported
+inside the tests that compare with it, so that the card's test runs where
+JAX is not installed:
+
+    python -m pytest tests/test_torch_scdet.py --noconftest -q -m gpu
 """
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
-from drba_tpu.config import F32 as JAX_F32
 from drba_tpu_torch.config import F32
 
 H, W = 64, 128
@@ -86,6 +91,8 @@ def _image_pairs():
 @pytest.mark.parametrize("pair", list(_image_pairs()))
 @pytest.mark.parametrize("fn", ["ssim_matlab", "ssim", "msssim"])
 def test_ssim_matches_jax(fn, pair):
+    import jax.numpy as jnp
+
     from drba_tpu.ops import ssim as jssim
     from drba_tpu_torch.ops import ssim as tssim
 
@@ -98,6 +105,8 @@ def test_ssim_matches_jax(fn, pair):
 
 
 def test_ssim_wrappers_match_jax():
+    import jax.numpy as jnp
+
     from drba_tpu.ops.ssim import MSSSIM as JMSSSIM
     from drba_tpu.ops.ssim import SSIM as JSSIM
     from drba_tpu_torch.ops.ssim import MSSSIM, SSIM
@@ -112,6 +121,8 @@ def test_ssim_wrappers_match_jax():
 def test_scene_ssim_matches_jax(cut):
     """Both frames at the pipeline's size, to 32x32, then the volumetric SSIM;
     and the flag at the default threshold."""
+    import jax.numpy as jnp
+
     from drba_tpu.utils.scdet import check_scene as jax_check
     from drba_tpu.utils.scdet import scene_ssim as jax_scene
     from drba_tpu_torch.utils.scdet import check_scene, scene_ssim
@@ -126,11 +137,22 @@ def test_scene_ssim_matches_jax(cut):
     assert abs(same - 1.0) <= SSIM_TOL
 
 
+def test_gaussian_is_made_once_per_device():
+    """The SSIM Gaussian is one tensor per device, with ``_kernel_np``'s
+    values."""
+    from drba_tpu_torch.ops.ssim import _kernel, _kernel_np
+
+    k = _kernel(torch.device("cpu"))
+    assert _kernel(torch.device("cpu")) is k
+    assert torch.equal(k, torch.from_numpy(_kernel_np()))
+
+
 # ------------------------------------------------------------------------------- frame loop
 
 
 @pytest.fixture(scope="module")
 def models():
+    from drba_tpu.config import F32 as JAX_F32
     from drba_tpu.models.gmfss import GMFSS as JaxGMFSS
     from drba_tpu.models.rife import RIFE as JaxRIFE
     from drba_tpu_torch.models.gmfss import GMFSS
@@ -142,6 +164,56 @@ def models():
 
 # (frames, the frames that cut, the cuts the loop counts)
 STREAMS = {"head": (5, (1,), 1), "mid": (7, (3,), 1), "two in a row": (7, (3, 4), 2)}
+
+
+@pytest.mark.parametrize("stream", list(STREAMS))
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_prefetcher_frames_and_scores(device, stream):
+    """The prefetch thread's frames and scene scores are bitwise those of
+    ``to_inp`` and ``scene_ssim`` on the same frames. On a CUDA device the
+    thread, while it alone runs, makes no synchronising call; its stream has
+    the device's greatest priority, and every frame it reads goes up through
+    pinned memory. On the CPU there is no stream and nothing is pinned."""
+    from drba_tpu_torch.pipeline import _Prefetcher
+    from drba_tpu_torch.utils import to_inp
+    from drba_tpu_torch.utils.profiling import StageTimes
+    from drba_tpu_torch.utils.scdet import scene_ssim
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    n, cut_at, _ = STREAMS[stream]
+    frames = _frames(n, cut_at)
+    dst, dtype = (H + 8, W + 8), torch.bfloat16  # a resize, at the benchmark's dtype
+    want = [to_inp(f, dst, dtype, device) for f in frames]
+    want_scores = [scene_ssim(a, b) for a, b in zip(want, want[1:])]
+    # as run_pipeline: the loop thread uploads frames 0-1 and scores them first
+    prev = to_inp(frames[1], dst, dtype, device)
+    scene_ssim(to_inp(frames[0], dst, dtype, device), prev)
+    st = StageTimes()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        pf = _Prefetcher(_FakeIO(frames[2:]), dst, dtype, device, prev=prev, depth=n, tracer=st)
+        pf._t.join(timeout=60)
+        assert not pf._t.is_alive()
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode("default")
+    items = []
+    while (item := pf.next()) is not None:
+        items.append(item)
+    assert len(items) == n - 2
+    for k, item in enumerate(items, start=2):
+        assert torch.equal(item.take(), want[k]), k
+        item.cut(0.3)  # waits for the score
+        assert torch.equal(item._score.cpu(), want_scores[k - 1].cpu()), k
+    if cuda:
+        assert pf._stream.priority == torch.cuda.Stream.priority_range()[1]
+        assert st.counters["prefetch.staged"] == n - 2
+    else:
+        assert pf._stream is None and "prefetch.staged" not in st.counters
 
 
 @pytest.mark.parametrize("stream", list(STREAMS))

@@ -5,7 +5,9 @@
 * a per-layer metric: ``metrics/<name>.py``, a module with
   ``read(trace) -> float | None`` (None: nothing to read in this run, and the
   metric is left out of the line), taken where its ``workloads`` list the
-  cell or it has none;
+  cell or it has none. A dotted name reads its quantity's file
+  (:func:`quantity`, as for end-to-end metrics): ``mfu.uhd``, listing a new
+  cell, is ``metrics/mfu.py`` read in that cell;
 * an end-to-end metric: what the harness measures under the metric's
   quantity, its name up to the first ``.`` (:func:`quantity`), so that
   ``out_fps.union`` is ``out_fps`` under a bound of its own.
@@ -73,8 +75,8 @@ def quantity(name: str) -> str:
 
 
 def metric_reader(name: str, root: str = ROOT):
-    """``read`` of ``metrics/<name>.py``."""
-    path = os.path.join(root, "benchmark", "metrics", f"{name}.py")
+    """``read`` of ``metrics/<quantity(name)>.py``."""
+    path = os.path.join(root, "benchmark", "metrics", f"{quantity(name)}.py")
     mod_spec = importlib.util.spec_from_file_location(
         "benchmark_metric_" + "".join(c if c.isalnum() else "_" for c in name), path)
     module = importlib.util.module_from_spec(mod_spec)

@@ -8,10 +8,10 @@ drives it).
 * GridNet (union): the 3 x 6 lattice of PReLU-conv blocks fusing the two
   splatted frames and the auxiliary RIFE frame with the splatted pyramids,
   then a pixel-shuffle tail to full resolution;
-* :func:`reuse`: a pair's flows (GMFlow at half resolution), metrics and
-  pyramids; :func:`window` and :func:`plain`: the DRM window and plain
-  interpolation, with IFNet 4.26-heavy at half resolution as the auxiliary
-  RIFE.
+* :func:`reuse`: a pair's flows (GMFlow at half resolution, resized by
+  the flow scale), metrics and pyramids; :func:`window` and
+  :func:`plain`: the DRM window and plain interpolation, with IFNet
+  4.26-heavy at half resolution as the auxiliary RIFE.
 
 Frames are (1, H, W, 3); a window's T timesteps are folded into the batch.
 """
@@ -193,12 +193,20 @@ def gridnet(p: Params, x, x1, x2, x3):
     return conv2d(p, "residual_model_tail.conv_last", t, padding=1)
 
 
-def reuse(nets: Nets, img0, img1, feat0=None) -> Reuse:
-    """Flows, metrics and feature pyramids of (img0, img1)."""
+def reuse(nets: Nets, img0, img1, feat0=None, scale: float = 1.0) -> Reuse:
+    """Flows, metrics and feature pyramids of (img0, img1). The flow
+    ``scale`` (``-scale``) runs GMFlow on the half-resolution pair resized
+    by it, then resizes both flows back and divides them by it
+    (``model_gmfss_union/GMFSS.py`` reuse); MetricNet and FeatureNet take
+    their inputs as at ``scale`` 1."""
     feat0 = featurenet(nets.feat_ext, img0) if feat0 is None else feat0
     feat1 = featurenet(nets.feat_ext, img1)
     img0h, img1h = scale_by(img0, 0.5), scale_by(img1, 0.5)
-    flows = gmflow.apply(nets.flownet, img0h, img1h)
+    if scale != 1.0:
+        flows = gmflow.apply(nets.flownet, scale_by(img0h, scale), scale_by(img1h, scale))
+        flows = resize(flows, img0h.shape[1:3]) / scale
+    else:
+        flows = gmflow.apply(nets.flownet, img0h, img1h)
     b = img0h.shape[0]
     flow01, flow10 = flows[:b], flows[b:]
     metric0, metric1 = metricnet(nets.metricnet, img0h, img1h, flow01, flow10)

@@ -54,7 +54,7 @@ class Reference:
     def flow_pass(self, a, b, fa=None):
         """RIFE: (flow_ab, flow_ba, f_a, f_b); GMFSS_UNION: the (a, b) Reuse."""
         if self.union:
-            return gmfss.reuse(self.nets, a, b, feat0=fa)
+            return gmfss.reuse(self.nets, a, b, feat0=fa, scale=self.scale)
         return rife.flow_pass(self.nets, a, b, self.scale, fa=fa)
 
     def window(self, I0, I1, I2, ts, reuse10, pass12):
@@ -71,7 +71,7 @@ class Reference:
     def plain(self, I0, I1, ts, reuse01=None):
         """Plain interpolation -> (T, 1, H, W, 3); the union's on the (I0, I1) Reuse."""
         if self.union:
-            r = gmfss.reuse(self.nets, I0, I1) if reuse01 is None else reuse01
+            r = gmfss.reuse(self.nets, I0, I1, scale=self.scale) if reuse01 is None else reuse01
             return gmfss.plain(self.nets, I0, I1, ts, r, self.scale)[:, None]
         return rife.plain(self.nets, I0, I1, ts, self.scale)
 

@@ -82,9 +82,11 @@ def main(argv=None) -> int:
                   "memory_peak_bytes": run.memory_peak, **extra,
                   "power": harness.power_limit()}
         run.free_program()
+        torch.cuda.reset_peak_memory_stats(run.device)
         t_judge = time.perf_counter()
         checks = run.judge()
         t_judge = time.perf_counter() - t_judge
+        judge_peak = torch.cuda.max_memory_allocated(run.device)
     finally:
         run.cleanup()
     found = harness.forbidden_modules()
@@ -97,7 +99,8 @@ def main(argv=None) -> int:
         print(f"frame {j} ({cls}): mean abs {e:.4f} levels, {bad:.6f}% more than {levels} "
               f"levels off (the bf16 reference: {bad16:.6f}%)", file=sys.stderr)
     print(f"frames/s by 5 s of the window: {run.fps_by_chunk()}", file=sys.stderr)
-    print(f"the reference's check took {t_judge:.1f} s", file=sys.stderr)
+    print(f"the reference's check took {t_judge:.1f} s, its device memory peaked at "
+          f"{judge_peak} bytes", file=sys.stderr)
     if run.window_captures:
         print("warning: the window captured a CUDA graph set-up had not", file=sys.stderr)
     for name, (v, lim) in checks.items():

@@ -22,25 +22,27 @@ SIZES = {"rife": (64, 128), "gmfss_union": (128, 256)}
 CELL = {"rife": "rife-1080p-fastcut", "gmfss_union": "union-1080p-tv"}
 
 
-def _program_and_reference(model_type, tmp_path, seed=7):
+def _program_and_reference(model_type, tmp_path, scale=1.0, seed=7):
+    """The cell's configuration at the flow ``scale`` (``-scale``), the
+    program loaded with it and the reference."""
     from drba_tpu_torch.cli import load_model
     from drba_tpu_torch.config import Config
 
-    cfg = cells.load(CELL[model_type]).config
+    cfg = {**cells.load(CELL[model_type]).config, "scale": scale}
     specs = models.specs(model_type)
     params = weights.draw(specs, seed, "cpu")
     weights.write_tree(str(tmp_path), cfg["weights_dir"], models.files(model_type), specs, params)
-    config = Config(compute_dtype=torch.float32, strict_load=True,
+    config = Config(compute_dtype=torch.float32, strict_load=True, flow_scale=scale,
                     drm_splat_scale=cfg["drm_splat_scale"])
-    model = load_model(model_type, str(tmp_path), cfg["scale"], config, "cpu")
+    model = load_model(model_type, str(tmp_path), scale, config, "cpu")
     return cfg, model, models.Reference(cfg, params)
 
 
-def _frames(model_type, n=4):
+def _frames(model_type, n=4, scale=1.0):
     h, w = SIZES[model_type]
     traffic = cells.load(CELL[model_type]).traffic
     reel = stream.Reel(traffic, [2, 3], h, w, 11, "cpu")
-    size = scene.net_size(h, w, 1.0, 64 if model_type == "rife" else 128)
+    size = scene.net_size(h, w, scale, 64 if model_type == "rife" else 128)
     return [scene.to_input(reel.frame(j), size) for j in range(n)]
 
 
@@ -56,12 +58,19 @@ def _close(a, b, tol):
 TOL = 2e-5
 
 
-@pytest.mark.parametrize("model_type", ["rife", "gmfss_union"])
+# (model type, flow scale); at -scale 0.5 GMFlow (the union) and IFNet's
+# blocks run on the frames halved once more
+SCALED = [pytest.param("rife", 1.0, id="rife"), pytest.param("gmfss_union", 1.0, id="gmfss_union"),
+          pytest.param("rife", 0.5, id="rife-scale0.5"),
+          pytest.param("gmfss_union", 0.5, id="gmfss_union-scale0.5")]
+
+
+@pytest.mark.parametrize("model_type,scale", SCALED)
 @pytest.mark.parametrize("block", ["head", "tail", "left", "right", "start", "chained"])
-def test_reference_blocks_match_program(model_type, block, tmp_path):
+def test_reference_blocks_match_program(model_type, scale, block, tmp_path):
     torch.manual_seed(0)
-    cfg, model, ref = _program_and_reference(model_type, tmp_path)
-    I0, I1, I2, _ = _frames(model_type)
+    cfg, model, ref = _program_and_reference(model_type, tmp_path, scale)
+    I0, I1, I2, _ = _frames(model_type, scale=scale)
     ts3 = np.array([0.6, 1.0, 1.4])
     if block == "head":
         got = [I0] + list(model.inference_ts(I0, I1, ts3[ts3 >= 1] - 1))
@@ -101,13 +110,19 @@ def _program_flops(model, kind, T, frames):
     return fc.get_total_flops()
 
 
-@pytest.mark.parametrize("model_type,kind,T", [
+FLOP_CASES = [
     ("rife", "window", 3), ("rife", "window", 2), ("rife", "window_start", 3), ("rife", "plain", 2),
     ("gmfss_union", "window", 3), ("gmfss_union", "window_start", 2),
-    ("gmfss_union", "plain", 2), ("gmfss_union", "plain_pass", 1)])
-def test_reference_flops_match_program(model_type, kind, T, tmp_path):
-    cfg, model, _ = _program_and_reference(model_type, tmp_path)
-    frames = _frames(model_type, 3)
+    ("gmfss_union", "plain", 2), ("gmfss_union", "plain_pass", 1)]
+
+
+@pytest.mark.parametrize("model_type,kind,T,scale", [
+    pytest.param(m, k, T, 1.0, id=f"{m}-{k}-{T}") for m, k, T in FLOP_CASES] + [
+    pytest.param(m, k, T, 0.5, id=f"{m}-{k}-{T}-scale0.5") for m, k, T in FLOP_CASES
+    if m == "gmfss_union" or k == "window"])
+def test_reference_flops_match_program(model_type, kind, T, scale, tmp_path):
+    cfg, model, _ = _program_and_reference(model_type, tmp_path, scale)
+    frames = _frames(model_type, 3, scale)
     h, w = frames[0].shape[1:3]
     got = _program_flops(model, kind, T, frames)
     want = work.call_work(cfg, kind, T, (h, w), torch.float32).flops

@@ -8,7 +8,7 @@ import shutil
 import numpy as np
 import pytest
 
-from benchmark import cells, check, plan, stream
+from benchmark import cells, check, plan, stream, trace, work
 from benchmark.reference import scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -105,34 +105,43 @@ def test_latency_map_dates_each_frame_by_its_blocks_newest_input():
 
 
 def test_new_config_traffic_and_metric_are_found_by_name(tmp_path):
-    """A later cell adds files and entries and edits none."""
+    """A later cell adds files and entries and edits none: a union
+    configuration at ``-scale 0.5``, a mix, a metric of its own and a dotted
+    entry (``mfu.x``) that reads an existing metric's reader."""
     root = tmp_path / "checkout"
     shutil.copytree(os.path.join(ROOT, "benchmark"), root / "benchmark")
     spec = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
+    tv_metrics = sum("rife-1080p-tv" in m.get("workloads", ["rife-1080p-tv"])
+                     for m in spec["per_layer"])
     (root / "benchmark" / "traffic" / "slow-pans.json").write_text(json.dumps(
-        {**cells.load("rife-1080p-tv").traffic, "pan_px_per_frame": 2}))
-    cfg = {**cells.load("rife-1080p-tv").config, "name": "rife-720p", "frame": [720, 1280]}
-    (root / "benchmark" / "configs" / "rife-720p.json").write_text(json.dumps(cfg))
+        {**cells.load("union-1080p-tv").traffic, "pan_px_per_frame": 2}))
+    cfg = {**cells.load("union-1080p-tv").config, "name": "gmfss-union-2160p",
+           "frame": [2160, 3840], "scale": 0.5}
+    (root / "benchmark" / "configs" / "gmfss-union-2160p.json").write_text(json.dumps(cfg))
     (root / "benchmark" / "metrics" / "windows_seen.py").write_text(
         "def read(t):\n    return float(t.windows) or None\n")
-    spec["configs"].append({"name": "rife-720p", "source": "x", "why": "x", "reduced": [],
-                            "file": "benchmark/configs/rife-720p.json"})
-    spec["workloads"].append({"name": "rife-720p-slow", "config": "rife-720p",
+    spec["configs"].append({"name": "gmfss-union-2160p", "source": "x", "why": "x", "reduced": [],
+                            "file": "benchmark/configs/gmfss-union-2160p.json"})
+    spec["workloads"].append({"name": "union-2160p-slow", "config": "gmfss-union-2160p",
                               "traffic": "slow-pans", "chips": 1, "why": "x"})
-    spec["per_layer"].append({"name": "windows_seen", "unit": "1", "better": "higher",
-                              "source": "program_counter", "layer": "frame loop",
-                              "moves": "out_fps", "workloads": ["rife-720p-slow"]})
+    for name, unit, layer in (("windows_seen", "1", "frame loop"), ("mfu.x", "%", "whole step")):
+        spec["per_layer"].append({"name": name, "unit": unit, "better": "higher",
+                                  "source": "program_counter", "layer": layer,
+                                  "moves": "out_fps", "workloads": ["union-2160p-slow"]})
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
-    cell = cells.load("rife-720p-slow", str(root))
-    assert cell.config["frame"] == [720, 1280] and cell.traffic["pan_px_per_frame"] == 2
-    assert [m["name"] for m in cell.per_layer] == ["windows_seen"]
+    cell = cells.load("union-2160p-slow", str(root))
+    assert cell.config["frame"] == [2160, 3840] and cell.config["scale"] == 0.5
+    assert cell.traffic["pan_px_per_frame"] == 2
+    assert [m["name"] for m in cell.per_layer] == ["windows_seen", "mfu.x"]
 
-    class T:
-        windows = 3
-
-    assert cells.metric_reader("windows_seen", str(root))(T) == 3.0
+    t = trace.Trace(windows=3, window_s=2.0, calls=[trace.Call("window", 2, 0.001, None)] * 5,
+                    work={("window", 2): work.CallWork(4e12, work.Work(), work.Work(), 0, 0)})
+    assert cells.metric_reader("windows_seen", str(root))(t) == 3.0
+    mfu_x = cells.metric_reader("mfu.x", str(root))
+    assert mfu_x.__code__.co_filename == str(root / "benchmark" / "metrics" / "mfu.py")
+    assert mfu_x(t) == pytest.approx(5 * 4e12 / 2.0 / work.PEAK_BF16_FLOPS * 100)
     # the cells already there keep their metrics
-    assert len(cells.load("rife-1080p-tv", str(root)).per_layer) == 10
+    assert len(cells.load("rife-1080p-tv", str(root)).per_layer) == tv_metrics > 0
 
 
 def test_end_to_end_metrics_by_cell():

@@ -1,9 +1,10 @@
 """The benchmark's copy of the work arithmetic against the program's
-``bounds.py``, at RIFE's T=3 window shapes, and the per-layer readers on a
-hand-made trace."""
+``bounds.py``, at RIFE's T=3 window shapes; the union's FLOPs at a flow
+scale; and the per-layer readers on a hand-made trace."""
 
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from benchmark import cells, trace, work
 from benchmark.reference import models
@@ -49,6 +50,36 @@ def test_splat_shapes_at_t3():
                          "metric_itemsize": 0, "coverage": True}
     assert splats[1] == {"n": 6, "h": 544, "w": 960, "c": 1, "itemsize": 4, "flow_itemsize": 4,
                          "metric_itemsize": 0, "coverage": True}
+
+
+def test_union_flow_scale_counts_gmflow_on_the_scaled_pair(monkeypatch):
+    """A union window on 2160p frames (padded to 2304x3840) counts fewer
+    FLOPs at ``-scale 0.5`` than at 1.0, and the part GMFlow adds at 0.5 is
+    ``gmflow.apply`` counted alone on the half-resolution pair halved again
+    (IFNet's scale list moves with the scale too, so only GMFlow's part is
+    compared)."""
+    from benchmark.reference import gmflow
+
+    cfg = cells.load("union-1080p-tv").config
+    size = (2304, 3840)
+    flops = {s: work.call_work({**cfg, "scale": s}, "window", 2, size).flops for s in (0.5, 1.0)}
+    assert flops[0.5] < flops[1.0]
+    pairs = []
+
+    def no_gmflow(p, img0, img1):
+        pairs.append(tuple(img0.shape))
+        return torch.empty((2 * img0.shape[0], *img0.shape[1:3], 2), device="meta",
+                           dtype=img0.dtype)
+
+    monkeypatch.setattr(gmflow, "apply", no_gmflow)
+    without = work.call_work({**cfg, "scale": 0.5}, "window", 2, size).flops
+    monkeypatch.undo()
+    assert set(pairs) == {(1, 576, 960, 3)}
+    params = work._meta_params({"flownet": gmflow.spec()}, torch.bfloat16)["flownet"]
+    img = torch.empty((1, 576, 960, 3), device="meta", dtype=torch.bfloat16)
+    with FlopCounterMode(display=False) as fc:
+        gmflow.apply(params, img, img)
+    assert flops[0.5] - without == fc.get_total_flops() > 0
 
 
 def _trace():

@@ -17,12 +17,13 @@ from __future__ import annotations
 import argparse
 import os
 
+import numpy as np
 import torch
 
 from drba_tpu_torch.config import BACKENDS, Config, full_f32_products, model_device
 from drba_tpu_torch.parallel.mesh import make_devices
 from drba_tpu_torch.pipeline import run_pipeline
-from drba_tpu_torch.utils import profiling
+from drba_tpu_torch.utils import get_valid_net_inp_size, profiling
 from drba_tpu_torch.utils.log import get_logger
 
 
@@ -84,19 +85,50 @@ _MODELS = {"rife": ("rife", "RIFE", "train_log_rife_426_heavy"),
            "gmfss_union": ("gmfss_union", "GMFSS_UNION", "train_log_gmfss_union")}
 
 
-def load_model(model_type: str, weights_root: str, scale: float, config: Config, device):
+def load_model(model_type: str, weights_root: str, scale: float, config: Config, device,
+               frame=None):
     """Build the model of ``model_type``; random seeded weights where its
     weights directory is absent. With a recorder active, a ``load`` span
-    (the weights read, converted, cast and packed)."""
+    (the weights read, converted, cast and packed) naming the model and its
+    flow ``scale`` and, for a GMFSS model given the source ``frame`` size
+    (h, w), ``flow_px``: GMFlow's input height x width, so that a trace
+    says which flow path ran."""
     import importlib
 
     module, cls, sub = _MODELS[model_type]
     wdir = os.path.join(weights_root, sub)
     tr = profiling.active()
-    with tr.span("load", model=model_type) if tr is not None else profiling.NULL:
+    with (tr.span("load", model=model_type, scale=scale) if tr is not None
+          else profiling.NULL) as span:
         model_cls = getattr(importlib.import_module(f"drba_tpu_torch.models.{module}"), cls)
-        return model_cls(weights=wdir if os.path.isdir(wdir) else None, scale=scale,
-                         config=config, device=device)
+        model = model_cls(weights=wdir if os.path.isdir(wdir) else None, scale=scale,
+                          config=config, device=device)
+        if span is not None and frame is not None and model_type != "rife":
+            span.attrs["flow_px"] = flow_px(model, frame)
+        return model
+
+
+def flow_px(model, frame) -> str:
+    """GMFlow's input for source frames of ``frame`` (h, w): the network
+    size halved, then scaled by the flow scale (``gmfss_core.gmfss_reuse``),
+    as ``"<height>x<width>"``."""
+    net = get_valid_net_inp_size(np.empty((*frame, 0), np.uint8), model.scale,
+                                 div=model.pad_size)["dst_size"]
+    half = [int(d * 0.5) for d in net]
+    if model.scale != 1.0:
+        half = [int(d * model.scale) for d in half]
+    return "x".join(map(str, half))
+
+
+def _frame_size(path: str) -> tuple:
+    """The video's frame size (h, w) as its container states it."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        return int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)), int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+    finally:
+        cap.release()
 
 
 def main(argv=None):
@@ -125,7 +157,8 @@ def _main(args):
                     flow_scale=args.scale, scdet_threshold=args.scdet_threshold,
                     drm_splat_scale=1.0 if args.exact_drm else 0.5,
                     splat_backend=args.splat_backend, strict_load=args.strict)
-    model = load_model(args.model_type, args.weights, args.scale, config, devices[0])
+    model = load_model(args.model_type, args.weights, args.scale, config, devices[0],
+                       frame=_frame_size(args.input))
 
     skip_outputs = 0
     if args.seg_frames > 0:

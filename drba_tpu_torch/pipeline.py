@@ -192,7 +192,8 @@ class _Emitter:
     raises if a download or write failed, or if no slot frees up within
     ``_STALL_S`` seconds; ``finish`` raises if the pool cannot drain.
     With ``tracer`` (a ``StageTimes``) the threads record each frame's
-    ``download`` and ``write`` spans under its sequence number and block.
+    ``download`` and ``write`` spans under its sequence number and block,
+    and ``to_out`` the ``download``'s ``d2h-wait`` and ``copy-out``.
     """
 
     def __init__(self, video_io, src_size, stats, depth: int = 12, workers: int = 4,

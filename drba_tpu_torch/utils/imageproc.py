@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from drba_tpu_torch.ops.resize import resize_to
+from drba_tpu_torch.utils import profiling
 
 
 def _net_dim(dim: int, scale: float, div: int) -> int:
@@ -56,16 +57,23 @@ def to_uint8(x: torch.Tensor) -> np.ndarray:
     ``(x*255).astype(uint8)`` in the reference); quantised on the device.
     From a CUDA device the frame comes down into pinned memory, the calling
     thread sleeps on an event behind the copy, and the frame is returned in
-    pageable memory."""
+    pageable memory. With a recorder active (``utils/profiling.py``) the
+    sleep is the span ``d2h-wait`` (the quantise and the copy, and whatever
+    the stream queued before them) and the copy into pageable memory the
+    span ``copy-out``."""
     q = (x[0].float() * 255.0).clamp(0, 255).to(torch.uint8)
-    if not q.is_cuda:
-        return q.numpy()
-    staged = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
-    staged.copy_(q, non_blocking=True)
-    done = torch.cuda.Event(blocking=True)
-    done.record(torch.cuda.current_stream(q.device))
-    done.synchronize()
-    return staged.numpy().copy()
+    staged, done = q, None
+    if q.is_cuda:
+        staged = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
+        staged.copy_(q, non_blocking=True)
+        done = torch.cuda.Event(blocking=True)
+        done.record(torch.cuda.current_stream(q.device))
+    tr = profiling.active()
+    with tr.span("d2h-wait") if tr is not None else profiling.NULL:
+        if done is not None:
+            done.synchronize()
+    with tr.span("copy-out") if tr is not None else profiling.NULL:
+        return staged.numpy().copy()
 
 
 def to_inp(img: np.ndarray, dst_size: tuple[int, int], dtype=torch.float32,

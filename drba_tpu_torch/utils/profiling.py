@@ -15,9 +15,13 @@ counters:
 * every other span, by the thread that ran it: the prefetch thread's
   ``read`` (the decoder), ``upload`` (the upload, the scene score, its copy
   and event) and ``put-wait`` (blocked on the full queue); the download
-  threads' ``download`` (``to_out``, any wait for the card included); the
-  writer's ``write``; ``call`` (``graphs.WindowGraphs.call``: kind, T and
-  outcome ``replay``, ``eager`` or ``capture``); ``load`` (``cli.load_model``)
+  threads' ``download`` (``to_out``, any wait for the card included) and
+  inside it ``d2h-wait`` (asleep on the frame's event, behind the work the
+  stream queued before it) and ``copy-out`` (the copy out of pinned memory;
+  ``imageproc.to_uint8``); the writer's ``write``; ``call``
+  (``graphs.WindowGraphs.call``: kind, T and outcome ``replay``, ``eager``
+  or ``capture``); ``load`` (``cli.load_model``: the model, its flow scale
+  and, given the frame size, ``flow_px``, GMFlow's input height x width)
   and ``build`` (``_build.Kernel.load`` building or loading a library).
   The report gives each as ``<thread>/<span>`` in the stages' line format,
   threads named ``loop``, ``prefetch``, ``download`` (its workers

@@ -906,6 +906,36 @@ def test_emitter_holds_no_pinned_memory_behind_a_slow_sink(dev):
         assert (got == w).all()
 
 
+def test_download_queued_behind_a_long_kernel_waits_in_d2h_wait(dev):
+    """A frame whose download is queued behind a long kernel on the
+    stream: its ``download`` span holds the wait as ``d2h-wait``, and the
+    ``copy-out`` after it is short."""
+    from drba_tpu_torch.pipeline import PipelineStats, _Emitter
+    from drba_tpu_torch.utils import profiling
+
+    class _Sink:
+        def write_frame(self, arr):
+            self.frame = arr
+
+    x = torch.rand(1, 64, 128, 3, generator=torch.Generator(device=dev).manual_seed(7),
+                   device=dev)
+    want = (x[0] * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy()
+    torch.cuda.synchronize()
+    sink, stats = _Sink(), PipelineStats()
+    with profiling.tracer() as st:
+        em = _Emitter(sink, (64, 128), stats, workers=1, tracer=st)
+        torch.cuda._sleep(1_000_000_000)  # about 0.5 s of spinning before the download
+        em.emit(x)
+        em.finish()
+    assert stats.frames_out == 1 and (sink.frame == want).all()
+    (dl,), (wait,), (out,) = ([r for r in st.records if r.name == name]
+                              for name in ("download", "d2h-wait", "copy-out"))
+    assert wait.parent == out.parent == dl.id
+    assert dl.start_ns <= wait.start_ns <= wait.end_ns <= out.start_ns <= out.end_ns <= dl.end_ns
+    assert wait.seconds > 0.2, wait.seconds
+    assert out.seconds < 0.02 and wait.seconds > 0.9 * dl.seconds, (out.seconds, dl.seconds)
+
+
 # ------------------------------------------------------------- dispatch threads, the planner
 
 

@@ -20,8 +20,9 @@ import torch
 from benchmark.trace import parse_stages
 from drba_tpu_torch import graphs
 from drba_tpu_torch.config import F32
+from drba_tpu_torch.ops.resize import scale_by
 from drba_tpu_torch.pipeline import run_pipeline
-from drba_tpu_torch.utils import profiling
+from drba_tpu_torch.utils import get_valid_net_inp_size, profiling
 
 H, W = 64, 128
 N_FRAMES, CUT_AT = 9, 5
@@ -144,6 +145,46 @@ def test_one_frames_spans_link_across_threads(profiled):
     # the outputs' sequence numbers run through the blocks in order
     seqs = [r.attrs["out"] for r in sorted(_by(recs, "write"), key=lambda r: r.start_ns)]
     assert seqs == list(range(profiled.frames_out))
+
+
+def test_download_holds_its_wait_and_copy_out(profiled):
+    """Each ``download`` holds one ``d2h-wait`` (asleep on the frame's
+    event; nothing to wait for on the CPU) and then one ``copy-out``, as its
+    children, on its thread and inside its interval."""
+    recs = profiled.records
+    downloads = {r.id: r for r in _by(recs, "download")}
+    assert len(downloads) == profiled.frames_out
+    for name in ("d2h-wait", "copy-out"):
+        children = _by(recs, name)
+        assert sorted(r.parent for r in children) == sorted(downloads)
+        for r in children:
+            dl = downloads[r.parent]
+            assert r.thread == dl.thread
+            assert dl.start_ns <= r.start_ns <= r.end_ns <= dl.end_ns
+    wait = {r.parent: r for r in _by(recs, "d2h-wait")}
+    for r in _by(recs, "copy-out"):
+        assert wait[r.parent].end_ns <= r.start_ns
+    for name in ("d2h-wait", "copy-out"):
+        assert profiled.spans[f"download/{name}"][1] == profiled.frames_out
+
+
+def test_download_wait_reader_reads_the_programs_report(profiled):
+    """``benchmark/metrics/download_wait_ms.py`` gives the mean ``d2h-wait``
+    in ms per frame written from the program's report, and nothing from a
+    report without the span (the program before it had one)."""
+    from benchmark import cells
+    from benchmark.trace import Trace
+
+    read = cells.metric_reader("download_wait_ms")
+    stages = parse_stages(profiled.stage_report)
+    total, count = profiled.spans["download/d2h-wait"]
+    assert count == profiled.frames_out
+    # the report rounds seconds to 1 ms
+    assert read(Trace(stages=stages)) == pytest.approx(total / count * 1e3, abs=1.0 / count)
+    without = {k: v for k, v in stages.items() if not k.endswith(("/d2h-wait", "/copy-out"))}
+    assert "download/download" in without
+    assert read(Trace(stages=without)) is None
+    assert read(Trace(stages={**without, "download/d2h-wait": (0.0, 0)})) is None
 
 
 def test_without_a_recorder_no_span_site_reads_the_clock(rife, monkeypatch):
@@ -329,3 +370,26 @@ def test_cli_profile_records_the_load(tmp_path, capsys):
     assert got["window"][1] == stats.windows + 2
     assert got["writer/write"][1] == stats.frames_out == 10
     assert profiling.active() is None
+    load, = _by(stats.records, "load")
+    assert load.attrs == {"model": "rife", "scale": 1.0}  # no GMFlow
+
+
+@pytest.mark.parametrize("scale,frame,flow", [(1.0, (1080, 1920), "576x960"),
+                                              (0.5, (2160, 3840), "576x960"),
+                                              (0.5, (128, 256), "64x64")])
+def test_load_span_names_the_flow_path(scale, frame, flow):
+    """GMFSS_UNION's ``load`` span names its flow scale and GMFlow's input
+    for the source frame size: at 4K and ``-scale 0.5`` the 1080p path's."""
+    from drba_tpu_torch.cli import load_model
+    from drba_tpu_torch.config import Config
+
+    with profiling.tracer() as st:
+        model = load_model("gmfss_union", "no-weights", scale,
+                           Config(compute_dtype=torch.float32), "cpu", frame=frame)
+    load, = _by(st.records, "load")
+    assert load.attrs == {"model": "gmfss_union", "scale": scale, "flow_px": flow}
+    # the program's own sizes: pad to the network size, halve, scale
+    net = get_valid_net_inp_size(np.empty((*frame, 3), np.uint8), scale, model.pad_size)
+    half = torch.empty(1, *(d // 2 for d in net["dst_size"]), 3)
+    got = scale_by(half, scale) if scale != 1.0 else half
+    assert f"{got.shape[1]}x{got.shape[2]}" == flow

@@ -156,13 +156,13 @@ N_UHD = 6
 N_TIMING = 18
 
 # the kernels each path must launch ("scdet": RIFE with scene detection)
-PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain"),
+PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain", "block_input"),
                 "gmfss": ("splat", "warp", "conv_chain", "window_attention",
                           "flash_attention", "transformer_layer"),
                 "gmfss_union": ("splat", "warp", "conv_chain", "window_attention",
-                                "flash_attention", "transformer_layer"),
-                "scdet": ("splat", "warp", "conv_chain"),
-                "uhd": ("splat", "warp", "conv_chain")}
+                                "flash_attention", "transformer_layer", "block_input"),
+                "scdet": ("splat", "warp", "conv_chain", "block_input"),
+                "uhd": ("splat", "warp", "conv_chain", "block_input")}
 # window gates, kernel path against plain path on one T=3 window, per
 # dtype: (mean abs, share of values off by more than 1e-2). f32: the same
 # arithmetic up to atomic/FMA/summation order; bf16: roundings at other
@@ -179,7 +179,8 @@ GATES = {"f32": (1e-4, 1e-3), "bf16": (1e-2, 5e-2)}
 # uninterrupted runs are
 # the __global__ functions of drba_tpu_torch/csrc (by name prefix)
 DEVICE_KERNELS = ("splat_", "warp_", "conv3x3_", "attn_wgmma_kernel",
-                  "attn_tf32_kernel", "flash_combine_kernel", "layer_proj_", "layer_tail_")
+                  "attn_tf32_kernel", "flash_combine_kernel", "layer_proj_", "layer_tail_",
+                  "block_input_kernel")
 # the kernels whose f32 (--fp32) design has rows of its own in the kernels
 # line: 3xTF32 on the tensor cores (csrc/tf32.cuh), timed at the same
 # summed shapes; their launches come from the f32 windows
@@ -193,15 +194,18 @@ REPLACES = {"splat": "drba_tpu/ops/splat_stencil.py:282",
             "conv_chain": "drba_tpu/ops/conv_chain.py:349",
             "window_attention": "drba_tpu/ops/attn_mxu.py:63 and drba_tpu/ops/attn_mxu.py:281",
             "flash_attention": "drba_tpu/ops/attn_mxu.py:150",
-            "transformer_layer": "drba_tpu/ops/attn_layer.py:176"}
+            "transformer_layer": "drba_tpu/ops/attn_layer.py:176",
+            "block_input": "none: XLA fused IFNet's concatenations into the first conv on the "
+                           "TPU (drba_tpu/models/ifnet.py:ifnet_apply); eager PyTorch wrote "
+                           "each out"}
 # the one PyTorch call timed beside each kernel (used nowhere in the port), or
 # why there is none
 LIBRARY = {"splat": "none: no single call scatters with bilinear weights and normalises "
                     "(index_add_ takes precomputed indices and weighted values, one call per "
                     "corner)",
            "warp": "F.grid_sample on a precomputed normalised grid, both directions' images "
-                   "stacked beforehand, at the k = 1 launches only (stage 4 C=19 and the merge "
-                   "C=3); the tap-averaged k = 2/4/8 warps have none",
+                   "made dense and stacked beforehand, at the k = 1 launches only (stage 4 "
+                   "C=19 and the merge C=3); the tap-averaged k = 2/4/8 warps have none",
            "conv_chain": "F.conv2d with bias (cuDNN), without the epilogue (ResConv, "
                          "pre-PReLU, residual)",
            "window_attention": "F.scaled_dot_product_attention on the windows split "
@@ -209,7 +213,11 @@ LIBRARY = {"splat": "none: no single call scatters with bilinear weights and nor
            "flash_attention": "F.scaled_dot_product_attention, value zero-padded to 8 or 128 "
                               "columns in bf16, unmasked shapes only; fastest backend and width",
            "transformer_layer": "none: projection, attention, merge, norms and FFN are "
-                                "several calls"}
+                                "several calls",
+           "block_input": "the reference's expression for the same channels: torch.cat of "
+                          "the pieces (the warps' outputs among them; at full resolution where "
+                          "it concatenates there), F.interpolate, and cuDNN's padding copy as "
+                          "one more torch.cat"}
 
 
 def fail(msg: str) -> None:
@@ -767,53 +775,91 @@ def phase_kernels(dev):
                    summed=summed)
 
     # warp, summed into the kernel's summary: the RIFE path's five launches
-    # of a T=3 window, each warping both directions of the 4-channel flow,
-    # read in place (backwarp2, B = 2T = 6 images): the tap-grid warps of
-    # stages 1-3 (k = 2/4/8, image + features C=19), stage 4 at full
-    # resolution (C=19) and the merge (C=3);
-    # checked and timed, not summed: one direction at the two k = 1 shapes
-    # (backwarp, B = T = 3) and GMFSS's zeros-padded warps (MetricNet C=5 at
-    # 544x960, GMFlow C=128 at 136x240)
-    for label, (b, c, k, two, mode, h, w, summed) in {
-            "tap k=2 C=19": (3, 19, 2, True, "border", H, W, True),
-            "tap k=4 C=19": (3, 19, 4, True, "border", H, W, True),
-            "tap k=8 C=19": (3, 19, 8, True, "border", H, W, True),
-            "stage 4 C=19": (3, 19, 1, True, "border", H, W, True),
-            "merge C=3": (3, 3, 1, True, "border", H, W, True),
-            "one direction C=19": (3, 19, 1, False, "border", H, W, False),
-            "one direction C=3": (3, 3, 1, False, "border", H, W, False),
-            "metricnet zeros C=5": (2, 5, 1, False, "zeros", H // 2, W // 2, False),
-            "gmflow zeros C=128": (2, 128, 1, False, "zeros", H // 8, W // 8, False),
-            # GMFSS_UNION's auxiliary IFNet at half resolution (576x960)
-            "union aux tap k=2 C=19": (3, 19, 2, True, "border", HU // 2, W // 2, False),
-            "union aux tap k=4 C=19": (3, 19, 4, True, "border", HU // 2, W // 2, False),
-            "union aux tap k=8 C=19": (3, 19, 8, True, "border", HU // 2, W // 2, False),
-            "union aux stage 4 C=19": (3, 19, 1, True, "border", HU // 2, W // 2, False),
-            "union aux merge C=3": (3, 3, 1, True, "border", HU // 2, W // 2, False)}.items():
+    # of a T=3 window, made as ifnet.stage_input and the merge make them,
+    # each warping both directions of the 4-channel flow (B = 2T = 6 images)
+    # from operands read where they lie (ops/planes.py): direction 0 the
+    # frame I1 (3 channels) beside its 16 features, both shared by the T
+    # planes with a batch stride of 0; direction 1 the B side, I0 or I2 and
+    # its features picked per plane. The tap-grid warps of stages 1-3
+    # (k = 2/4/8) write their slots, channels [0, 19) and [19, 38), of the
+    # 56-channel block input ("in place": the whole buffer is compared, so a
+    # write past a slot shows); stage 4 (k = 1) and the merge (the frames
+    # alone, C = 3) stack the two directions. Checked and timed, not summed:
+    # GMFSS_UNION's auxiliary IFNet at 576x960, which hands IFNet T distinct
+    # frames (each direction a contiguous frame beside its features), one
+    # direction at the two k = 1 shapes (backwarp, B = T = 3) and GMFSS's
+    # zeros-padded warps (MetricNet C=5 at 544x960, GMFlow C=128 at 136x240)
+    from drba_tpu_torch.models.ifnet import BLOCK_IN_PADDED, WARPED
+    from drba_tpu_torch.ops.planes import Pick, dense, first_channels, shared
+
+    T = 3
+    take_b = torch.tensor([False, True, True], device=dev)
+    for label, (form, c, k, mode, h, w, summed) in {
+            "stage k=2 C=19 in place": ("window", 19, 2, "border", H, W, True),
+            "stage k=4 C=19 in place": ("window", 19, 4, "border", H, W, True),
+            "stage k=8 C=19 in place": ("window", 19, 8, "border", H, W, True),
+            "stage 4 C=19": ("window", 19, 1, "border", H, W, True),
+            "merge C=3": ("window", 3, 1, "border", H, W, True),
+            "union aux k=2 C=19 in place": ("frames", 19, 2, "border", HU // 2, W // 2, False),
+            "union aux k=4 C=19 in place": ("frames", 19, 4, "border", HU // 2, W // 2, False),
+            "union aux k=8 C=19 in place": ("frames", 19, 8, "border", HU // 2, W // 2, False),
+            "union aux stage 4 C=19": ("frames", 19, 1, "border", HU // 2, W // 2, False),
+            "union aux merge C=3": ("frames", 3, 1, "border", HU // 2, W // 2, False),
+            "one direction C=19": ("one", 19, 1, "border", H, W, False),
+            "one direction C=3": ("one", 3, 1, "border", H, W, False),
+            "metricnet zeros C=5": ("one", 5, 1, "zeros", H // 2, W // 2, False),
+            "gmflow zeros C=128": ("one", 128, 1, "zeros", H // 8, W // 8, False)}.items():
         for dt in (f32, bf16):
-            img = torch.rand(b, h, w, c, generator=gen, device=dev).to(dt)
+            rnd = lambda *shape: torch.rand(*shape, generator=gen, device=dev).to(dt)
+            b = 2 if mode == "zeros" else T  # GMFSS's pair, else the window's T planes
             flow = smooth_flow(gen, b, h, w, 16.0, dev, dt)
-            if two:
-                img1 = torch.rand(b, h, w, c, generator=gen, device=dev).to(dt)
-                flow = torch.cat([flow, smooth_flow(gen, b, h, w, 16.0, dev, dt)], dim=-1)
-                kern = lambda: backwarp2(img, img1, flow, k, mode, backend="cuda")
-                plain = lambda: backwarp2(img, img1, flow, k, mode, backend="torch")
-                flows = torch.cat([flow[..., 0:2], flow[..., 2:4]])
-            else:
+            out_k = out_p = None
+            if form == "one":
+                img = rnd(b, h, w, c)
                 kern = lambda: warp_cuda(img, flow, k, mode)
                 plain = lambda: backwarp(img, flow, mode, backend="torch")
-                flows = flow
+                flows, frames = flow, None
+            else:
+                flow = torch.cat([flow, smooth_flow(gen, b, h, w, 16.0, dev, dt)], dim=-1)
+                if form == "window":  # I0, I1, I2 and their features, one frame each
+                    I0, I1, I2 = (rnd(1, h, w, 3) for _ in range(3))
+                    f0, f1, f2 = (rnd(1, h, w, 16) * 2 - 1 for _ in range(3))
+                    img0, feat0 = shared(I1, T), shared(f1, T)
+                    img1 = Pick(shared(I0, T), shared(I2, T), take_b)
+                    feat1 = Pick(shared(f0, T), shared(f2, T), take_b)
+                    frames = [0] * T + [1 + int(t) for t in take_b]
+                else:  # T frames a direction
+                    img0, img1 = rnd(T, h, w, 3), rnd(T, h, w, 3)
+                    feat0, feat1 = rnd(T, h, w, 16) * 2 - 1, rnd(T, h, w, 16) * 2 - 1
+                    frames = None
+                if c == WARPED:  # the frame's 3 channels beside its features
+                    a = (first_channels(img0, 3), feat0)
+                    bb = (first_channels(img1, 3), feat1)
+                else:
+                    a, bb = img0, img1
+                if k > 1:
+                    out_k = torch.zeros((T, h // k, w // k, BLOCK_IN_PADDED[1]), dtype=dt,
+                                        device=dev)
+                    out_p = torch.zeros_like(out_k)
+                kern = lambda: backwarp2(a, bb, flow, k, mode, backend="cuda", out=out_k,
+                                         offsets=(0, WARPED))
+                plain = lambda: backwarp2(a, bb, flow, k, mode, backend="torch", out=out_p,
+                                          offsets=(0, WARPED))
+                flows = torch.cat([flow[..., 0:2], flow[..., 2:4]])
             tol = (1e-5, "same f32 arithmetic, FMA contraction") if dt == f32 else \
                 (1e-2, "one bf16 ulp (2^-7) at values <= 1 from the output rounding")
             err = check_close(f"warp {label} ({flows.shape[0]},{h},{w},{c}) {dt}", kern(),
                               plain(), tol[0], 0.0, tol[1])
             px, py = sample_positions(flows, k)
-            work = bounds.warp_work(flows.shape[0], h, w, c, k, img.element_size(),
-                                    bounds.warp_touched(px, py, h, w))
+            work = bounds.warp_work(flows.shape[0], h, w, c, k, dt.itemsize,
+                                    bounds.warp_touched(px, py, h, w, frames))
             library = None
             if k == 1:  # grid_sample on the normalised grid of the same positions
                 grid = torch.stack([px * (2 / (w - 1)) - 1, py * (2 / (h - 1)) - 1], -1).to(dt)
-                src = torch.cat([img, img1]) if two else img  # stacked outside the timing
+                # both directions' images, made dense and stacked outside the timing
+                src = img if form == "one" else torch.cat(
+                    [torch.cat([dense(x) for x in op], -1) if isinstance(op, tuple)
+                     else dense(op) for op in (a, bb)])
                 nchw = src.permute(0, 3, 1, 2)  # the NHWC data, channels_last
                 library = (lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode=mode,
                                                  align_corners=True), "F.grid_sample")
@@ -852,7 +898,122 @@ def phase_kernels(dev):
                    (lambda: F.conv2d(nchw, st.w, st.b, padding=1), "F.conv2d (cuDNN)"), summed)
     gmfss_conv_checks(dev, gen, record)
     attention_checks(dev, gen, record)
+    block_input_checks(dev, gen, record)
     return summary
+
+
+def block_input_checks(dev, gen, record):
+    """The IFBlock input assembly (``ops/block_input.assemble``: the
+    channels the warps do not write in place) against its plain version, and
+    timed beside the reference's expression for the same channels (LIBRARY).
+    Summed: the RIFE window's five block inputs at 1088x1920, T = 3 (stage 0
+    from the shared frame, the picked B side and an f32 timestep map; stages
+    1-4 the timestep, mask, features and flow, and at stage 4 the warps'
+    stacked halves). Checked and timed, not summed: the flow pass's block 0 (N = 1),
+    the union's auxiliary IFNet at 576x960 and, at -scale 0.5 on 4K, at
+    1152x1920 with scales 32-2, and RIFE at -scale 0.75 (non-integer
+    scales). The kernel must equal the plain version bit for bit at integer
+    scales (the same taps and weights, the same roundings); elsewhere
+    within two ulps of the largest value (F.interpolate's kernel may fuse
+    the bilinear multiply-adds in another order, and the flow's product
+    with 1 / scale rounds once more)."""
+    import torch
+
+    from drba_tpu_torch import bounds
+    from drba_tpu_torch.models.ifnet import BLOCK_IN, BLOCK_IN_PADDED, WARPED
+    from drba_tpu_torch.ops.block_input import assemble
+    from drba_tpu_torch.ops.planes import Pick, dense, first_channels, shared
+    from drba_tpu_torch.ops.resize import resize_bilinear
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    T = 3
+    take_b = torch.tensor([False, True, True], device=dev)
+    for label, (h, w, scales, summed) in {
+            "rife": (H, W, (16.0, 8.0, 4.0, 2.0, 1.0), True),
+            "union aux": (HU // 2, W // 2, (16.0, 8.0, 4.0, 2.0, 1.0), False),
+            "union 4K aux": (HU, W, (32.0, 16.0, 8.0, 4.0, 2.0), False),
+            "rife -scale 0.75": (H, W, tuple(s / 0.75 for s in (16.0, 8.0, 4.0, 2.0, 1.0)),
+                                 False)}.items():
+        for dt in (f32, bf16):
+            rnd = lambda *shape: torch.rand(*shape, generator=gen, device=dev).to(dt)
+            I0, I1, I2 = (rnd(1, h, w, 3) for _ in range(3))
+            f0, f1, f2 = (rnd(1, h, w, 16) * 2 - 1 for _ in range(3))
+            tmaps = [torch.rand(T, h, w, 1, generator=gen, device=dev) for _ in range(2)]
+            img_b = Pick(shared(I0, T), shared(I2, T), take_b)
+            f_b = Pick(shared(f0, T), shared(f2, T), take_b)
+            t = Pick(*tmaps, take_b)
+            tmp = rnd(T, h, w, 13) * 2 - 1
+            flow = (rnd(T, h, w, 4) * 2 - 1) * 8
+            # (name, parts as (operand, channels, distinct frames), scale, summed)
+            cases = [("block 0", [(shared(I1, T), 3, 1), (img_b, 3, 2), (shared(f1, T), 16, 1),
+                                  (f_b, 16, 2), (t, 1, 2)], scales[0], summed)]
+            cases.append(("flow pass block 0",
+                          [(I1, 3, 1), (I0, 3, 1), (f1, 16, 1), (f0, 16, 1),
+                           (I1.new_full((1, 1, 1, 1), 0.5).expand(1, h, w, 1), 1, 1)],
+                          scales[0], False))
+            for i, sc in enumerate(scales[1:], 1):
+                # at an even scale the warps write channels [0, 38) in place;
+                # elsewhere their stacked halves, at full resolution, are parts
+                in_place = float(sc).is_integer() and int(sc) % 2 == 0
+                warps = [] if in_place else [(rnd(T, h, w, WARPED), WARPED, T) for _ in range(2)]
+                cases.append((f"block {i}", warps + [(t, 1, 2), (tmp[..., 4:5], 1, T),
+                                                     (tmp[..., 5:], 8, T), (flow, 4, T)],
+                              sc, summed))
+            for name, parts, sc, add in cases:
+                n = 1 if name.startswith("flow pass") else T
+                size = (int(h / sc), int(w / sc))
+                cout = BLOCK_IN_PADDED[0 if name.endswith("block 0") else 1]
+                mults = [1.0] * len(parts)
+                if not name.endswith("block 0"):
+                    mults[-1] = 1.0 / sc  # the flow over the scale
+                ops = [((first_channels(x, 3) if c == 3 else x), m)
+                       for (x, c, _), m in zip(parts, mults)]
+                # the channels the warps write in place
+                first = BLOCK_IN[0 if name.endswith("block 0") else 1] - sum(c for _, c, _ in parts)
+                out_k = torch.zeros((n, *size, cout), dtype=dt, device=dev)
+                out_p = torch.zeros_like(out_k)
+                kern = lambda: assemble(out_k, ops, backend="cuda", first=first)
+                plain = lambda: assemble(out_p, ops, backend="torch", first=first)
+                got, want = kern(), plain()
+                if sc == int(sc):
+                    d = int((got.float() != want.float()).sum())
+                    err = float((got.float() - want.float()).abs().max())
+                    print(f"block_input {label} {name} (scale {sc:g}, {tuple(got.shape)}) {dt}: "
+                          f"{d} values differ (max_abs {err:.3e}); must be bit for bit")
+                    if d:
+                        fail(f"block_input {label} {name} {dt}: kernel differs from plain")
+                else:
+                    ulp = 2 ** -7 if dt == bf16 else 2 ** -23
+                    err = check_close(f"block_input {label} {name} (scale {sc:g}, "
+                                      f"{tuple(got.shape)}) {dt}", got, want,
+                                      2 * ulp * float(want.float().abs().max()), 0.0,
+                                      "two ulps of the largest value: multiply-adds fused in "
+                                      "another order, the flow's 1 / scale")
+
+                # the warps' outputs the reference concatenated with the rest
+                warped = [rnd(n, *size, WARPED) for _ in range(first // WARPED)]
+
+                def reference(parts=parts, mults=mults, size=size, cout=cout, warped=warped):
+                    # the old expression: the pieces concatenated (at full
+                    # resolution), resized, beside the warps; the flow
+                    # appended; cuDNN's pad
+                    xs = [dense(first_channels(x, 3) if c == 3 else x).to(dt)
+                          for x, c, _ in parts]
+                    flow_apart = mults[-1] != 1.0
+                    head = torch.cat(warped + [resize_bilinear(
+                        torch.cat(xs[:-1] if flow_apart else xs, -1), size)], -1)
+                    if flow_apart:
+                        head = torch.cat([head, resize_bilinear(xs[-1], size) * mults[-1]], -1)
+                    return torch.cat([head, head.new_zeros(*head.shape[:3],
+                                                           cout - head.shape[-1])], -1)
+
+                work = bounds.block_input_work(
+                    n, *size, cout, first, got.element_size(),
+                    [(frames if n == T else 1, *(x.a if isinstance(x, Pick) else x).shape[1:3],
+                      c, (x.a if isinstance(x, Pick) else x).element_size())
+                     for x, c, frames in parts])
+                record("block_input", err, kern, plain, 10, dt, work,
+                       (reference, "torch.cat + F.interpolate + pad"), add)
 
 
 def other_designs(n, h, w, cin, cout, dt):

@@ -213,8 +213,10 @@ SPLAT = Kernel("splat", "splat.cu", {
     # acc, out, cov; pixels; c, denom, dtype; stream
     "drba_splat_normalise": [_P] * 3 + [_L] + [_I] * 3 + [_P],
 })
-# img0, img1, flow, out; n, h, w, c, k, zeros, flow stride, flow offset 1; 2 dtypes; stream
-WARP = Kernel("warp", "warp.cu", {"drba_warp": [_P] * 4 + [_I] * 10 + [_P]})
+# WarpArgs (ops/warp_cuda.py); image and flow dtypes; stream
+WARP = Kernel("warp", "warp.cu", {"drba_warp": [_P, _I, _I, _P]})
+# AssembleArgs (ops/block_input.py); dtype; stream
+BLOCK_INPUT = Kernel("block_input", "block_input.cu", {"drba_block_input": [_P, _I, _P]})
 # x, w (OIHW), packed w, bias, beta, alpha, res, out; n, h, w, cin, cout, dtype, path; stream
 CONV = Kernel("conv_chain", "conv_chain.cu", {"drba_conv3x3": [_P] * 8 + [_I] * 7 + [_P]})
 # q, k, v, out, labels; b, h, w, kk; 4 token strides; 2 label strides; half; dtype; stream
@@ -232,7 +234,7 @@ LAYER = Kernel("transformer_layer", "attn_layer.cu", {
     # x, av, packed wmerge, g1, b1, packed ffn, g2, b2, out; hidden, tokens, dtype; stream
     "drba_layer_tail": [_P] * 9 + [_I, _L, _I, _P],
 })
-KERNELS = (SPLAT, WARP, CONV, WINDOW, FLASH, LAYER)
+KERNELS = (SPLAT, WARP, CONV, WINDOW, FLASH, LAYER, BLOCK_INPUT)
 
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 

@@ -135,14 +135,17 @@ def warp_work(n: int, h: int, w: int, c: int, k: int, itemsize: int,
                 {"f32": 2.0 * 4 * c * samples})
 
 
-def warp_touched(px, py, h: int, w: int) -> int:
+def warp_touched(px, py, h: int, w: int, frames=None) -> int:
     """Distinct pixels of an (n, h, w) image that bilinear samples at pixel
     coordinates px/py (n, ...) read with border clamping (numpy or torch
-    arrays)."""
+    arrays). ``frames``: the frame each of the n planes reads, where planes
+    share frames (a batch stride of 0, a per-plane choice of two); by
+    default each plane its own."""
     px, py = torch.as_tensor(px).float(), torch.as_tensor(py).float()
     x0 = torch.floor(px).long()
     y0 = torch.floor(py).long()
-    batch = torch.arange(px.shape[0], device=px.device).reshape(-1, *[1] * (px.dim() - 1))
+    batch = (torch.arange(px.shape[0]) if frames is None else torch.as_tensor(frames))
+    batch = batch.to(px.device).long().reshape(-1, *[1] * (px.dim() - 1))
     ids = [((batch * h + (y0 + dy).clamp(0, h - 1)) * w + (x0 + dx).clamp(0, w - 1)).reshape(-1)
            for dy in (0, 1) for dx in (0, 1)]
     return int(torch.unique(torch.cat(ids)).numel())
@@ -176,3 +179,16 @@ def splat_work(n: int, h: int, w: int, c: int, itemsize: int, flow_itemsize: int
     read = c * itemsize + 2 * flow_itemsize + metric_itemsize
     written = (c + (1 if coverage else 0)) * itemsize
     return Work(pixels * (read + written), {"f32": 2.0 * 4 * (c + 1) * pixels})
+
+
+def block_input_work(n: int, ho: int, wo: int, cout: int, first: int, itemsize: int,
+                     parts) -> Work:
+    """One IFBlock input assembly (csrc/block_input.cu): channels ``first``
+    to ``cout`` of an (n, ho, wo, cout) output in ``itemsize`` bytes written
+    once, and for each part ``(frames, h, w, c, part_itemsize)`` the values
+    it reads, once each: ``frames`` distinct (h, w, c) frames (a frame the
+    planes share is read once), each at every source pixel, or at the 2 x 2
+    taps of each output pixel where fewer. The handful of f32 operations
+    per value are not counted."""
+    read = sum(frames * min(h * w, 4 * ho * wo) * c * isz for frames, h, w, c, isz in parts)
+    return Work(read + n * ho * wo * (cout - first) * itemsize)

@@ -29,6 +29,33 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// One NHWC operand read where it lies (drba_tpu_torch/ops/planes.py:Src):
+// element (plane p, row y, pixel x, channel ch) at p * sb + y * sy + x * sx +
+// ch * sc elements from ptr[1] where pick && pick[p], else from ptr[0]
+// (a batch stride of 0 shares one frame among the planes; `pick` chooses
+// one of two frames per plane), in dtype code `dtype`; `mult` scales a value
+// after its rounding to the output dtype (block_input.cu).
+struct Src {
+  const void* ptr[2];
+  const unsigned char* pick;
+  long long sb, sy, sx, sc;
+  int c, dtype;
+  float mult;
+};
+
+// Plane p's base of operand s, as T (the operand's dtype is T's)
+template <typename T>
+__device__ __forceinline__ const T* src_plane(const Src& s, int p) {
+  const int alt = s.pick != nullptr && s.pick[p] != 0;
+  return static_cast<const T*>(s.ptr[alt]) + static_cast<long long>(p) * s.sb;
+}
+
+// Element `e` of an array of dtype code `dtype` at `base`, as f32
+__device__ __forceinline__ float load_f32(int dtype, const void* base, long long e) {
+  return dtype == kF32 ? __ldg(static_cast<const float*>(base) + e)
+                       : to_f32(static_cast<const bf16*>(base)[e]);
+}
+
 inline unsigned int cdiv(long long a, long long b) {
   return static_cast<unsigned int>((a + b - 1) / b);
 }

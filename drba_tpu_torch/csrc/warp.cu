@@ -24,8 +24,16 @@
 //
 // Two directions (IFNet's backward warps of both frames): image 0 is warped
 // by flow channels [0, 2) and image 1 by [off1, off1 + 2) of one flow map
-// with `fstride` channels per pixel, read in place; the output stacks the
-// two as (2n, h/k, w/k, c). One direction reads channels [0, 2).
+// with `fstride` channels per pixel, read in place. One direction reads
+// channels [0, 2). Each direction's image is read where it lies, as one or
+// two operands (common.cuh:Src) side by side in its channels: IFNet's frame
+// (3 of its channels) and its 16 encoder features, with no concatenation;
+// an operand may share one frame among the planes (batch stride 0) or
+// choose one of two frames per plane. Output pixel q of direction d in plane
+// p goes to out + p * ob + q * opitch + off[d]: the two directions stacked
+// as (2n, h/k, w/k, c), or each written into its channel slots of an
+// IFBlock's input (pitch 56, offsets 0 and 19; block_input.cu writes the
+// rest).
 //
 // Bound on this card: memory (image reads, output writes; the f32 corner
 // arithmetic is far below the FMA rate). A per-pixel thread looping over
@@ -33,8 +41,9 @@
 // stores touch ~32 sectors for 64 useful bytes. So the work is split in
 // two phases per block of output pixels:
 //  1. one thread per output pixel (k == 1) or per tap (k even) reads the
-//     flow, computes the four corners' element offsets and weights and the
-//     pixel's image plane once, and leaves them in shared memory;
+//     flow, computes the four corners' pixel indices and weights, the
+//     pixel's image planes and its output address once, and leaves them in
+//     shared memory;
 //  2. the (pixel, channel group) elements of the block are spread over the
 //     threads, channel groups fastest: neighbouring lanes read neighbouring
 //     channels of the same corner and write neighbouring output elements,
@@ -44,8 +53,8 @@
 //     c = 128: 16 bytes); at c = 19, V = 1. Per element the work is two
 //     shared loads, four gathers and one store: everything that depends
 //     only on the pixel stays in phase 1.
-// At k == 1 and c <= 4 (the merge's c = 3) a pixel's outputs are too few
-// to spread over lanes, and one thread per pixel writes them all.
+// At k == 1 and c <= 4 (the merge's c = 3, one operand) a pixel's outputs
+// are too few to spread over lanes, and one thread per pixel writes them all.
 
 #include "common.cuh"
 
@@ -54,11 +63,11 @@ namespace {
 constexpr int kThreads = 256;
 
 struct Tap {
-  int off[4];    // element offset (pixel index * c) of each corner in its image plane
+  int off[4];    // pixel index (cy * w + cx) of each corner in its image plane
   float wgt[4];  // bilinear weight of each corner (0 outside the frame for 'zeros')
 };
 
-__device__ __forceinline__ Tap corners(float px, float py, int h, int w, int c, bool zeros) {
+__device__ __forceinline__ Tap corners(float px, float py, int h, int w, bool zeros) {
   Tap k;
   const float x0f = floorf(px);
   const float y0f = floorf(py);
@@ -76,7 +85,7 @@ __device__ __forceinline__ Tap corners(float px, float py, int h, int w, int c, 
     if (zeros && (ix < 0 || ix >= w || iy < 0 || iy >= h)) wgt = 0.f;
     const int cx = min(max(ix, 0), w - 1);
     const int cy = min(max(iy, 0), h - 1);
-    k.off[q] = (cy * w + cx) * c;  // h * w * c < 2^31 (checked by the host)
+    k.off[q] = cy * w + cx;
     k.wgt[q] = wgt;
   }
   return k;
@@ -108,26 +117,30 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&f)[V]
   *reinterpret_cast<R*>(p) = r;
 }
 
-// the four corners of one sample, summed in f32 in the order (0,0),(0,1),(1,0),(1,1)
+// the four corners of one sample (pixels `sx` elements apart), summed in f32
+// in the order (0,0),(0,1),(1,0),(1,1)
 template <typename T, int V>
-__device__ __forceinline__ void sample(const T* __restrict__ img, const Tap& k, float (&v)[V]) {
+__device__ __forceinline__ void sample(const T* __restrict__ img, int sx, const Tap& k,
+                                       float (&v)[V]) {
   float e[V];
-  load_vec<T, V>(img + k.off[0], e);
+  load_vec<T, V>(img + static_cast<long long>(k.off[0]) * sx, e);
 #pragma unroll
   for (int i = 0; i < V; ++i) v[i] = e[i] * k.wgt[0];
 #pragma unroll
   for (int q = 1; q < 4; ++q) {
-    load_vec<T, V>(img + k.off[q], e);
+    load_vec<T, V>(img + static_cast<long long>(k.off[q]) * sx, e);
 #pragma unroll
     for (int i = 0; i < V; ++i) v[i] = v[i] + e[i] * k.wgt[q];
   }
 }
 
 struct WarpArgs {
-  const void* img[2];  // image of each direction, (n, h, w, c)
-  const void* flow;    // (n, h, w, fstride)
-  void* out;           // (planes, h / k, w / k, c), planes = n * directions
-  int n, h, w, c, k, ho, wo, planes, fstride, foff1, zeros;
+  drba::Src img[2][2];  // direction d's operands: channels [0, c0) from img[d][0], [c0, c) from
+                        // img[d][1]; per operand the same c and sx in both directions
+  const void* flow;     // (n, h, w, fstride)
+  void* out;            // see the header: out + p * ob + q * opitch + off[d]
+  long long ob, off[2];
+  int n, h, w, c, c0, k, ho, wo, planes, fstride, foff1, zeros, opitch;
 };
 
 // Sample i of the block starting at output pixel p0: output pixel p0 + p
@@ -151,46 +164,62 @@ __device__ __forceinline__ Tap sample_corners(const WarpArgs& a, long long p0, i
                ((static_cast<long long>(plane - d * a.n) * a.h + ty) * a.w + tx) * a.fstride +
                (d ? a.foff1 : 0);
   return corners(static_cast<float>(tx) + drba::to_f32(f[0]),
-                 static_cast<float>(ty) + drba::to_f32(f[1]), a.h, a.w, a.c, a.zeros != 0);
+                 static_cast<float>(ty) + drba::to_f32(f[1]), a.h, a.w, a.zeros != 0);
+}
+
+// Where `plane` (of planes = n * directions) reads operand s of its
+// direction, and where its output pixel r (in the plane) goes
+template <typename T>
+__device__ __forceinline__ const T* plane_ptr(const WarpArgs& a, int plane, int s) {
+  const int d = plane >= a.n;
+  return drba::src_plane<T>(a.img[d][s], plane - d * a.n);
 }
 
 template <typename T>
-__device__ __forceinline__ const T* plane_ptr(const WarpArgs& a, int plane) {
+__device__ __forceinline__ T* out_ptr(const WarpArgs& a, int plane, long long r) {
   const int d = plane >= a.n;
-  return static_cast<const T*>(d ? a.img[1] : a.img[0]) +
-         static_cast<long long>(plane - d * a.n) * a.h * a.w * a.c;
+  return static_cast<T*>(a.out) + (plane - d * a.n) * a.ob + r * a.opitch + a.off[d];
 }
 
 // The channel-parallel form: kPix output pixels per block; kTaps: the
 // k-even tap form (4 taps a pixel)
 template <typename T, typename F, int V, bool kTaps>
-__global__ void __launch_bounds__(kThreads) warp_kernel(const WarpArgs a) {
+__global__ void __launch_bounds__(kThreads)
+    warp_kernel(const __grid_constant__ WarpArgs a) {
   constexpr int kPix = kTaps ? kThreads / 2 : kThreads;
   __shared__ Tap s_tap[kTaps ? 4 * kPix : kPix];
-  __shared__ const T* s_img[kPix];  // each pixel's image plane
+  __shared__ const T* s_img[2][kPix];  // each pixel's image plane, per operand
+  __shared__ T* s_out[kPix];           // each pixel's first output channel
 
+  const long long hw_out = static_cast<long long>(a.ho) * a.wo;
   const long long p0 = static_cast<long long>(blockIdx.x) * kPix;
   const int npix = static_cast<int>(
-      min(static_cast<long long>(kPix), static_cast<long long>(a.planes) * a.ho * a.wo - p0));
+      min(static_cast<long long>(kPix), static_cast<long long>(a.planes) * hw_out - p0));
 
   // phase 1: corner offsets and weights of every sample of the block
   for (int i = threadIdx.x; i < (kTaps ? 4 * npix : npix); i += kThreads) {
     int plane;
     s_tap[i] = sample_corners<F, kTaps>(a, p0, i, plane);
-    if (!kTaps || (i & 3) == 0) s_img[kTaps ? i >> 2 : i] = plane_ptr<T>(a, plane);
+    if (!kTaps || (i & 3) == 0) {
+      const int p = kTaps ? i >> 2 : i;
+      s_img[0][p] = plane_ptr<T>(a, plane, 0);
+      s_img[1][p] = a.c0 < a.c ? plane_ptr<T>(a, plane, 1) - a.c0 : nullptr;
+      s_out[p] = out_ptr<T>(a, plane, p0 + p - plane * hw_out);
+    }
   }
   __syncthreads();
 
   // phase 2: (pixel, channel group) elements e = p * cv + g, channel groups
-  // fastest; element e is V outputs at out + e * V. U elements a thread at
-  // once (taps: 2), so their corner loads are in flight together; elements
-  // past the block's end repeat its last pixel and are not stored
+  // fastest; element e is V outputs at channel g * V of pixel p. U elements
+  // a thread at once (taps: 2), so their corner loads are in flight
+  // together; elements past the block's end repeat its last pixel and are
+  // not stored
   constexpr int U = kTaps ? 2 : 1;
   const int cv = a.c / V;
   const int total = npix * cv;
   const int dp = kThreads / cv, dc = kThreads % cv;
+  const int sx0 = static_cast<int>(a.img[0][0].sx), sx1 = static_cast<int>(a.img[0][1].sx);
   int p = threadIdx.x / cv, g = threadIdx.x % cv;
-  T* out = static_cast<T*>(a.out) + p0 * a.c;
   for (int e = threadIdx.x; e < total; e += U * kThreads) {
     int pu[U], gu[U];
 #pragma unroll
@@ -207,17 +236,20 @@ __global__ void __launch_bounds__(kThreads) warp_kernel(const WarpArgs a) {
     float v[U][V];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const T* img = s_img[pu[u]] + gu[u] * V;
+      const int ch = gu[u] * V;
+      const int s = ch >= a.c0;  // V divides c0: a group lies in one operand
+      const T* img = s_img[s][pu[u]] + ch;
+      const int sx = s ? sx1 : sx0;
       if (!kTaps) {
-        sample<T, V>(img, s_tap[pu[u]], v[u]);
+        sample<T, V>(img, sx, s_tap[pu[u]], v[u]);
       } else {
-        float s[V];
+        float t4[V];
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          sample<T, V>(img, s_tap[4 * pu[u] + t], s);
+          sample<T, V>(img, sx, s_tap[4 * pu[u] + t], t4);
 #pragma unroll
           for (int i = 0; i < V; ++i) {
-            const float r = drba::round_to<T>(s[i]);
+            const float r = drba::round_to<T>(t4[i]);
             v[u][i] = t == 0 ? r : v[u][i] + r;
           }
         }
@@ -227,23 +259,27 @@ __global__ void __launch_bounds__(kThreads) warp_kernel(const WarpArgs a) {
     }
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (e + u * kThreads < total) store_vec<T, V>(out + (e + u * kThreads) * V, v[u]);
+      if (e + u * kThreads < total) store_vec<T, V>(s_out[pu[u]] + gu[u] * V, v[u]);
   }
 }
 
-// k == 1 at narrow C (the merge's c = 3): one thread per output pixel and
-// all its channels; its c * sizeof(T) bytes are too few to spread over lanes
+// k == 1 at narrow C (the merge's c = 3, one operand): one thread per output
+// pixel and all its channels; its c * sizeof(T) bytes are too few to spread
+// over lanes
 template <typename T, typename F>
-__global__ void __launch_bounds__(kThreads) warp_narrow_kernel(const WarpArgs a) {
-  const long long p0 = static_cast<long long>(blockIdx.x) * kThreads;
-  if (p0 + threadIdx.x >= static_cast<long long>(a.planes) * a.h * a.w) return;
+__global__ void __launch_bounds__(kThreads)
+    warp_narrow_kernel(const __grid_constant__ WarpArgs a) {
+  const long long hw = static_cast<long long>(a.h) * a.w;
+  const long long gp = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (gp >= a.planes * hw) return;
   int plane;
-  const Tap k = sample_corners<F, false>(a, p0, threadIdx.x, plane);
-  const T* img = plane_ptr<T>(a, plane);
-  T* dst = static_cast<T*>(a.out) + (p0 + threadIdx.x) * a.c;
+  const Tap k = sample_corners<F, false>(a, gp, 0, plane);
+  const T* img = plane_ptr<T>(a, plane, 0);
+  T* dst = out_ptr<T>(a, plane, gp - plane * hw);
+  const int sx = static_cast<int>(a.img[0][0].sx);
   for (int ch = 0; ch < a.c; ++ch) {
     float v[1];
-    sample<T, 1>(img + ch, k, v);
+    sample<T, 1>(img + ch, sx, k, v);
     dst[ch] = drba::from_f32<T>(v[0]);
   }
 }
@@ -253,7 +289,7 @@ constexpr int kNarrowC = 4;  // widest C of the per-pixel form
 template <typename T, typename F, int V>
 int launch(const WarpArgs& a, cudaStream_t s) {
   const long long pix = static_cast<long long>(a.planes) * a.ho * a.wo;
-  if (a.k == 1 && a.c <= kNarrowC) {
+  if (a.k == 1 && a.c <= kNarrowC && a.c0 == a.c) {
     warp_narrow_kernel<T, F><<<drba::cdiv(pix, kThreads), kThreads, 0, s>>>(a);
   } else if (a.k == 1) {
     warp_kernel<T, F, V, false><<<drba::cdiv(pix, kThreads), kThreads, 0, s>>>(a);
@@ -263,8 +299,28 @@ int launch(const WarpArgs& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned(long long v, int elems) { return v % elems == 0; }
+
 bool aligned(const void* p, int bytes) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// V channels of T in one access: V divides every operand's channels, pixel
+// and plane strides and the output's, and the pointers are aligned to it
+template <typename T>
+bool fits(const WarpArgs& a, int v) {
+  const int bytes = v * static_cast<int>(sizeof(T));
+  if (a.c % v || a.c0 % v || !aligned(a.ob, v) || !aligned(a.opitch, v) ||
+      !aligned(a.off[0], v) || !aligned(a.off[1], v) || !aligned(a.out, bytes))
+    return false;
+  for (int d = 0; d < 2; ++d)
+    for (int s = 0; s < 2; ++s) {
+      const drba::Src& o = a.img[d][s];
+      if (!aligned(o.sb, v) || !aligned(o.sx, v) || !aligned(o.ptr[0], bytes) ||
+          !aligned(o.ptr[1], bytes))
+        return false;
+    }
+  return true;
 }
 
 // the widest channel group: V channels of T in one 16-, 8-, 4- or 2-byte access
@@ -272,9 +328,7 @@ template <typename T, typename F>
 int dispatch_vec(const WarpArgs& a, cudaStream_t s) {
   constexpr int kMax = 16 / sizeof(T);
   for (int v = kMax; v > 1; v /= 2) {
-    const int bytes = v * static_cast<int>(sizeof(T));
-    if (a.c % v == 0 && aligned(a.img[0], bytes) && aligned(a.img[1], bytes) &&
-        aligned(a.out, bytes)) {
+    if (fits<T>(a, v)) {
       if (v == 8) return launch<T, F, (kMax >= 8 ? 8 : 1)>(a, s);
       if (v == 4) return launch<T, F, 4>(a, s);
       return launch<T, F, 2>(a, s);
@@ -285,19 +339,18 @@ int dispatch_vec(const WarpArgs& a, cudaStream_t s) {
 
 }  // namespace
 
-// img0 (n,h,w,c) f32|bf16, img1 the same or NULL, flow (n,h,w,fstride)
-// f32|bf16 (direction 0 reads its channels [0,2), direction 1 [foff1,
-// foff1+2)), out (n or 2n, h/k, w/k, c) in the images' dtype; k is 1 or
-// even with h % k == 0 and w % k == 0 (checked by the caller). Returns
-// cudaGetLastError() after the launch.
-extern "C" int drba_warp(const void* img0, const void* img1, const void* flow, void* out, int n,
-                         int h, int w, int c, int k, int zeros, int fstride, int foff1,
-                         int img_dtype, int flow_dtype, void* stream) {
-  WarpArgs a{{img0, img1}, flow, out, n, h, w, c, k, h / k, w / k, img1 ? 2 * n : n,
-             fstride, foff1, zeros};
-  if (static_cast<long long>(a.planes) * a.ho * a.wo * c == 0) return 0;
-  // corner offsets are 32-bit element offsets within an image plane
-  if (static_cast<long long>(h) * w * c >= (1ll << 31))
+// `args`, a WarpArgs: the images of one or two directions (drba_tpu_torch/
+// ops/warp_cuda.py builds it; operands in one dtype, `img_dtype`), the
+// (n, h, w, fstride) flow (direction 0 reads its channels [0, 2), direction
+// 1 [foff1, foff1 + 2)) and the output; k is 1 or even with h % k == 0 and
+// w % k == 0, every corner's pixel index times an operand's pixel stride is
+// below 2^31, and the narrow form takes one operand (checked by the caller).
+// Returns cudaGetLastError() after the launch.
+extern "C" int drba_warp(const void* args, int img_dtype, int flow_dtype, void* stream) {
+  const WarpArgs& a = *static_cast<const WarpArgs*>(args);
+  if (static_cast<long long>(a.planes) * a.ho * a.wo * a.c == 0) return 0;
+  const long long sx = a.img[0][0].sx > a.img[0][1].sx ? a.img[0][0].sx : a.img[0][1].sx;
+  if (static_cast<long long>(a.h) * a.w * sx >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DRBA_DISPATCH(img_dtype, T, DRBA_DISPATCH(flow_dtype, F, return dispatch_vec<T, F>(a, s)));

@@ -21,8 +21,9 @@ Params = Mapping[str, torch.Tensor]
 
 
 def conv2d(p: Params, name: str, x: torch.Tensor, stride: int = 1, padding: int = 0,
-           dilation: int = 1) -> torch.Tensor:
-    w = p[f"{name}.weight"].to(x.dtype)
+           dilation: int = 1, weight: str = "weight") -> torch.Tensor:
+    """``{name}.{weight}`` (OIHW) and ``{name}.bias`` of ``p`` on NHWC ``x``."""
+    w = p[f"{name}.{weight}"].to(x.dtype)
     b = p.get(f"{name}.bias")
     y = F.conv2d(x.permute(0, 3, 1, 2), w, None if b is None else b.to(x.dtype),
                  stride=stride, padding=padding, dilation=dilation)
@@ -30,8 +31,11 @@ def conv2d(p: Params, name: str, x: torch.Tensor, stride: int = 1, padding: int 
 
 
 def conv_transpose2d(p: Params, name: str, x: torch.Tensor, stride: int = 2,
-                     padding: int = 1) -> torch.Tensor:
-    return _convT(x, p[f"{name}.weight"], p.get(f"{name}.bias"), stride=stride,
+                     padding: int = 1, weight: str = "weight",
+                     bias: str = "bias") -> torch.Tensor:
+    """``{name}.{weight}`` ((in, out, kh, kw)) and ``{name}.{bias}`` of ``p``
+    on NHWC ``x``."""
+    return _convT(x, p[f"{name}.{weight}"], p.get(f"{name}.{bias}"), stride=stride,
                   padding=padding)
 
 

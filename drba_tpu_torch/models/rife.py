@@ -13,9 +13,12 @@ Uniform model API:
 
 As in the JAX package, the T timesteps of a window are folded into the batch
 axis, so one IFNet call serves the whole window; integer timesteps pass the
-source frames through. Flow inversion (``_calc_flow``): bidirectional coarse
-flow from IFBlock0, inverted by forward-splatting the negated flow, holes
-(coverage < 0.999) filled with a ``max(H, W)`` sentinel.
+source frames through. The frame the T planes share (I1 and its features)
+is read with a batch stride of 0 and the B side (I0 or I2) is picked per
+plane (``ops/planes.py``), so no T-fold copy is made. Flow inversion
+(``_calc_flow``): bidirectional coarse flow from IFBlock0, inverted by
+forward-splatting the negated flow, holes (coverage < 0.999) filled with a
+``max(H, W)`` sentinel.
 """
 
 from __future__ import annotations
@@ -29,28 +32,32 @@ from drba_tpu_torch import graphs
 from drba_tpu_torch.config import DEFAULT, Config, model_device
 from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_rife
-from drba_tpu_torch.models.ifnet import (IFNET_SPEC, ifnet_apply, ifnet_block, ifnet_encode,
+from drba_tpu_torch.models.ifnet import (IFNET_SPEC, block0_input, ifnet_apply,
+                                         ifnet_block_at_scale, ifnet_encode,
                                          pack_resconv_weights)
 from drba_tpu_torch.ops import softsplat
+from drba_tpu_torch.ops.planes import Pick, shared
 
 
 def _calc_flow(params, a, b, scale0: float, f0=None, f1=None, splat_backend: str = "auto",
-               conv_backend: str = "auto"):
-    """Bidirectional full-step flow between a and b (models/rife.py:41-75).
+               conv_backend: str = "auto", warp_backend: str = "auto"):
+    """Bidirectional full-step flow between a and b (models/rife.py:41-75);
+    IFBlock 0's input assembled at its scale (``warp_backend``: by the
+    kernel or the plain version, as in ``ifnet_apply``).
 
     Returns (flow_ab, flow_ba, f_a, f_b).
     """
-    timestep = torch.full_like(a[..., :1], 0.5)
     f0 = ifnet_encode(params, a[..., :3]) if f0 is None else f0
     f1 = ifnet_encode(params, b[..., :3]) if f1 is None else f1
-    x = torch.cat([a[..., :3], b[..., :3], f0, f1, timestep], dim=-1)
-    flow, _, _ = ifnet_block(params, 0, x, None, scale0, conv_backend=conv_backend)
+    h, wd = a.shape[1], a.shape[2]
+    timestep = a.new_full((1, 1, 1, 1), 0.5).expand(a.shape[0], h, wd, 1)
+    x = block0_input(a, b, f0, f1, timestep, scale0, warp_backend)
+    flow, _, _ = ifnet_block_at_scale(params, 0, x, scale0, (h, wd), conv_backend)
 
     # both inversions in one splat call (stacked on the batch axis)
     n = flow.shape[0]
     both = torch.cat([flow[..., 0:2], flow[..., 2:4]], dim=0)
     w, mask = softsplat(both, both, None, "avg", backend=splat_backend, return_coverage=True)
-    h, wd = a.shape[1], a.shape[2]
     inv = torch.where(mask < 0.999, float(max(h, wd)), -w)
     return inv[:n] * 2, inv[n:] * 2, f0, f1
 
@@ -70,14 +77,6 @@ def _reversed(flows):
     return flow_ba, flow_ab, f_b, f_a
 
 
-def _fold(x):
-    return x.reshape((-1,) + tuple(x.shape[2:]))
-
-
-def _tile(x, T):
-    return _fold(x[None].expand((T,) + tuple(x.shape)))
-
-
 def _drba_window(params, I0, I1, I2, ts, ts_host, flow10, flow12, f0, f1, f2, scale_list,
                  linear, splat_backend="auto", warp_backend="auto", drm_splat_scale=1.0,
                  conv_backend="auto"):
@@ -92,25 +91,26 @@ def _drba_window(params, I0, I1, I2, ts, ts_host, flow10, flow12, f0, f1, f2, sc
     drm = calc_drm_rife(tt, flow10, flow12, linear=linear, backend=splat_backend,
                         splat_scale=drm_splat_scale,
                         t_host=np.where(ts_host < 1, 1 - ts_host, ts_host - 1))
-    d01 = drm.drm_t1_t01.reshape(T, n, h, w, 1)
-    d12 = drm.drm_t1_t12.reshape(T, n, h, w, 1)
-    left = (ts < 1)[:, None, None, None, None]
-    imgB = torch.where(left, I0[None], I2[None])
-    fB = torch.where(left, f0[None], f2[None])
-    drm_map = torch.where(left, d01, d12)
+    # the B side per plane: I0 before the window's centre, I2 after it
+    take_b = (~(ts < 1)).repeat_interleave(n)
+    img_b = Pick(shared(I0, T), shared(I2, T), take_b)
+    f_b = Pick(shared(f0, T), shared(f2, T), take_b)
+    drm_map = Pick(*(d.reshape(T * n, h, w, 1) for d in (drm.drm_t1_t01, drm.drm_t1_t12)),
+                   take_b)
 
-    out, _ = ifnet_apply(params, _tile(I1, T), _fold(imgB), _fold(drm_map).to(I1.dtype),
-                         scale_list, f0=_tile(f1, T), f1=_fold(fB),
-                         warp_backend=warp_backend, conv_backend=conv_backend)
+    out, _ = ifnet_apply(params, shared(I1, T), img_b, drm_map, scale_list, f0=shared(f1, T),
+                         f1=f_b, warp_backend=warp_backend, conv_backend=conv_backend)
     return _select_integer_ts(out.reshape(T, n, h, w, 3), ts, I0, I1, I2)
 
 
 def _ts_batch(params, I0, I1, ts, scale_list, warp_backend="auto", conv_backend="auto"):
-    """Plain interpolation at T timesteps, T folded into the batch axis."""
+    """Plain interpolation at T timesteps, T folded into the batch axis; each
+    frame encoded once."""
     T = ts.shape[0]
     n, h, w, _ = I0.shape
-    tmap = ts[:, None, None, None, None].expand(T, n, h, w, 1).reshape(T * n, h, w, 1)
-    out, _ = ifnet_apply(params, _tile(I0, T), _tile(I1, T), tmap.to(I0.dtype), scale_list,
+    tmap = ts.repeat_interleave(n)[:, None, None, None].expand(T * n, h, w, 1)
+    f0, f1 = (shared(ifnet_encode(params, x[..., :3]), T) for x in (I0, I1))
+    out, _ = ifnet_apply(params, shared(I0, T), shared(I1, T), tmap, scale_list, f0=f0, f1=f1,
                          warp_backend=warp_backend, conv_backend=conv_backend)
     return _select_integer_ts(out.reshape(T, n, h, w, 3), ts, I0, I1)
 
@@ -142,7 +142,8 @@ class RIFE:
         """The eager flow pass: what a ``pass`` graph captures."""
         return _calc_flow(self.params, a, b, self.scale_list[0], f0=f0, f1=f1,
                           splat_backend=self.config.splat_backend,
-                          conv_backend=self.config.conv_backend)
+                          conv_backend=self.config.conv_backend,
+                          warp_backend=self.config.warp_backend)
 
     def _calc_flow(self, a, b, f0=None, f1=None):
         """Bidirectional flow (a, b) -> (flow_ab, flow_ba, f_a, f_b); on a CUDA

@@ -11,12 +11,14 @@ import torch
 import torch.nn.functional as F
 
 
-def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
-    """``nn.PixelShuffle`` in NHWC: out[n, h*r+i, w*r+j, c] = in[n, h, w, c*r*r + i*r + j]."""
+def pixel_shuffle(x: torch.Tensor, r: int, channels: int | None = None) -> torch.Tensor:
+    """``nn.PixelShuffle`` in NHWC: out[n, h*r+i, w*r+j, c] = in[n, h, w, c*r*r + i*r + j];
+    with ``channels``, only the first that many output channels."""
     n, h, w, crr = x.shape
     c = crr // (r * r)
-    x = x.reshape(n, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)  # N, H, i, W, j, C
-    return x.reshape(n, h * r, w * r, c)
+    x = x.reshape(n, h, w, c, r, r)[:, :, :, :channels]
+    c = x.shape[3]
+    return x.permute(0, 1, 4, 2, 5, 3).reshape(n, h * r, w * r, c)  # N, H, i, W, j, C
 
 
 def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from drba_tpu_torch._build import use_kernel
+from drba_tpu_torch.ops.planes import dense
 
 
 def _sample_pixels(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
@@ -104,25 +105,37 @@ def warp_downsample(img: torch.Tensor, flow: torch.Tensor, k: int,
     return v.mean(dim=(2, 4)).to(img.dtype)
 
 
-def backwarp2(a: torch.Tensor, b: torch.Tensor, flow4: torch.Tensor, k: int = 1,
-              padding_mode: str = "border", backend: str = "auto") -> torch.Tensor:
+def backwarp2(a, b, flow4: torch.Tensor, k: int = 1, padding_mode: str = "border",
+              backend: str = "auto", out: torch.Tensor | None = None,
+              offsets: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Both directions of IFNet's warp in one call: ``a`` by ``flow4[..., 0:2]``
     and ``b`` by ``flow4[..., 2:4]`` (``backwarp`` for k == 1, else
-    ``warp_downsample`` by k), stacked as (2N, H/k, W/k, C), ``a``'s first.
+    ``warp_downsample`` by k), stacked as (2N, H/k, W/k, C), ``a``'s first;
+    with ``out`` (N, H/k, W/k, C'), written into its channels ``offsets[0]``
+    and ``offsets[1]`` onwards instead (an IFBlock's input), and ``out``
+    returned.
 
-    The kernel reads ``a``, ``b`` and the (N, H, W, 4) flow where they lie,
-    in one launch, without concatenating them (the JAX package stacks the
-    two directions into one launch: drba_tpu/models/ifnet.py:163-176).
+    ``a`` and ``b`` are operands (ops/planes.py) or tuples of operands side by
+    side in channels (a frame's 3 channels and its features). The kernel
+    reads them and the (N, H, W, 4) flow where they lie, in one launch,
+    without concatenating them (the JAX package stacks the two directions
+    into one launch: drba_tpu/models/ifnet.py:163-176).
     """
-    if use_kernel(backend, a):
+    if use_kernel(backend, flow4):
         from drba_tpu_torch.ops.warp_cuda import warp_cuda
 
-        return warp_cuda(a.contiguous(), flow4.contiguous(), k, padding_mode,
-                         img1=b.contiguous())
+        return warp_cuda(a, flow4.contiguous(), k, padding_mode, img1=b, out=out,
+                         offsets=offsets)
+    imgs = [torch.cat([dense(x) for x in img], dim=-1) if isinstance(img, (tuple, list))
+            else dense(img) for img in (a, b)]
     if k == 1:
         halves = [backwarp(img, f, padding_mode, "torch")
-                  for img, f in ((a, flow4[..., 0:2]), (b, flow4[..., 2:4]))]
+                  for img, f in zip(imgs, (flow4[..., 0:2], flow4[..., 2:4]))]
     else:
         halves = [warp_downsample(img, f, k, padding_mode, "torch")
-                  for img, f in ((a, flow4[..., 0:2]), (b, flow4[..., 2:4]))]
-    return torch.cat(halves, dim=0)
+                  for img, f in zip(imgs, (flow4[..., 0:2], flow4[..., 2:4]))]
+    if out is None:
+        return torch.cat(halves, dim=0)
+    for half, off in zip(halves, offsets):
+        out[..., off:off + half.shape[-1]] = half
+    return out

@@ -140,6 +140,18 @@ def test_warp_touched_counts_clamped_corners():
         == h * w + h                                           # two images
 
 
+def test_warp_touched_counts_a_shared_frame_once():
+    h, w = 2, 3
+    x = np.arange(w, dtype=np.float32)[None, None, :].repeat(h, 1)
+    y = np.arange(h, dtype=np.float32)[None, :, None].repeat(w, 2)
+    px, py = np.concatenate([x, x, x + 10]), np.concatenate([y, y, y])
+    assert bounds.warp_touched(px, py, h, w) == 2 * h * w + h
+    # planes 0 and 1 read one frame (a batch stride of 0), plane 2 another
+    assert bounds.warp_touched(px, py, h, w, frames=[0, 0, 1]) == h * w + h
+    # all three read one frame: the clamped column is among its pixels
+    assert bounds.warp_touched(px, py, h, w, frames=[0, 0, 0]) == h * w
+
+
 def test_bound_conv3x3_step():
     """One IFNet ResConv step (3, 68, 120, 96) in bf16: tensor-core bound."""
     px = 3 * 68 * 120

@@ -1231,3 +1231,120 @@ def test_plain_and_pass_replays_match_eager_without_host_sync(dev, name):
         d = (g - w).abs()
         assert float(d.mean()) <= mean_tol, kind
         assert float((d > 1e-2).float().mean()) <= share_tol, kind
+
+
+# ------------------------------------------------------------------------------ IFNet block inputs
+
+# the block shapes the cells run: RIFE at 1088x1920, the union's auxiliary
+# IFNet at half of 1152x1920 and, at -scale 0.5 on 4K, at 1152x1920 with
+# scales 32-2; and RIFE at -scale 0.75 (no integer scale)
+_BLOCK_SHAPES = {"rife": ((1088, 1920), (16.0, 8.0, 4.0, 2.0, 1.0)),
+                 "union_aux": ((576, 960), (16.0, 8.0, 4.0, 2.0, 1.0)),
+                 "union_4k_aux": ((1152, 1920), (32.0, 16.0, 8.0, 4.0, 2.0)),
+                 "rife_scale_0.75": ((1088, 1920),
+                                     tuple(s / 0.75 for s in (16.0, 8.0, 4.0, 2.0, 1.0)))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 2, 3])
+@pytest.mark.parametrize("case", list(_BLOCK_SHAPES))
+def test_block_inputs_kernel_matches_plain(dev, case, T, dtype):
+    """Every block input of ``ifnet_apply`` at the cells' shapes, written by
+    the warp and assembly kernels and by their plain versions from the same
+    operands as a DRBA window hands them over (I1 and f1 shared by the T
+    planes, the B side and the f32 timestep maps picked per plane, mask and
+    feat strided views of one map). The assembled channels are bit for bit
+    at integer scales (the same taps, weights and roundings as
+    F.interpolate); elsewhere within two ulps of each channel's largest
+    value: F.interpolate's kernel may fuse the bilinear multiply-adds in
+    another order (one rounding of the largest term), and the flow's
+    product with 1 / scale rounds once more. The warped channels (resized
+    with the rest where the scale is no integer) within the warp tests'
+    tolerance; one warp and one assembly launch a block."""
+    from drba_tpu_torch.models.ifnet import WARPED, block0_input, stage_input
+    from drba_tpu_torch.ops.planes import Pick, first_channels, shared
+
+    (h, w), scales = _BLOCK_SHAPES[case]
+    gen = torch.Generator(device=dev).manual_seed(40 + T)
+    rnd = lambda *shape: torch.rand(*shape, generator=gen, device=dev).to(dtype)  # noqa: E731
+    I0, I1, I2 = (rnd(1, h, w, 3) for _ in range(3))
+    f0, f1, f2 = (rnd(1, h, w, 16) * 2 - 1 for _ in range(3))
+    take_b = torch.arange(T, device=dev) > 0
+    img0, f_a = shared(I1, T), shared(f1, T)
+    img1, f_b = Pick(shared(I0, T), shared(I2, T), take_b), Pick(shared(f0, T), shared(f2, T),
+                                                                 take_b)
+    t = Pick(*(torch.rand(T, h, w, 1, generator=gen, device=dev) for _ in range(2)), take_b)
+    tmp = rnd(T, h, w, 13) * 2 - 1
+    flow = ((rnd(T, h, w, 4) * 2 - 1) * 12).contiguous()
+    ulp = 2 ** -7 if dtype == torch.bfloat16 else 2 ** -23
+    warp_tol = 1e-5 if dtype == torch.float32 else 8e-3  # as test_warp_kernel_matches_plain
+    for i, sc in enumerate(scales):
+        c0 = (_build.BLOCK_INPUT.launches, _build.WARP.launches)
+        if i == 0:
+            args = (img0, img1, f_a, f_b, t, sc)
+            got, want = block0_input(*args, backend="cuda"), block0_input(*args, backend="torch")
+            first = 0
+        else:
+            args = ((first_channels(img0, 3), f_a), (first_channels(img1, 3), f_b), flow, t,
+                    tmp[..., 4:5], tmp[..., 5:], sc)
+            got = stage_input(*args, backend="cuda")
+            want = stage_input(*args, backend="torch")
+            # the warps in channels [0, 38); at a scale that is no integer
+            # they are resized with the rest, which rounds once more
+            first = 2 * WARPED
+            torch.testing.assert_close(got[..., :first].float(), want[..., :first].float(),
+                                       atol=warp_tol + (0 if float(sc).is_integer() else ulp),
+                                       rtol=0, msg=lambda m: f"block {i}: {m}")
+        assert (_build.BLOCK_INPUT.launches - c0[0], _build.WARP.launches - c0[1]) == (1, int(i > 0))
+        g, wt = got[..., first:].float(), want[..., first:].float()
+        if float(sc).is_integer():
+            assert torch.equal(g, wt), f"block {i} (scale {sc}): {int((g != wt).sum())} differ"
+        else:
+            tol = 2 * ulp * wt.abs().amax(dim=(0, 1, 2))  # per channel
+            bad = int(((g - wt).abs() > tol).sum())
+            assert not bad, f"block {i} (scale {sc}): {bad} values beyond {tol.tolist()}"
+
+
+def test_rife_window_graph_writes_block_inputs_in_place(dev, monkeypatch):
+    """A 1088x1920 RIFE window's capture makes no ``torch.cat`` in IFNet
+    (ifnet.py and the ops it calls) and counts every block input as
+    assembled (``ifnet.concat`` 0); a profiled replay of the captured graph
+    launches no ``nhwcAddPaddingKernel`` (the first convs read 40 and 56
+    channels, the lastconvs write 56), and no ``CatArrayBatchedCopy``
+    beyond the cats the capture made elsewhere (the DRM maps, the flow
+    inversion)."""
+    import os
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from drba_tpu_torch.models.rife import RIFE
+    from drba_tpu_torch.utils import profiling
+
+    m = RIFE(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    base = torch.rand(1, 1088, 1920 + 12, 3, generator=gen, device=dev)
+    I0, I1, I2 = (base[:, :, 6 * i:6 * i + 1920].contiguous().to(torch.bfloat16)
+                  for i in range(3))
+    real_cat, cats = torch.cat, []
+
+    def cat(*args, **kwargs):
+        out = real_cat(*args, **kwargs)
+        f = sys._getframe(1)
+        cats.append((os.path.basename(f.f_code.co_filename), f.f_lineno, tuple(out.shape)))
+        return out
+
+    monkeypatch.setattr(torch, "cat", cat)
+    with profiling.tracer() as st:
+        reuse = m._calc_flow(I1, I0)
+        _, reuse = m.inference_ts_drba(I0, I1, I2, [0.6, 1.0, 1.4], reuse, linear=True)
+    ifnet_files = {"ifnet.py", "block_input.py", "planes.py", "warp.py", "warp_cuda.py"}
+    assert not [c for c in cats if c[0] in ifnet_files], cats
+    assert st.counters["ifnet.concat"] == 0 and st.counters["ifnet.assembled"] >= 6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        m.inference_ts_drba(I0, I1, I2, [0.6, 1.0, 1.4], reuse, linear=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() for _ in range(e.count)]
+    assert not [n for n in names if "nhwcAddPadding" in n]
+    assert sum("CatArrayBatchedCopy" in n for n in names) <= len(cats)

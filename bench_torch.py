@@ -282,6 +282,7 @@ def _pan_windows(model, name, frames, mag):
     ts, reuse10, reuse21)]. RIFE takes the flows at full resolution; GMFSS
     and GMFSS_UNION at their reuse's half resolution, as ``mag / 2``."""
     from drba_tpu_torch.models.ifnet import ifnet_encode
+    from drba_tpu_torch.models.rife import Flows
 
     dev, dt = model.device, model.config.compute_dtype
     if name == "rife":
@@ -289,8 +290,8 @@ def _pan_windows(model, name, frames, mag):
         flow10 = _pan_flow(h, w, mag, mag * 0.3, 1.5, 0, dev, dt)
         flow12 = _pan_flow(h, w, -mag, -mag * 0.3, 1.5, 1, dev, dt)
         f = [ifnet_encode(model.params, x) for x in frames[:3]]
-        return [(*frames[k:k + 3], ts, (flow10, flow10, f[1], f[0]),
-                 (flow12, flow12, f[2 - k], f[1])) for k, ts in ((0, TS_A), (1, TS_B))]
+        return [(*frames[k:k + 3], ts, Flows(flow10, flow10, f[1], f[0]),
+                 Flows(flow12, flow12, f[2 - k], f[1])) for k, ts in ((0, TS_A), (1, TS_B))]
     r10 = model.reuse(frames[1], frames[0])
     h, w = r10.flow01.shape[1:3]
     fdt = r10.flow01.dtype
@@ -319,7 +320,7 @@ def bench_motion(name, mag, s: Settings, n_windows=16, eager=False):
     calls, capture_error = [], None
     for I0, I1, I2, ts, r10, r21 in _pan_windows(model, name, frames, mag):
         host = graphs.host_timesteps(ts)
-        tdev = graphs.timesteps(model, host)
+        tdev = model._ts(host)
 
         def window(a=(I0, I1, I2, tdev, host, r10, r21)):
             return model._window(*a, True)

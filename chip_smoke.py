@@ -507,8 +507,8 @@ def host_cache(dev, gpu_line):
                 models[ext] = load_model(name, root, 1.0, DEFAULT.replace(strict_load=True), dev)
                 torch.cuda.synchronize()
                 build[ext] = time.perf_counter() - t0
-            a = list(tensors_of((models["npz"].params, getattr(models["npz"], "rife_params", None))))
-            b = list(tensors_of((models["pkl"].params, getattr(models["pkl"], "rife_params", None))))
+            a, b = (list(tensors_of(tuple(getattr(models[e], t) for t in models[e].PARAM_TREES)))
+                    for e in ("npz", "pkl"))
             if [k for k, _ in a] != [k for k, _ in b] or not all(
                     x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(a, b)):
                 fail(f"host: {name} built from .npz and from .pkl hold other params")
@@ -517,8 +517,7 @@ def host_cache(dev, gpu_line):
             I0, I1, I2 = (to_inp(f, size, m.config.compute_dtype, dev) for f in frames)
 
             # each model's chain-start pass once (a second call of its key would capture)
-            reuse = {e: mm._calc_flow(I1, I0) if name == "rife" else mm.reuse(I1, I0)
-                     for e, mm in models.items()}
+            reuse = {e: mm.reuse(I1, I0) for e, mm in models.items()}
             w_pkl, w_npz, w_pkl2 = (
                 torch.stack(eager_window(models[e], I0, I1, I2, ts3, reuse[e])[0])
                 for e in ("pkl", "npz", "pkl"))
@@ -1294,8 +1293,8 @@ MODELS = {"rife": "RIFE IFNet 4.26-heavy",
 
 def n_params(model) -> int:
     """Parameters of ``model``, without the kernels' packed copies (.wp)."""
-    nets = [model.params] if isinstance(model.params, dict) else list(model.params)
-    nets += [model.rife_params] if hasattr(model, "rife_params") else []
+    trees = [getattr(model, t) for t in model.PARAM_TREES]
+    nets = [p for tree in trees for p in ([tree] if isinstance(tree, dict) else tree)]
     return sum(v.numel() for p in nets for k, v in p.items() if not k.endswith(".wp"))
 
 
@@ -1381,7 +1380,7 @@ def eager_window(m, I0, I1, I2, ts, reuse):
     from drba_tpu_torch import graphs
 
     host = graphs.host_timesteps(ts)
-    out, nxt = m._fused_window(I0, I1, I2, graphs.timesteps(m, host), host, reuse, True)
+    out, nxt = m._fused_window(I0, I1, I2, m._ts(host), host, reuse, True)
     return list(out.unbind(0)), nxt
 
 
@@ -1429,7 +1428,7 @@ def phase_window(name, dev, gpu_line, dnames):
         plain = make_model(name, dev, **extra, **plain_cfg)
         size = padded_size(m)
         I0, I1, I2 = (to_inp(f, size, m.config.compute_dtype, dev) for f in frames)
-        reuse = m._calc_flow(I1, I0) if name == "rife" else m.reuse(I1, I0)
+        reuse = m.reuse(I1, I0)
         # the plain path's eager pieces (no graph of its own: in f32 the
         # plain window's graph would not fit beside the kernel path's), then
         # the kernel path's first call, which runs the window eagerly and
@@ -1716,7 +1715,7 @@ def gated(label, got, want):
     gate; returns (max abs, mean abs, share off by more than 1e-2)."""
     import torch
 
-    from drba_tpu_torch.parallel.batch import _leaves
+    from drba_tpu_torch.graphs import _leaves
 
     def flat(x):  # a list of frames, a (T, ...) tensor or a reuse
         return torch.cat([t.float().reshape(-1) for t in _leaves(tuple(x) if isinstance(
@@ -1744,24 +1743,23 @@ def calls_vs_eager(name, m, frames, reuse, gpu_line):
     launch counters; the profiler's count printed beside), ms back to back
     (CUDA events, in turns), and per single call wall, host and device-busy
     ms, idle share; the host ms of every replay below the eager call's."""
-    from drba_tpu_torch import _build, graphs
+    from drba_tpu_torch import _build
 
     I0, I1, _ = frames
-    r01 = reuse.swapped() if hasattr(reuse, "swapped") else None  # the I0 -> I1 pass
+    r01 = reuse.swapped() if m.PLAIN_PASS else None  # the I0 -> I1 pass
 
     def plain(ts):
-        return lambda: m._plain(I0, I1, graphs.timesteps(m, ts), r01)
+        return lambda: m._plain(I0, I1, m._ts(ts), r01)
 
     calls = {"inference_ts T=1": (lambda: m.inference_ts(I0, I1, [0.4], reuse=r01),
                                   plain([0.4])),
              "inference_ts T=2": (lambda: m.inference_ts(I0, I1, [0.2, 0.6], reuse=r01),
                                   plain([0.2, 0.6])),
-             "chain-start pass": ((lambda: m._calc_flow(I1, I0)) if name == "rife" else
-                                  (lambda: m.reuse(I1, I0)), lambda: m._pass(I1, I0))}
-    if name != "rife":
+             "chain-start pass": (lambda: m.reuse(I1, I0), lambda: m._pass(I1, I0))}
+    if m.PLAIN_PASS:
         calls["inference_ts T=2, no reuse"] = (
             lambda: m.inference_ts(I0, I1, [0.2, 0.6]),
-            lambda: m._plain(I0, I1, graphs.timesteps(m, [0.2, 0.6]), m._pass(I0, I1)))
+            lambda: m._plain(I0, I1, m._ts([0.2, 0.6]), m._pass(I0, I1)))
     for label, (graph, eager) in calls.items():
         for _ in range(2):  # a new kind's key: its first call eager, its second captures
             graph()
@@ -2225,7 +2223,7 @@ def phase_uhd(dev, gpu_line):
         plain = make_model(name, dev, scale=0.5, **plain_cfg)
         size = padded_size(m, UHD)
         I0, I1, I2 = (to_inp(f, size, m.config.compute_dtype, dev) for f in frames)
-        reuse = m._calc_flow(I1, I0) if name == "rife" else m.reuse(I1, I0)
+        reuse = m.reuse(I1, I0)
         for ts in ts_pair:
             out_p = torch.stack(eager_window(plain, I0, I1, I2, ts, reuse)[0])
             torch.cuda.empty_cache()

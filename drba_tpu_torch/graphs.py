@@ -1,17 +1,18 @@
 """One dispatch per model call on the card: drba_tpu's four jitted programs
-as CUDA graphs. Their counterparts, each one XLA program per call:
+as CUDA graphs. This module is the capture cache; which call runs through
+which kind, and its eager body, are the models' (``models/base.py``).
+The kinds and their counterparts, each one XLA program per call:
 
 * ``window``: the fused window ``_drba_window_fused`` (drba_tpu/models/
   rife.py:157-179, gmfss.py:69-84, gmfss_union.py:87-104), a window's next
-  reuse pass and all its T timesteps (``inference_ts_drba``, the model's
-  ``_fused_window``);
+  reuse pass and all its T timesteps (``inference_ts_drba``);
 * ``plain``: the plain batch ``_ts_batch`` behind ``inference_ts``
-  (rife.py:182-205, gmfss.py:87-102, gmfss_union.py:108-111), the model's
-  ``_plain``; on GMFSS and GMFSS_UNION on a given reuse;
+  (rife.py:182-205, gmfss.py:87-102, gmfss_union.py:108-111); on GMFSS and
+  GMFSS_UNION on a given reuse;
 * ``pass``: the flow/reuse pass (``_flow_jit``, rife.py:207-208;
-  ``_reuse_jit``, gmfss.py:118-122, gmfss_union.py:152-156), the model's
-  ``_pass`` behind ``_calc_flow`` / ``reuse`` and ``next_reuse``: the chain
-  starts, the planner's per-replica passes, resume's recomputed pass;
+  ``_reuse_jit``, gmfss.py:118-122, gmfss_union.py:152-156) behind
+  ``reuse`` and ``next_reuse``: the chain starts, the planner's per-replica
+  passes, resume's recomputed pass;
 * ``unfused``: the window's timesteps apart from its pass, ``_drba_window``
   (rife.py:103-108, gmfss.py:35-37, gmfss_union.py:37-42), behind
   ``drba_window``: the planner's replicas run it.
@@ -61,7 +62,7 @@ seconds (the warm-up's eager run included) to ``graphs.capture_s`` and its
 reserved bytes to ``graphs.pool_bytes``.
 
 The CPU never captures: there (``on`` is False) the models run their eager
-bodies, and :func:`timesteps` makes a plain tensor.
+bodies.
 """
 
 from __future__ import annotations
@@ -77,7 +78,6 @@ import numpy as np
 import torch
 
 from drba_tpu_torch import _build
-from drba_tpu_torch.parallel.batch import _leaves, _map
 from drba_tpu_torch.utils import profiling
 
 # the call of a key that captures: the window's first (its chain replays
@@ -87,6 +87,25 @@ CAPTURE_AT = {"window": 1, "plain": 2, "pass": 2, "unfused": 2}
 # cache release on one thread break a capture in flight on another (the
 # planner's replicas capture on their dispatch threads)
 _CAPTURING = threading.Lock()
+
+
+def _map(fn, tree):
+    """``fn`` over every tensor of a reuse (tensors in tuples, NamedTuples,
+    dicts; None stays None)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        vals = [_map(fn, x) for x in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def _leaves(tree) -> list:
+    out = []
+    _map(out.append, tree)
+    return out
 
 
 def host_timesteps(ts) -> np.ndarray:
@@ -294,7 +313,7 @@ class WindowGraphs:
         ``fused(I0, I1, I2, ts, ts_host, reuse, linear)`` is the model's
         eager window -> ((T, N, H, W, 3) frames, next reuse)."""
         host = host_timesteps(ts)
-        return self.call("window", _window_key(host, I1, linear),
+        return self.call("window", window_key(host, I1, linear),
                          lambda a, t: fused(*a[:3], t, host, a[3], linear),
                          (I0, I1, I2, reuse), host)
 
@@ -332,7 +351,7 @@ class WindowGraphs:
         return _hand_out(warm_out, warm_nxt, statics, leaves, copy=False)
 
 
-def _window_key(host: np.ndarray, I1: torch.Tensor, linear: bool) -> tuple:
+def window_key(host: np.ndarray, I1: torch.Tensor, linear: bool) -> tuple:
     """(T, frame shape, dtype, linear, device), and the timestep values
     where ``linear`` is False."""
     key = (len(host), tuple(I1.shape), I1.dtype, bool(linear), I1.device)
@@ -352,54 +371,3 @@ def on(model) -> bool:
     """Whether ``model``'s calls run through its graphs: on a CUDA device."""
     return model.device.type == "cuda"
 
-
-def timesteps(model, ts) -> torch.Tensor:
-    """``ts`` (host values) as a (T,) float32 tensor on ``model.device``; on
-    a CUDA device through the model's pinned ring, without a host sync."""
-    host = host_timesteps(ts)
-    if model.device.type != "cuda":
-        return torch.from_numpy(host.copy())
-    return state(model).timesteps(host, model.device)
-
-
-def run_window(model, I0, I1, I2, ts, reuse, linear: bool):
-    """``model``'s steady-state window (a reuse given, ``ts`` not empty) on
-    its CUDA device, through its captured graph -> (frames, next reuse)."""
-    return state(model).run(model._fused_window, I0, I1, I2, ts, reuse, linear)
-
-
-def plain(model, I0, I1, ts, reuse=None) -> list:
-    """``model``'s plain interpolation of (I0, I1) at ``ts`` (not empty) on
-    ``reuse`` (GMFSS, GMFSS_UNION; None for RIFE) -> frames; through the
-    ``plain`` graphs where ``on(model)``, else its eager ``_plain``."""
-    if not on(model):
-        return list(model._plain(I0, I1, model._ts(ts), reuse).unbind(0))
-    host = host_timesteps(ts)
-    key = (len(host), tuple(I0.shape), I0.dtype, I0.device)
-    return state(model).call("plain", key, lambda a, t: (model._plain(a[0], a[1], t, a[2]), None),
-                             (I0, I1, reuse), host)[0]
-
-
-def flow_pass(model, a, b, *feats):
-    """``model``'s flow/reuse pass of (a, b), with the optional features
-    ``feats`` (None where not given); through the ``pass`` graphs where
-    ``on(model)``, else its eager ``_pass``."""
-    if not on(model):
-        return model._pass(a, b, *feats)
-    key = (tuple(a.shape), a.dtype, a.device, tuple(f is not None for f in feats))
-    return state(model).call("pass", key, lambda x, _t: (None, model._pass(*x)),
-                             (a, b, *feats))[1]
-
-
-def unfused(model, I0, I1, I2, ts, reuse10, reuse21, linear: bool) -> list:
-    """``model``'s window timesteps apart from its pass (``reuse10`` the
-    chain's, ``reuse21`` the window's ``next_reuse``) -> frames; through
-    the ``unfused`` graphs where ``on(model)``, else its eager ``_window``."""
-    host = host_timesteps(ts)
-    if not on(model):
-        return list(model._window(I0, I1, I2, model._ts(host), host, reuse10, reuse21,
-                                  linear).unbind(0))
-    return state(model).call(
-        "unfused", _window_key(host, I1, linear),
-        lambda a, t: (model._window(*a[:3], t, host, a[3], a[4], linear), None),
-        (I0, I1, I2, reuse10, reuse21), host)[0]

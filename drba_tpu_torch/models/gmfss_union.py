@@ -5,23 +5,21 @@ GMFSS with the union MetricNet (metrics bounded by ``Tanh * 10``) plus an
 auxiliary RIFE: IFNet 4.26-heavy runs at half resolution with the DRM map as
 its per-pixel timestep, and its frame is the middle 3 channels of the union
 GridNet's 9-channel head (model_gmfss_union/GMFSS.py:152). ``pad_size`` is 128
-so that the half-resolution IFNet still sees frames divisible by 64. The same
-duck-typed API as ``models/gmfss.GMFSS``; the T timesteps of a window are
-folded into the batch axis. On a CUDA device each call runs a captured
-graph (``graphs.py``), as in ``models/gmfss.GMFSS``.
+so that the half-resolution IFNet still sees frames divisible by 64. The
+uniform model API and its routing are ``models/base.Model``'s, as for
+``models/gmfss.GMFSS``; the T timesteps of a window are folded into the
+batch axis.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
-
 import numpy as np
 import torch
 
-from drba_tpu_torch import graphs
 from drba_tpu_torch.config import DEFAULT, Config, model_device
 from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_gmfss, calc_drm_rife_auxiliary
+from drba_tpu_torch.models.base import Model
 from drba_tpu_torch.models.gmflow_net import GMFLOW_SPEC, pack_transformer_weights
 from drba_tpu_torch.models.gmfss import (_select_integer_ts, _select_reuse, _tile, _tile_reuse,
                                          pack_chain_sites)
@@ -87,7 +85,7 @@ def _ts_batch(p: GmfssParams, rife_params, I0, I1, ts, reuse: Reuse, scale_list,
     return _select_integer_ts(out, ts, I0, I1)[:, None]
 
 
-class GMFSS_UNION:
+class GMFSS_UNION(Model):
     """High-quality-path model (reference: models/gmfss_union.py:10-100) on
     ``device`` (CUDA unless the caller asks for another; raises when there is
     none).
@@ -98,6 +96,9 @@ class GMFSS_UNION:
     weights and the IFNet's ResConv weights are packed for their kernels
     once, here, and so are the GMFSS nets' chain sites' conv weights.
     """
+
+    PLAIN_PASS = True
+    PARAM_TREES = ("params", "rife_params")
 
     def __init__(self, weights: str | None = None, scale: float = 1.0,
                  config: Config = DEFAULT, device: str | torch.device = "cuda"):
@@ -118,79 +119,20 @@ class GMFSS_UNION:
         self.pad_size = 128
         self.config = config
 
-    def _ts(self, ts) -> torch.Tensor:
-        return graphs.timesteps(self, ts)
-
     def _pass(self, img0, img1, feat0=None) -> Reuse:
-        """The eager reuse pass: what a ``pass`` graph captures."""
         return gmfss_reuse(self.params, img0, img1, self.scale, feat0=feat0, union=True,
                            warp_backend=self.config.warp_backend,
                            attn_backend=self.config.attn_backend,
                            conv_backend=self.config.conv_backend)
 
-    def reuse(self, img0, img1, feat0=None) -> Reuse:
-        """The (img0, img1) reuse; on a CUDA device through the model's
-        ``pass`` graphs (``graphs.flow_pass``)."""
-        return graphs.flow_pass(self, img0, img1, feat0)
-
     def _plain(self, I0, I1, ts, reuse: Reuse):
-        """The eager plain batch at the (T,) timesteps tensor ``ts`` on the
-        I0 -> I1 ``reuse`` -> (T, 1, H, W, 3): what a ``plain`` graph
-        captures."""
         return _ts_batch(self.params, self.rife_params, I0, I1, ts, reuse, self.scale_list,
                          backend=self.config.splat_backend,
                          warp_backend=self.config.warp_backend,
                          conv_backend=self.config.conv_backend)
-
-    def inference_ts(self, I0, I1, ts: Sequence[float], reuse=None, return_reuse=False):
-        """Plain interpolation at timesteps in [0, 1]. ``reuse`` (an I0 -> I1
-        ``Reuse``) skips the GMFlow pass; ``return_reuse`` hands the pass back.
-        On a CUDA device the pass and the timesteps each replay a graph."""
-        if len(ts) == 0:
-            return ([], None) if return_reuse else []
-        if reuse is None:
-            reuse = self.reuse(I0, I1)
-        frames = graphs.plain(self, I0, I1, ts, reuse)
-        return (frames, reuse) if return_reuse else frames
-
-    def next_reuse(self, I1, I2, feat1=None) -> Reuse:
-        """The reuse ``inference_ts_drba`` hands the window after (., I1, I2):
-        ``reuse(I1, I2)`` swapped. ``feat1``: I1's feature pyramid, where the
-        chain has it."""
-        return graphs.flow_pass(self, I1, I2, feat1).swapped()
 
     def _window(self, I0, I1, I2, ts, ts_host, reuse10, reuse21, linear):
         return _drba_window(self.params, self.rife_params, I0, I1, I2, ts, ts_host, reuse10,
                             reuse21.swapped(), self.scale_list, linear,
                             self.config.splat_backend, self.config.warp_backend,
                             self.config.drm_splat_scale, self.config.conv_backend)
-
-    def _fused_window(self, I0, I1, I2, ts, ts_host, reuse10, linear):
-        """``next_reuse`` and the timesteps of a window on the chain's reuse,
-        eagerly: what one captured graph runs -> ((T, 1, H, W, 3), next
-        reuse)."""
-        nxt = self._pass(I1, I2, reuse10.feat0).swapped()
-        return self._window(I0, I1, I2, ts, ts_host, reuse10, nxt, linear), nxt
-
-    def drba_window(self, I0, I1, I2, ts, reuse10: Reuse | None, reuse21: Reuse,
-                    linear: bool = False):
-        """The window's timesteps, unfused from its GMFlow pass: ``reuse10``
-        is the chain's I1 -> I0 reuse (None starts the chain with that pass),
-        ``reuse21`` this window's ``next_reuse(I1, I2)``. On a CUDA device
-        through the model's ``unfused`` graphs (``graphs.unfused``)."""
-        reuse10 = self.reuse(I1, I0) if reuse10 is None else reuse10
-        return graphs.unfused(self, I0, I1, I2, ts, reuse10, reuse21, linear)
-
-    def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
-        """DRM-adjusted interpolation over a 3-frame window; ``ts`` in
-        [0.5, 1.5). Returns (frames, reuse) with the reuse of (I2, I1) for the
-        next window. On a CUDA device the GMFlow pass and the timesteps
-        replay one captured graph (``graphs.run_window``), and a chain start
-        (``reuse`` None) replays a ``pass`` graph before it."""
-        reuse10 = self.reuse(I1, I0) if reuse is None else reuse
-        if len(ts) and graphs.on(self):
-            return graphs.run_window(self, I0, I1, I2, ts, reuse10, linear)
-        nxt = self.next_reuse(I1, I2, feat1=reuse10.feat0)
-        if len(ts) == 0:
-            return [], nxt
-        return self.drba_window(I0, I1, I2, ts, reuse10, nxt, linear), nxt

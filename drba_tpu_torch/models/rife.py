@@ -1,37 +1,28 @@
 """RIFE model wrapper, the speed path (counterpart of drba_tpu/models/rife.py).
 
-Uniform model API:
-  * ``.scale`` / ``.pad_size`` / ``.config`` / ``.device``
-  * ``inference_ts(I0, I1, ts) -> [frames]``
-  * ``inference_ts_drba(I0, I1, I2, ts, reuse, linear) -> ([frames], reuse)``,
-    the composition of ``next_reuse(I1, I2)`` (the window's flow pass,
-    reversed: the next window's reuse) and ``drba_window`` (its timesteps),
-    which the multi-device planner (``parallel/batch.py``) runs apart; on a
-    CUDA device each call runs a captured graph (``graphs.py``): with a
-    reuse the two as one (``_fused_window``), and ``inference_ts``, the
-    flow pass and ``drba_window`` each as its own
-
-As in the JAX package, the T timesteps of a window are folded into the batch
+The uniform model API and its routing through the captured graphs are
+``models/base.Model``'s; here are RIFE's weights and eager bodies. As in
+the JAX package, the T timesteps of a window are folded into the batch
 axis, so one IFNet call serves the whole window; integer timesteps pass the
 source frames through. The frame the T planes share (I1 and its features)
 is read with a batch stride of 0 and the B side (I0 or I2) is picked per
-plane (``ops/planes.py``), so no T-fold copy is made. Flow inversion
-(``_calc_flow``): bidirectional coarse flow from IFBlock0, inverted by
-forward-splatting the negated flow, holes (coverage < 0.999) filled with a
-``max(H, W)`` sentinel.
+plane (``ops/planes.py``), so no T-fold copy is made. The pass
+(``_calc_flow``, a ``Flows``): bidirectional coarse flow from IFBlock0,
+inverted by forward-splatting the negated flow, holes (coverage < 0.999)
+filled with a ``max(H, W)`` sentinel.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from drba_tpu_torch import graphs
 from drba_tpu_torch.config import DEFAULT, Config, model_device
 from drba_tpu_torch.convert import load_network
 from drba_tpu_torch.drm import calc_drm_rife
+from drba_tpu_torch.models.base import Model
 from drba_tpu_torch.models.ifnet import (IFNET_SPEC, block0_input, ifnet_apply,
                                          ifnet_block_at_scale, ifnet_encode,
                                          pack_resconv_weights)
@@ -70,11 +61,18 @@ def _select_integer_ts(out, ts, *frames):
     return out
 
 
-def _reversed(flows):
-    """An (a, b) pass as the (b, a) reuse: (flow_ab, flow_ba, f_a, f_b) ->
-    (flow_ba, flow_ab, f_b, f_a)."""
-    flow_ab, flow_ba, f_a, f_b = flows
-    return flow_ba, flow_ab, f_b, f_a
+class Flows(NamedTuple):
+    """RIFE's (a, b) pass: the inverted full-step flows a -> b and b -> a,
+    and both frames' encoder features."""
+
+    flow01: torch.Tensor
+    flow10: torch.Tensor
+    feat0: torch.Tensor
+    feat1: torch.Tensor
+
+    def swapped(self) -> "Flows":
+        """The (b, a) pass, for chaining windows."""
+        return Flows(self.flow10, self.flow01, self.feat1, self.feat0)
 
 
 def _drba_window(params, I0, I1, I2, ts, ts_host, flow10, flow12, f0, f1, f2, scale_list,
@@ -115,13 +113,15 @@ def _ts_batch(params, I0, I1, ts, scale_list, warp_backend="auto", conv_backend=
     return _select_integer_ts(out.reshape(T, n, h, w, 3), ts, I0, I1)
 
 
-class RIFE:
+class RIFE(Model):
     """Speed-path model (reference: models/rife.py:15-109) on ``device``
     (CUDA unless the caller asks for another; raises when there is none).
 
     Parameters are cast to ``config.compute_dtype`` once, on the device; the
     ResConv chains' weights are packed for the conv kernel once, here.
     """
+
+    PLAIN_PASS = False  # the plain call encodes both frames and runs no pass
 
     def __init__(self, weights: str | None = None, scale: float = 1.0,
                  config: Config = DEFAULT, device: str | torch.device = "cuda"):
@@ -135,45 +135,16 @@ class RIFE:
         self.pad_size = 64
         self.config = config
 
-    def _ts(self, ts) -> torch.Tensor:
-        return graphs.timesteps(self, ts)
-
-    def _pass(self, a, b, f0=None, f1=None):
-        """The eager flow pass: what a ``pass`` graph captures."""
-        return _calc_flow(self.params, a, b, self.scale_list[0], f0=f0, f1=f1,
-                          splat_backend=self.config.splat_backend,
-                          conv_backend=self.config.conv_backend,
-                          warp_backend=self.config.warp_backend)
-
-    def _calc_flow(self, a, b, f0=None, f1=None):
-        """Bidirectional flow (a, b) -> (flow_ab, flow_ba, f_a, f_b); on a CUDA
-        device through the model's ``pass`` graphs (``graphs.flow_pass``)."""
-        return graphs.flow_pass(self, a, b, f0, f1)
+    def _pass(self, a, b, f0=None, f1=None) -> Flows:
+        return Flows(*_calc_flow(self.params, a, b, self.scale_list[0], f0=f0, f1=f1,
+                                 splat_backend=self.config.splat_backend,
+                                 conv_backend=self.config.conv_backend,
+                                 warp_backend=self.config.warp_backend))
 
     def _plain(self, I0, I1, ts, reuse=None):
-        """The eager plain batch at the (T,) timesteps tensor ``ts`` -> (T, N,
-        H, W, 3): what a ``plain`` graph captures; ``reuse`` is ignored."""
         return _ts_batch(self.params, I0, I1, ts, self.scale_list,
                          warp_backend=self.config.warp_backend,
                          conv_backend=self.config.conv_backend)
-
-    def inference_ts(self, I0, I1, ts: Sequence[float], reuse=None, return_reuse=False):
-        """Interpolate at plain timesteps in [0, 1] (models/rife.py:27-39); on
-        a CUDA device through the model's ``plain`` graphs (``graphs.plain``).
-
-        ``reuse`` is accepted for API uniformity and ignored; the returned
-        reuse is always None.
-        """
-        if len(ts) == 0:
-            return ([], None) if return_reuse else []
-        frames = graphs.plain(self, I0, I1, ts)
-        return (frames, None) if return_reuse else frames
-
-    def next_reuse(self, I1, I2, f1=None):
-        """The reuse ``inference_ts_drba`` hands the window after (., I1, I2):
-        the I1 -> I2 pass reversed, (flow21, flow12, f2, f1). ``f1``: I1's
-        encoder features, where the chain has them."""
-        return _reversed(graphs.flow_pass(self, I1, I2, f1, None))
 
     def _window(self, I0, I1, I2, ts, ts_host, reuse10, reuse21, linear):
         flow10, _flow01, f1, f0 = reuse10
@@ -182,37 +153,3 @@ class RIFE:
                             self.scale_list, linear, self.config.splat_backend,
                             self.config.warp_backend, self.config.drm_splat_scale,
                             self.config.conv_backend)
-
-    def _fused_window(self, I0, I1, I2, ts, ts_host, reuse, linear):
-        """``next_reuse`` and the timesteps of a window on the chain's reuse,
-        eagerly: what one captured graph runs -> ((T, N, H, W, 3), next
-        reuse)."""
-        nxt = _reversed(self._pass(I1, I2, f0=reuse[2]))
-        return self._window(I0, I1, I2, ts, ts_host, reuse, nxt, linear), nxt
-
-    def drba_window(self, I0, I1, I2, ts, reuse10, reuse21, linear: bool = False):
-        """The window's timesteps, unfused from its flow pass: ``reuse10`` is
-        the chain's (flow10, flow01, f1, f0) (None starts the chain with the
-        I1 -> I0 pass), ``reuse21`` this window's ``next_reuse(I1, I2)``. On a
-        CUDA device through the model's ``unfused`` graphs
-        (``graphs.unfused``)."""
-        reuse10 = self._calc_flow(I1, I0) if reuse10 is None else reuse10
-        return graphs.unfused(self, I0, I1, I2, ts, reuse10, reuse21, linear)
-
-    def inference_ts_drba(self, I0, I1, I2, ts, reuse=None, linear: bool = False):
-        """DRM-adjusted interpolation over a 3-frame window.
-
-        ``ts`` values lie in [0.5, 1.5) (window time, centred on I1). Returns
-        (frames, reuse); reuse carries the I1<->I2 flows and encoder features
-        to the next window. On a CUDA device the flow pass and the timesteps
-        replay one captured graph (``graphs.run_window``), and a chain start
-        (``reuse`` None) replays a ``pass`` graph before it.
-        """
-        if reuse is None:
-            reuse = self._calc_flow(I1, I0)
-        if len(ts) and graphs.on(self):
-            return graphs.run_window(self, I0, I1, I2, ts, reuse, linear)
-        nxt = self.next_reuse(I1, I2, f1=reuse[2])
-        if len(ts) == 0:
-            return [], nxt
-        return self.drba_window(I0, I1, I2, ts, reuse, nxt, linear), nxt

@@ -36,25 +36,7 @@ from typing import Optional
 import torch
 
 from drba_tpu_torch.config import model_device
-
-
-def _map(fn, tree):
-    """``fn`` over every tensor of a reuse (tensors in tuples, NamedTuples,
-    dicts; None stays None)."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, tuple):
-        vals = [_map(fn, x) for x in tree]
-        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return tree
-
-
-def _leaves(tree) -> list:
-    out = []
-    _map(out.append, tree)
-    return out
+from drba_tpu_torch.graphs import _leaves, _map
 
 
 def _indexed(device) -> torch.device:
@@ -71,9 +53,8 @@ def replicate(model, device):
     device = _indexed(device)
     rep = copy.copy(model)
     rep.device = device
-    rep.params = _map(lambda t: t.to(device), model.params)
-    if hasattr(model, "rife_params"):
-        rep.rife_params = _map(lambda t: t.to(device), model.rife_params)
+    for name in model.PARAM_TREES:
+        setattr(rep, name, _map(lambda t: t.to(device), getattr(model, name)))
     return rep
 
 

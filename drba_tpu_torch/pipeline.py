@@ -325,10 +325,11 @@ class PipelineStats:
     counters: Optional[dict] = None
 
 
-def _chained(reuse):
-    """The carried reuse of (I1, I0) as the (I0, I1) pass, where the model
-    chains one (GMFSS); RIFE's carry serves drba windows only."""
-    return reuse.swapped() if hasattr(reuse, "swapped") else None
+def _chained(model, reuse):
+    """The carried reuse of (I1, I0) as the (I0, I1) pass, where the model's
+    plain call takes one (``PLAIN_PASS``); elsewhere the carry serves drba
+    windows only."""
+    return reuse.swapped() if reuse is not None and model.PLAIN_PASS else None
 
 
 def _window(model, I0, I1, I2, ts, left_scene: bool, right_scene: bool, reuse):
@@ -344,11 +345,11 @@ def _window(model, I0, I1, I2, ts, left_scene: bool, right_scene: bool, reuse):
         # (infer.py:126-132); its I1 -> I2 pass, swapped, is the next
         # window's chain
         out, fwd = model.inference_ts(I1, I2, ts[ts >= 1] - 1, return_reuse=True)
-        return [I1] * int((ts < 1).sum()) + list(out), _chained(fwd)
+        return [I1] * int((ts < 1).sum()) + list(out), _chained(model, fwd)
     if right_scene:
         # cut between I1 and I2: plain interpolation on the left
         # (infer.py:134-140) on the chain's I0 -> I1 pass
-        return (list(model.inference_ts(I0, I1, ts[ts <= 1], reuse=_chained(reuse)))
+        return (list(model.inference_ts(I0, I1, ts[ts <= 1], reuse=_chained(model, reuse)))
                 + [I1] * int((ts > 1).sum())), None
     return model.inference_ts_drba(I0, I1, I2, ts, reuse, linear=True)
 
@@ -365,7 +366,7 @@ def _head(model, I0, I1, ts, cut: bool):
 def _tail(model, I0, I1, ts, reuse):
     """The tail (infer.py:158-169): plain interpolation on the left, on the
     chain's I0 -> I1 pass; source frame on the right."""
-    return (list(model.inference_ts(I0, I1, ts[ts <= 1], reuse=_chained(reuse)))
+    return (list(model.inference_ts(I0, I1, ts[ts <= 1], reuse=_chained(model, reuse)))
             + [I1] * int((ts > 1).sum()))
 
 
@@ -477,8 +478,8 @@ def _run(model, video_io, progress, times, enable_scdet, scdet_threshold, skip_o
             a, b, plain = skipped_pass
             skipped_pass = None
             reuse = model.next_reuse(a, b)
-            if plain and not hasattr(reuse, "swapped"):
-                reuse = None  # a plain window hands a pass on only in GMFSS
+            if plain and not model.PLAIN_PASS:
+                reuse = None  # a plain window hands on a pass only where it runs one
         return reuse
 
     ts = calc_ts(idx, t_mapper, times)

@@ -50,7 +50,7 @@ def main() -> None:
         m = cs.make_model(name, dev)
         size = get_valid_net_inp_size(frames[0], m.scale, div=m.pad_size)["dst_size"]
         I0, I1, I2 = (to_inp(f, size, m.config.compute_dtype, dev) for f in frames)
-        reuse = m._calc_flow(I1, I0) if name == "rife" else m.reuse(I1, I0)
+        reuse = m.reuse(I1, I0)
         times = {2: [], 3: []}
         for _ in range(2):
             for ts in (ts2, ts3):

@@ -1099,22 +1099,18 @@ def _graph_windows(name, dtype, dev, n=5):
     return [(fr[k], fr[k + 1], fr[k + 2], ts[k % 2]) for k in range(n)]
 
 
-def _start(m, I0, I1):
-    return m._calc_flow(I1, I0) if hasattr(m, "_calc_flow") else m.reuse(I1, I0)
-
-
 def _eager_window(m, I0, I1, I2, ts, reuse):
     """The eager pieces the graph fuses: the window's pass, then its
     timesteps (the model's ``_fused_window``, called directly: no graph)."""
     from drba_tpu_torch import graphs
 
     host = graphs.host_timesteps(ts)
-    out, nxt = m._fused_window(I0, I1, I2, graphs.timesteps(m, host), host, reuse, True)
+    out, nxt = m._fused_window(I0, I1, I2, m._ts(host), host, reuse, True)
     return list(out.unbind(0)), nxt
 
 
 def _tensors(tree):
-    from drba_tpu_torch.parallel.batch import _leaves
+    from drba_tpu_torch.graphs import _leaves
 
     return _leaves(tree)
 
@@ -1133,7 +1129,7 @@ def test_graphed_window_matches_its_eager_pieces(dev, name, dtype):
 
     m = _graph_model(name, dtype, dev)
     windows = _graph_windows(name, dtype, dev)
-    reuse = _start(m, *windows[0][:2])
+    reuse = m.reuse(windows[0][1], windows[0][0])
     for w in windows[:2]:  # the captures
         _, reuse = m.inference_ts_drba(*w, reuse, linear=True)
     assert len(graphs.state(m).entries) == 2
@@ -1170,7 +1166,7 @@ def test_steady_state_windows_make_no_host_sync(dev, name):
     no blocking copy, no read-back, no synchronise inside a window."""
     m = _graph_model(name, torch.bfloat16, dev)
     windows = _graph_windows(name, torch.bfloat16, dev)
-    reuse = _start(m, *windows[0][:2])
+    reuse = m.reuse(windows[0][1], windows[0][0])
     for w in windows[:2]:  # captures, and the eager pieces' first run
         _eager_window(m, *w, reuse)
         _, reuse = m.inference_ts_drba(*w, reuse, linear=True)
@@ -1195,15 +1191,15 @@ def test_plain_and_pass_replays_match_eager_without_host_sync(dev, name):
     read-back, no synchronise), within the window test's bf16 gates of the
     eager bodies, with the launches of the eager calls."""
     from drba_tpu_torch import graphs
-    from drba_tpu_torch.parallel.batch import _leaves
+    from drba_tpu_torch.graphs import _leaves
 
     m = _graph_model(name, torch.bfloat16, dev)
     I0, I1 = _graph_windows(name, torch.bfloat16, dev, n=1)[0][:2]
     ts = [0.2, 0.6]
-    r01 = None if name == "rife" else m._pass(I0, I1)
-    calls = {"pass": ((lambda: _start(m, I0, I1)), lambda: m._pass(I1, I0)),
+    r01 = m._pass(I0, I1) if m.PLAIN_PASS else None
+    calls = {"pass": ((lambda: m.reuse(I1, I0)), lambda: m._pass(I1, I0)),
              "plain": ((lambda: m.inference_ts(I0, I1, ts, reuse=r01)),
-                       lambda: m._plain(I0, I1, graphs.timesteps(m, ts), r01))}
+                       lambda: m._plain(I0, I1, m._ts(ts), r01))}
     for graph, _ in calls.values():
         for _ in range(2):  # eager, then the capture
             graph()
@@ -1336,7 +1332,7 @@ def test_rife_window_graph_writes_block_inputs_in_place(dev, monkeypatch):
 
     monkeypatch.setattr(torch, "cat", cat)
     with profiling.tracer() as st:
-        reuse = m._calc_flow(I1, I0)
+        reuse = m.reuse(I1, I0)
         _, reuse = m.inference_ts_drba(I0, I1, I2, [0.6, 1.0, 1.4], reuse, linear=True)
     ifnet_files = {"ifnet.py", "block_input.py", "planes.py", "warp.py", "warp_cuda.py"}
     assert not [c for c in cats if c[0] in ifnet_files], cats

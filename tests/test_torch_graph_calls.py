@@ -31,7 +31,9 @@ from drba_tpu.models.rife import RIFE as JaxRIFE
 from drba_tpu_torch import graphs
 from drba_tpu_torch.config import F32
 from drba_tpu_torch.models.rife import RIFE
-from drba_tpu_torch.parallel.batch import WindowPlanner, _leaves
+from drba_tpu_torch.graphs import _leaves
+from drba_tpu_torch.models.base import Model
+from drba_tpu_torch.parallel.batch import WindowPlanner
 from drba_tpu_torch.pipeline import run_pipeline
 from tests.test_torch_graphs import StandInGraph, _close_but_flips, _frames
 
@@ -133,7 +135,7 @@ def test_pass_with_and_without_features(rife, jax_rife, graphed):
     jf0 = jax_rife._calc_flow(_j(fr[1]), _j(fr[0]))
     jf1 = jax_rife._calc_flow(_j(fr[1]), _j(fr[2]), f0=_j(f1))
     for _ in range(3):
-        got0 = m._calc_flow(fr[1], fr[0])
+        got0 = m.reuse(fr[1], fr[0])
         got1 = m.next_reuse(fr[1], fr[2], f1)
         _equal(got0, want0)
         assert got1[3] is f1
@@ -257,7 +259,7 @@ def test_captures_on_several_threads_run_one_at_a_time(graphed):
                 with Overlap.lock:
                     Overlap.active -= 1
 
-    class Tiny:
+    class Tiny(Model):
         device = torch.device("cpu")
 
         def _pass(self, a, b):
@@ -272,7 +274,7 @@ def test_captures_on_several_threads_run_one_at_a_time(graphed):
     def work(m):
         start.wait(timeout=10)
         for _ in range(3):  # eager, capture, replay
-            assert torch.equal(graphs.flow_pass(m, x, x)[0], x + x)
+            assert torch.equal(m.reuse(x, x)[0], x + x)
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)

@@ -27,8 +27,8 @@ from drba_tpu.models.rife import RIFE as JaxRIFE
 from drba_tpu_torch import _build, graphs
 from drba_tpu_torch.config import F32
 from drba_tpu_torch.drm import _retime_batched, calc_drm_rife
+from drba_tpu_torch.graphs import _leaves
 from drba_tpu_torch.models.rife import RIFE
-from drba_tpu_torch.parallel.batch import _leaves
 
 H, W = 64, 128
 TS2, TS3 = [0.7, 1.3], [0.6, 1.0, 1.4]
@@ -94,8 +94,7 @@ def rife():
 
 def _eager(model, I0, I1, I2, ts, reuse, linear=True):
     """The eager pieces the graph fuses: next_reuse, then the timesteps."""
-    feats = reuse.feat0 if hasattr(reuse, "feat0") else reuse[2]
-    nxt = model.next_reuse(I1, I2, feats)
+    nxt = model.next_reuse(I1, I2, reuse.feat0)
     return model.drba_window(I0, I1, I2, ts, reuse, nxt, linear), nxt
 
 
@@ -110,7 +109,7 @@ def test_windows_alternating_T_reuse_two_entries_and_match_drba_tpu(rife):
     jm = JaxRIFE(weights=None, scale=1.0, config=JAX_F32)
     fr = _frames(7)
     tf = [_t(f) for f in fr]
-    reuse = m._calc_flow(tf[1], tf[0])
+    reuse = m.reuse(tf[1], tf[0])
     want_reuse, jr = reuse, None
     for k in range(5):
         ts = TS3 if k % 2 == 0 else TS2
@@ -137,7 +136,7 @@ def test_cache_key(rife):
     m = copy.copy(rife)
     st = _runner(m)
     tf = [_t(f) for f in _frames(3)]
-    reuse = m._calc_flow(tf[1], tf[0])
+    reuse = m.reuse(tf[1], tf[0])
     for ts, linear in ((TS3, True), ([0.7, 1.1, 1.3], True), (TS2, True), (TS3, False),
                        ([0.7, 1.1, 1.3], False), (TS3, False)):
         st.run(m._fused_window, *tf, ts, reuse, linear)
@@ -162,13 +161,12 @@ def test_window_outputs_survive_the_next_replay(rife, name):
         m, h, w = GMFSS(weights=None, config=F32, device="cpu"), 64, 128
     st = _runner(m)
     tf = [_t(f) for f in _frames(5, h, w, seed=4)]
-    reuse = m._calc_flow(tf[1], tf[0]) if name == "rife" else m.reuse(tf[1], tf[0])
+    reuse = m.reuse(tf[1], tf[0])
     outs = []
     for k in range(3):  # capture, then two replays of the one T = 2 entry
         frames, nxt = st.run(m._fused_window, *tf[k:k + 3], TS2, reuse, True)
-        passed = nxt[3:4] if name == "rife" else nxt.feat1
-        given = reuse[2:3] if name == "rife" else reuse.feat0
-        assert all(a is b for a, b in zip(passed, given))
+        passed, given = _leaves(nxt.feat1), _leaves(reuse.feat0)
+        assert len(passed) == len(given) and all(a is b for a, b in zip(passed, given))
         outs.append([(t, t.clone()) for t in frames + _leaves(nxt)])
         reuse = nxt
     (entry,) = st.entries.values()
@@ -293,8 +291,8 @@ def test_ts_and_retime_never_read_the_card_back(rife, monkeypatch):
         assert torch.equal(g.as_subclass(torch.Tensor), w)
 
     tf = [_t(f) for f in _frames(3, seed=3)]
-    reuse = rife._calc_flow(tf[1], tf[0])
-    nxt = rife.next_reuse(tf[1], tf[2], reuse[2])
+    reuse = rife.reuse(tf[1], tf[0])
+    nxt = rife.next_reuse(tf[1], tf[2], reuse.feat0)
     want = rife.drba_window(*tf, ts, reuse, nxt, linear=False)
     monkeypatch.setattr(rife, "_ts", lambda t: torch.from_numpy(
         graphs.host_timesteps(t)).as_subclass(_OnCard))
@@ -309,7 +307,7 @@ def test_the_cpu_never_captures_and_replicas_keep_their_own(rife):
     cache of its own."""
     m = copy.copy(rife)
     tf = [_t(f) for f in _frames(3)]
-    frames, nxt = m.inference_ts_drba(*tf, TS3, m._calc_flow(tf[1], tf[0]), linear=True)
+    frames, nxt = m.inference_ts_drba(*tf, TS3, m.reuse(tf[1], tf[0]), linear=True)
     assert len(frames) == 3 and "_window_graphs" not in m.__dict__
     st = graphs.state(m)
     rep = copy.copy(m)

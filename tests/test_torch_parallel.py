@@ -93,7 +93,7 @@ def test_planner_equals_serial_chain(name, n):
 
 
 def _leaves(tree):
-    from drba_tpu_torch.parallel.batch import _leaves as leaves
+    from drba_tpu_torch.graphs import _leaves as leaves
 
     return leaves(tree)
 

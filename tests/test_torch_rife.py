@@ -140,7 +140,7 @@ def test_calc_flow_matches_jax(models):
     jm, m = models
     fr = _frames(2)
     want = jm._calc_flow(jnp.asarray(fr[1]), jnp.asarray(fr[0]))
-    got = m._calc_flow(torch.from_numpy(fr[1]), torch.from_numpy(fr[0]))
+    got = m.reuse(torch.from_numpy(fr[1]), torch.from_numpy(fr[0]))
     for i, (g, w) in enumerate(zip(got, want)):
         # sentinel pixels hold 128: a flip there is a large, counted difference
         assert_close_but_flips(g, w, 1e-4, what=f"calc_flow output {i}")

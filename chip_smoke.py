@@ -156,13 +156,14 @@ N_UHD = 6
 N_TIMING = 18
 
 # the kernels each path must launch ("scdet": RIFE with scene detection)
-PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain", "block_input"),
+PATH_KERNELS = {"rife": ("splat", "warp", "conv_chain", "block_input", "block_output"),
                 "gmfss": ("splat", "warp", "conv_chain", "window_attention",
                           "flash_attention", "transformer_layer"),
                 "gmfss_union": ("splat", "warp", "conv_chain", "window_attention",
-                                "flash_attention", "transformer_layer", "block_input"),
-                "scdet": ("splat", "warp", "conv_chain", "block_input"),
-                "uhd": ("splat", "warp", "conv_chain", "block_input")}
+                                "flash_attention", "transformer_layer", "block_input",
+                                "block_output"),
+                "scdet": ("splat", "warp", "conv_chain", "block_input", "block_output"),
+                "uhd": ("splat", "warp", "conv_chain", "block_input", "block_output")}
 # window gates, kernel path against plain path on one T=3 window, per
 # dtype: (mean abs, share of values off by more than 1e-2). f32: the same
 # arithmetic up to atomic/FMA/summation order; bf16: roundings at other
@@ -180,7 +181,7 @@ GATES = {"f32": (1e-4, 1e-3), "bf16": (1e-2, 5e-2)}
 # the __global__ functions of drba_tpu_torch/csrc (by name prefix)
 DEVICE_KERNELS = ("splat_", "warp_", "conv3x3_", "attn_wgmma_kernel",
                   "attn_tf32_kernel", "flash_combine_kernel", "layer_proj_", "layer_tail_",
-                  "block_input_kernel")
+                  "block_input_kernel", "block_output_kernel")
 # the kernels whose f32 (--fp32) design has rows of its own in the kernels
 # line: 3xTF32 on the tensor cores (csrc/tf32.cuh), timed at the same
 # summed shapes; their launches come from the f32 windows
@@ -197,7 +198,11 @@ REPLACES = {"splat": "drba_tpu/ops/splat_stencil.py:282",
             "transformer_layer": "drba_tpu/ops/attn_layer.py:176",
             "block_input": "none: XLA fused IFNet's concatenations into the first conv on the "
                            "TPU (drba_tpu/models/ifnet.py:ifnet_apply); eager PyTorch wrote "
-                           "each out"}
+                           "each out",
+            "block_output": "none: XLA fused each IFBlock's shuffle, resize, flow scale and "
+                            "flow sum into their consumers on the TPU "
+                            "(drba_tpu/models/ifnet.py:311-313, :427); eager PyTorch wrote "
+                            "each out"}
 # the one PyTorch call timed beside each kernel (used nowhere in the port), or
 # why there is none
 LIBRARY = {"splat": "none: no single call scatters with bilinear weights and normalises "
@@ -217,7 +222,10 @@ LIBRARY = {"splat": "none: no single call scatters with bilinear weights and nor
            "block_input": "the reference's expression for the same channels: torch.cat of "
                           "the pieces (the warps' outputs among them; at full resolution where "
                           "it concatenates there), F.interpolate, and cuDNN's padding copy as "
-                          "one more torch.cat"}
+                          "one more torch.cat",
+           "block_output": "the plain version (the expression the kernel replaced): "
+                           "pixel_shuffle (a copy), F.interpolate (upsample_bilinear2d), the "
+                           "flow's multiply by the scale and its add"}
 
 
 def fail(msg: str) -> None:
@@ -898,6 +906,7 @@ def phase_kernels(dev):
     gmfss_conv_checks(dev, gen, record)
     attention_checks(dev, gen, record)
     block_input_checks(dev, gen, record)
+    block_output_checks(dev, gen, record)
     return summary
 
 
@@ -1013,6 +1022,69 @@ def block_input_checks(dev, gen, record):
                      for x, c, frames in parts])
                 record("block_input", err, kern, plain, 10, dt, work,
                        (reference, "torch.cat + F.interpolate + pad"), add)
+
+
+def block_output_checks(dev, gen, record):
+    """The IFBlock output (``ops/block_output.block_output``: the lastconv's
+    shuffle, the resize to full resolution, the flow's scale and sum) against
+    its plain version, timed beside it (the plain version is the expression
+    the kernel replaced: LIBRARY). Summed: the RIFE window's five block
+    outputs at 1088x1920, T = 3 (block 0 with no running flow). Checked and
+    timed, not summed: the flow pass's block 0 (N = 1), the union's
+    auxiliary IFNet at 576x960 and, at -scale 0.5 on 4K, at 1152x1920 with
+    scales 32-2, and RIFE at -scale 0.75 (non-integer scales). The kernel
+    must equal the plain version bit for bit at integer scales; elsewhere
+    within two ulps of each output's largest value, and the flow within two
+    ulps of its largest resized product besides (F.interpolate's kernel may
+    fuse the bilinear multiply-adds in another order)."""
+    import torch
+
+    from drba_tpu_torch import bounds
+    from drba_tpu_torch.models.ifnet import LASTCONV_PADDED
+    from drba_tpu_torch.ops.block_output import block_output
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    T = 3
+    half = lambda d: -(-d // 2)  # noqa: E731
+    for label, (h, w, scales, summed) in {
+            "rife": (H, W, (16.0, 8.0, 4.0, 2.0, 1.0), True),
+            "union aux": (HU // 2, W // 2, (16.0, 8.0, 4.0, 2.0, 1.0), False),
+            "union 4K aux": (HU, W, (32.0, 16.0, 8.0, 4.0, 2.0), False),
+            "rife -scale 0.75": (H, W, tuple(s / 0.75 for s in (16.0, 8.0, 4.0, 2.0, 1.0)),
+                                 False)}.items():
+        for dt in (f32, bf16):
+            ulp = 2 ** -7 if dt == bf16 else 2 ** -23
+            flow = (torch.rand(T, h, w, 4, generator=gen, device=dev) * 24 - 12).to(dt)
+            cases = [(f"block {i}", T, sc, i > 0, summed) for i, sc in enumerate(scales)]
+            cases.append(("flow pass block 0", 1, scales[0], False, False))
+            for name, n, sc, chained, add in cases:
+                # two stride-2 convs, then the stride-2 transposed conv
+                hl, wl = (2 * half(half(int(d / sc))) for d in (h, w))
+                lc = (torch.rand(n, LASTCONV_PADDED, hl, wl, generator=gen, device=dev) * 2 - 1
+                      ).to(dt).contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+                fl = flow[:n] if chained else None
+                kern = lambda: block_output(lc, sc, fl, (h, w), backend="cuda")
+                plain = lambda: block_output(lc, sc, fl, (h, w), backend="torch")
+                got, want = kern(), plain()
+                what = f"block_output {label} {name} (scale {sc:g}, N {n}) {dt}"
+                err = max(float((g.float() - wt.float()).abs().max()) for g, wt in zip(got, want))
+                if sc == int(sc):
+                    d = sum(int((g.float() != wt.float()).sum()) for g, wt in zip(got, want))
+                    print(f"{what}: {d} values differ (max_abs {err:.3e}); must be bit for bit")
+                    if d:
+                        fail(f"{what}: kernel differs from plain")
+                else:
+                    fd = block_output(lc, sc, None, (h, w), backend="torch")[0]
+                    for part, g, wt in zip(("flow", "mask", "feat"), got, want):
+                        tol = 2 * ulp * float(wt.float().abs().max())
+                        if part == "flow":
+                            tol += 2 * ulp * float(fd.float().abs().max())
+                        check_close(f"{what} {part}", g, wt, tol, 0.0,
+                                    "two ulps of the largest value: multiply-adds fused in "
+                                    "another order")
+                work = bounds.block_output_work(n, hl, wl, LASTCONV_PADDED, h, w,
+                                                lc.element_size(), chained)
+                record("block_output", err, kern, plain, 10, dt, work, summed=add)
 
 
 def other_designs(n, h, w, cin, cout, dt):

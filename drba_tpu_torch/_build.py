@@ -217,6 +217,8 @@ SPLAT = Kernel("splat", "splat.cu", {
 WARP = Kernel("warp", "warp.cu", {"drba_warp": [_P, _I, _I, _P]})
 # AssembleArgs (ops/block_input.py); dtype; stream
 BLOCK_INPUT = Kernel("block_input", "block_input.cu", {"drba_block_input": [_P, _I, _P]})
+# OutputArgs (ops/block_output.py); dtype; stream
+BLOCK_OUTPUT = Kernel("block_output", "block_output.cu", {"drba_block_output": [_P, _I, _P]})
 # x, w (OIHW), packed w, bias, beta, alpha, res, out; n, h, w, cin, cout, dtype, path; stream
 CONV = Kernel("conv_chain", "conv_chain.cu", {"drba_conv3x3": [_P] * 8 + [_I] * 7 + [_P]})
 # q, k, v, out, labels; b, h, w, kk; 4 token strides; 2 label strides; half; dtype; stream
@@ -234,7 +236,7 @@ LAYER = Kernel("transformer_layer", "attn_layer.cu", {
     # x, av, packed wmerge, g1, b1, packed ffn, g2, b2, out; hidden, tokens, dtype; stream
     "drba_layer_tail": [_P] * 9 + [_I, _L, _I, _P],
 })
-KERNELS = (SPLAT, WARP, CONV, WINDOW, FLASH, LAYER, BLOCK_INPUT)
+KERNELS = (SPLAT, WARP, CONV, WINDOW, FLASH, LAYER, BLOCK_INPUT, BLOCK_OUTPUT)
 
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 

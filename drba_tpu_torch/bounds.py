@@ -192,3 +192,15 @@ def block_input_work(n: int, ho: int, wo: int, cout: int, first: int, itemsize: 
     per value are not counted."""
     read = sum(frames * min(h * w, 4 * ho * wo) * c * isz for frames, h, w, c, isz in parts)
     return Work(read + n * ho * wo * (cout - first) * itemsize)
+
+
+def block_output_work(n: int, hl: int, wl: int, c: int, ho: int, wo: int, itemsize: int,
+                      flow: bool) -> Work:
+    """One IFBlock output (csrc/block_output.cu) in ``itemsize`` bytes: the
+    lastconv's (n, hl, wl, c) output read once (or, where the output has
+    fewer pixels, the 2 x 2 taps of each), the 13 channels of the (n, ho,
+    wo) output written once (flow 4, mask 1, features 8) and, with
+    ``flow``, the running (n, ho, wo, 4) flow read once. The handful of f32
+    operations per value are not counted."""
+    read = n * min(hl * wl, 4 * ho * wo) * c * itemsize
+    return Work(read + n * ho * wo * (13 + (4 if flow else 0)) * itemsize)

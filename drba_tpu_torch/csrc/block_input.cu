@@ -47,6 +47,7 @@
 // time, and from shared memory per element the descriptors cost more than
 // the data (3.6 ms for stage 4's 56 channels).
 
+#include "bilinear.cuh"
 #include "common.cuh"
 
 namespace {
@@ -86,16 +87,6 @@ struct Taps {
   float ly0, ly1, lx0, lx1;
 };
 
-// upsample_bilinear2d's source index and weights along one axis
-__device__ __forceinline__ void axis(float scale, int o, int in, int& i0, int& i1, float& l0,
-                                     float& l1) {
-  const float r = fmaxf(scale * (static_cast<float>(o) + 0.5f) - 0.5f, 0.f);
-  i0 = static_cast<int>(r);
-  i1 = i0 + (i0 < in - 1 ? 1 : 0);
-  l1 = r - static_cast<float>(i0);
-  l0 = 1.f - l1;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     block_input_kernel(const __grid_constant__ AssembleArgs a) {
@@ -134,8 +125,8 @@ __global__ void __launch_bounds__(kThreads)
     const int r = p0 + i - t.plane * hw;
     t.oy = r / a.wo;
     t.ox = r - t.oy * a.wo;
-    axis(a.sh, t.oy, a.h, t.y0, t.y1, t.ly0, t.ly1);
-    axis(a.sw, t.ox, a.w, t.x0, t.x1, t.lx0, t.lx1);
+    drba::axis(a.sh, t.oy, a.h, t.y0, t.y1, t.ly0, t.ly1);
+    drba::axis(a.sw, t.ox, a.w, t.x0, t.x1, t.lx0, t.lx1);
     t.alt = 0;
     for (int si = 0; si < kMaxSrc; ++si)
       if (a.src[si].pick != nullptr && a.src[si].pick[t.plane] != 0) t.alt |= 1 << si;
@@ -177,9 +168,10 @@ __global__ void __launch_bounds__(kThreads)
       // each tap rounded to the output dtype, then F.interpolate's sum
       float r = drba::round_to<T>(v[u][0]);
       if (c.dtype >= 0 && c.resize)
-        r = drba::round_to<T>(
-            t.ly0 * (t.lx0 * r + t.lx1 * drba::round_to<T>(v[u][1])) +
-            t.ly1 * (t.lx0 * drba::round_to<T>(v[u][2]) + t.lx1 * drba::round_to<T>(v[u][3])));
+        r = drba::round_to<T>(drba::bilerp(t.ly0, t.ly1, t.lx0, t.lx1, r,
+                                           drba::round_to<T>(v[u][1]),
+                                           drba::round_to<T>(v[u][2]),
+                                           drba::round_to<T>(v[u][3])));
       out[static_cast<long long>(pu) * a.cout] = drba::from_f32<T>(r * c.mult);
     }
   }

@@ -30,6 +30,13 @@ per plane (``ops/planes.py``). On a CUDA device under the kernel backends
 the warp and assembly kernels write every block's input; on the CPU the
 plain versions do, into the same layout (counters ``ifnet.assembled`` and
 ``ifnet.concat``, ``utils/profiling.py``).
+
+Each block's output is written once, at full resolution, by
+``ops/block_output.block_output``: the lastconv's pixel shuffle read as an
+index map, the bilinear resize, the flow times the block's scale and its sum
+with the running flow in one pass, each step rounded as the eager ops round
+(the kernel on a CUDA device, the plain expression on the CPU; counters
+``ifnet.out_fused`` and ``ifnet.out_plain``).
 """
 
 from __future__ import annotations
@@ -39,10 +46,10 @@ import torch
 from drba_tpu_torch._build import use_kernel
 from drba_tpu_torch.models.layers import Params, conv2d, conv_transpose2d, leaky_relu
 from drba_tpu_torch.ops.block_input import assemble
+from drba_tpu_torch.ops.block_output import block_output
 from drba_tpu_torch.ops.conv_chain import ChainStep, conv_chain, pack_step_weights
 from drba_tpu_torch.ops.planes import Operand, dense, first_channels
 from drba_tpu_torch.ops.resize import resize_bilinear
-from drba_tpu_torch.ops.shuffle import pixel_shuffle
 from drba_tpu_torch.ops.warp import backwarp2
 from drba_tpu_torch.utils import profiling
 
@@ -156,17 +163,22 @@ def _resconv_steps(p: Params, b: str, dtype: torch.dtype) -> tuple[ChainStep, ..
 
 
 def ifnet_block_at_scale(p: Params, idx: int, x: torch.Tensor, scale: float,
-                         out_size: tuple[int, int], conv_backend: str = "auto"):
+                         out_size: tuple[int, int], conv_backend: str = "auto",
+                         flow: torch.Tensor | None = None, warp_backend: str = "auto"):
     """IFBlock ``idx`` on its assembled input ``x`` (``BLOCK_IN_PADDED[idx]``
     channels, read by ``conv0.0.0.wp``) at its working resolution; returns
-    (flow, mask, feat) at ``out_size``."""
+    (flow, mask, feat) at ``out_size``: the block's flow times ``scale``,
+    plus the running ``flow`` where given, written by the block-output
+    kernel or its plain version (``warp_backend`` picks, as it does for the
+    block inputs)."""
     b = f"block{idx}"
     feat = leaky_relu(conv2d(p, f"{b}.conv0.0.0", x, stride=2, padding=1, weight="wp"))
     feat = leaky_relu(conv2d(p, f"{b}.conv0.1.0", feat, stride=2, padding=1))
     feat = conv_chain(feat, _resconv_steps(p, b, feat.dtype), backend=conv_backend)
     tmp = conv_transpose2d(p, f"{b}.lastconv.0", feat, weight="wp", bias="bias.wp")
-    tmp = resize_bilinear(pixel_shuffle(tmp, 2, channels=13), out_size)
-    return tmp[..., :4] * scale, tmp[..., 4:5], tmp[..., 5:]
+    kernel = use_kernel(warp_backend, tmp)
+    _count(kernel, "ifnet.out_fused", "ifnet.out_plain")
+    return block_output(tmp, scale, flow, out_size, "cuda" if kernel else "torch")
 
 
 def ifnet_block(p: Params, idx: int, x: torch.Tensor, flow: torch.Tensor | None,
@@ -191,12 +203,13 @@ def _integer_scale(sc: float, h: int, w: int) -> int | None:
     return None
 
 
-def _count(kernel: bool) -> None:
-    """One block input, written by the kernels or by the plain versions."""
+def _count(kernel: bool, fused: str, plain: str) -> None:
+    """One block input or output, written by the kernels (counter ``fused``)
+    or by the plain versions (``plain``)."""
     tr = profiling.active()
     if tr is not None:
-        tr.add("ifnet.assembled", int(kernel))
-        tr.add("ifnet.concat", int(not kernel))
+        tr.add(fused, int(kernel))
+        tr.add(plain, int(not kernel))
 
 
 def block0_input(img0: Operand, img1: Operand, f0: Operand, f1: Operand, timestep: Operand,
@@ -207,7 +220,7 @@ def block0_input(img0: Operand, img1: Operand, f0: Operand, f1: Operand, timeste
     n, h, w = f0.shape[:3]
     x = torch.empty((n, int(h / scale), int(w / scale), BLOCK_IN_PADDED[0]), dtype=f0.dtype,
                     device=f0.device)
-    _count(use_kernel(backend, x))
+    _count(use_kernel(backend, x), "ifnet.assembled", "ifnet.concat")
     return assemble(x, [(first_channels(img0, 3), 1.0), (first_channels(img1, 3), 1.0),
                         (f0, 1.0), (f1, 1.0), (timestep, 1.0)], backend)
 
@@ -229,7 +242,7 @@ def stage_input(a, b, flow, timestep, mask, feat, scale: float, backend: str) ->
     n, h, w = flow.shape[:3]
     x = torch.empty((n, int(h / scale), int(w / scale), BLOCK_IN_PADDED[1]), dtype=flow.dtype,
                     device=flow.device)
-    _count(use_kernel(backend, x))
+    _count(use_kernel(backend, x), "ifnet.assembled", "ifnet.concat")
     rest = [(timestep, 1.0), (mask, 1.0), (feat, 1.0), (flow, 1.0 / scale)]
     k = _integer_scale(scale, h, w)
     if k is not None and k % 2 == 0:
@@ -251,7 +264,8 @@ def ifnet_apply(p: Params, img0: Operand, img1: Operand, timestep: Operand,
     N planes with a batch stride of 0, or Picks choosing one of two frames
     per plane (then give the features). ``p`` holds the packed weights
     (``pack_resconv_weights``). ``warp_backend`` also picks who writes each
-    block's input (the warp and assembly kernels, or their plain versions).
+    block's input and output (the warp, assembly and block-output kernels,
+    or their plain versions).
     Returns (merged_frame, flow_list).
     """
     if f0 is None:
@@ -262,13 +276,14 @@ def ifnet_apply(p: Params, img0: Operand, img1: Operand, timestep: Operand,
     a = (first_channels(img0, 3), f0)  # each direction's frame and features, side by side
     b = (first_channels(img1, 3), f1)
     x = block0_input(img0, img1, f0, f1, timestep, scale_list[0], warp_backend)
-    flow, mask, feat = ifnet_block_at_scale(p, 0, x, scale_list[0], (h, w), conv_backend)
+    flow, mask, feat = ifnet_block_at_scale(p, 0, x, scale_list[0], (h, w), conv_backend,
+                                            warp_backend=warp_backend)
     flow_list = [flow]
     for i in range(1, 5):
         sc = scale_list[i]
         x = stage_input(a, b, flow, timestep, mask, feat, sc, warp_backend)
-        fd, mask, feat = ifnet_block_at_scale(p, i, x, sc, (h, w), conv_backend)
-        flow = flow + fd
+        flow, mask, feat = ifnet_block_at_scale(p, i, x, sc, (h, w), conv_backend, flow,
+                                                warp_backend)
         flow_list.append(flow)
 
     n = flow.shape[0]

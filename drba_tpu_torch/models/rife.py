@@ -33,8 +33,9 @@ from drba_tpu_torch.ops.planes import Pick, shared
 def _calc_flow(params, a, b, scale0: float, f0=None, f1=None, splat_backend: str = "auto",
                conv_backend: str = "auto", warp_backend: str = "auto"):
     """Bidirectional full-step flow between a and b (models/rife.py:41-75);
-    IFBlock 0's input assembled at its scale (``warp_backend``: by the
-    kernel or the plain version, as in ``ifnet_apply``).
+    IFBlock 0's input assembled at its scale and its output written
+    (``warp_backend``: by the kernels or the plain versions, as in
+    ``ifnet_apply``).
 
     Returns (flow_ab, flow_ba, f_a, f_b).
     """
@@ -43,7 +44,8 @@ def _calc_flow(params, a, b, scale0: float, f0=None, f1=None, splat_backend: str
     h, wd = a.shape[1], a.shape[2]
     timestep = a.new_full((1, 1, 1, 1), 0.5).expand(a.shape[0], h, wd, 1)
     x = block0_input(a, b, f0, f1, timestep, scale0, warp_backend)
-    flow, _, _ = ifnet_block_at_scale(params, 0, x, scale0, (h, wd), conv_backend)
+    flow, _, _ = ifnet_block_at_scale(params, 0, x, scale0, (h, wd), conv_backend,
+                                      warp_backend=warp_backend)
 
     # both inversions in one splat call (stacked on the batch axis)
     n = flow.shape[0]

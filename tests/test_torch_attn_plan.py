@@ -130,6 +130,22 @@ def test_bound_warp_full_res_and_tap_grid():
            {"f32": 2 * 4 * 19 * samples}, want / 3.35e12 * 1e3, "bytes")
 
 
+def test_bound_block_output():
+    """An IFBlock's output at 1088x1920, T = 3, bf16: the lastconv's 56
+    channels at half the block's resolution read once, 13 channels written
+    and, past block 0, the running 4-channel flow read; downsampling (a
+    block above the full resolution) reads at most the 2 x 2 taps."""
+    px = 3 * 1088 * 1920
+    _check(bounds.block_output_work(3, 34, 60, 56, 1088, 1920, 2, False),
+           3 * 34 * 60 * 56 * 2 + px * 13 * 2, {}, (3 * 34 * 60 * 112 + px * 26) / 3.35e12 * 1e3,
+           "bytes")
+    _check(bounds.block_output_work(3, 544, 960, 56, 1088, 1920, 2, True),
+           3 * 544 * 960 * 112 + px * 17 * 2, {}, (3 * 544 * 960 * 112 + px * 34) / 3.35e12 * 1e3,
+           "bytes")
+    assert bounds.block_output_work(1, 100, 100, 56, 10, 10, 4, False).bytes == \
+        4 * 100 * 56 * 4 + 100 * 13 * 4
+
+
 def test_warp_touched_counts_clamped_corners():
     h, w = 2, 3
     x = np.arange(w, dtype=np.float32)[None, None, :].repeat(h, 1)

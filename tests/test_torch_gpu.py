@@ -1344,3 +1344,120 @@ def test_rife_window_graph_writes_block_inputs_in_place(dev, monkeypatch):
     names = [e.key for e in prof.key_averages() for _ in range(e.count)]
     assert not [n for n in names if "nhwcAddPadding" in n]
     assert sum("CatArrayBatchedCopy" in n for n in names) <= len(cats)
+
+
+# ----------------------------------------------------------------------------- IFNet block outputs
+
+
+def _lastconv_output(gen, n, h, w, scale, dtype, dev):
+    """A block's lastconv output as cuDNN leaves it for the IFNet at (h, w)
+    and ``scale``: LASTCONV_PADDED channels last, at half the block's
+    resolution (two stride-2 convs round it up to a multiple of 4, the
+    stride-2 transposed conv doubles it): at scale 1 the shuffle gives the
+    full resolution, read as it is."""
+    from drba_tpu_torch.models.ifnet import LASTCONV_PADDED
+
+    half = lambda d: -(-d // 2)  # noqa: E731
+    hl, wl = (2 * half(half(int(d / scale))) for d in (h, w))
+    nchw = (torch.rand(n, LASTCONV_PADDED, hl, wl, generator=gen, device=dev) * 2 - 1).to(dtype)
+    return nchw.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("case", list(_BLOCK_SHAPES))
+def test_block_outputs_kernel_matches_plain(dev, case, n, dtype):
+    """Every block output of ``ifnet_apply`` at the cells' shapes (block 0
+    with no running flow, blocks 1-4 adding to one), written by the kernel
+    and by the plain version from the same lastconv output: bit for bit at
+    integer scales (the same taps, weights and roundings as F.interpolate,
+    the multiply and the add); elsewhere each channel within two ulps of its
+    largest value, and the flow within two ulps of its largest resized
+    product besides (F.interpolate's kernel may fuse the bilinear
+    multiply-adds in another order, and the product with the scale and the
+    sum round once more). One launch a block."""
+    from drba_tpu_torch.ops.block_output import block_output
+
+    (h, w), scales = _BLOCK_SHAPES[case]
+    gen = torch.Generator(device=dev).manual_seed(60 + n)
+    ulp = 2 ** -7 if dtype == torch.bfloat16 else 2 ** -23
+    flow = None
+    for i, sc in enumerate(scales):
+        lc = _lastconv_output(gen, n, h, w, sc, dtype, dev)
+        c0 = _build.BLOCK_OUTPUT.launches
+        got = block_output(lc, sc, flow, (h, w), backend="cuda")
+        assert _build.BLOCK_OUTPUT.launches - c0 == 1
+        want = block_output(lc, sc, flow, (h, w), backend="torch")
+        for name, g, wt in zip(("flow", "mask", "feat"), got, want):
+            assert g.shape == wt.shape and g.dtype == wt.dtype, name
+            g, wt = g.float(), wt.float()
+            if float(sc).is_integer():
+                assert torch.equal(g, wt), f"block {i} {name} (scale {sc}): " \
+                                           f"{int((g != wt).sum())} differ"
+                continue
+            tol = 2 * ulp * wt.abs().amax(dim=(0, 1, 2))  # per channel
+            if name == "flow":
+                fd = block_output(lc, sc, None, (h, w), backend="torch")[0].float()
+                tol = tol + 2 * ulp * fd.abs().amax(dim=(0, 1, 2))
+            bad = int(((g - wt).abs() > tol).sum())
+            assert not bad, f"block {i} {name} (scale {sc}): {bad} values beyond {tol.tolist()}"
+        # the next block adds to this one's flow, as ifnet_apply chains them
+        flow = want[0].contiguous() if i == 0 else (want[0] * 0.5).contiguous()
+
+
+def test_block_output_replays_in_a_captured_graph(dev):
+    """The kernel captured in a CUDA graph (as the model-call graphs capture
+    it), replayed on new lastconv outputs and flows copied into the captured
+    inputs: each replay equals the plain version bit for bit (RIFE's block
+    2 at 1088x1920, scale 4, T = 3, bf16); the capture records one launch."""
+    from drba_tpu_torch.ops.block_output import block_output
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lc = _lastconv_output(gen, 3, 1088, 1920, 4.0, torch.bfloat16, dev)
+    flow = (torch.rand(3, 1088, 1920, 4, generator=gen, device=dev) * 24 - 12).to(torch.bfloat16)
+    block_output(lc, 4.0, flow, (1088, 1920), backend="cuda")  # built and loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording() as record, torch.cuda.graph(graph):
+        out = block_output(lc, 4.0, flow, (1088, 1920), backend="cuda")
+    assert record == {"block_output": 1}
+    for _ in range(2):
+        lc.copy_(_lastconv_output(gen, 3, 1088, 1920, 4.0, torch.bfloat16, dev))
+        flow.copy_((torch.rand(3, 1088, 1920, 4, generator=gen, device=dev) * 24 - 12)
+                   .to(torch.bfloat16))
+        graph.replay()
+        want = block_output(lc, 4.0, flow, (1088, 1920), backend="torch")
+        for g, wt in zip(out, want):
+            assert torch.equal(g, wt)
+
+
+def test_rife_window_graph_writes_block_outputs_in_one_pass(dev):
+    """A 1088x1920 RIFE window and its pass count every block output as
+    fused (``ifnet.out_plain`` 0): one for the chain's pass (block 0), and
+    six for each run of the window's body (the next pass's block 0 and the
+    IFNet's five blocks), which its first call runs twice, as the warm-up
+    and as the capture: 13 in all. A profiled replay of the captured window
+    graph launches the kernel and no bf16 upsample_bilinear2d (the f32 ones
+    left are the DRM's: its maps splat at half resolution and resized back,
+    drm.py)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from drba_tpu_torch.models.rife import RIFE
+    from drba_tpu_torch.utils import profiling
+
+    m = RIFE(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    base = torch.rand(1, 1088, 1920 + 12, 3, generator=gen, device=dev)
+    I0, I1, I2 = (base[:, :, 6 * i:6 * i + 1920].contiguous().to(torch.bfloat16)
+                  for i in range(3))
+    with profiling.tracer() as st:
+        reuse = m.reuse(I1, I0)
+        _, reuse = m.inference_ts_drba(I0, I1, I2, [0.6, 1.0, 1.4], reuse, linear=True)
+    assert st.counters["ifnet.out_plain"] == 0 and st.counters["ifnet.out_fused"] == 13
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        m.inference_ts_drba(I0, I1, I2, [0.6, 1.0, 1.4], reuse, linear=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not [k for k in names if "upsample_bilinear2d" in k and "BFloat16" in k], names
+    assert [k for k in names if "block_output_kernel" in k], names

@@ -1,24 +1,27 @@
-"""IFNet's block inputs written once, in place (models/ifnet.py,
-ops/block_input.py, ops/planes.py), on the CPU.
+"""IFNet's block inputs and outputs written once, in place (models/ifnet.py,
+ops/block_input.py, ops/block_output.py, ops/planes.py), on the CPU.
 
 The plain assembly (what the CPU runs, and the card's kernel is held to)
 against the reference's concatenate-then-resize expression written out
 here, at every stage and pyramid scale, in f32; the permuted, zero-padded
 first conv weights against the originals; the operands read where they lie
 (a shared frame with a batch stride of 0, a per-plane choice of two); the
+block output's plain version against the block's tail written out; the
 block counters.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from drba_tpu_torch.config import F32
-from drba_tpu_torch.models.ifnet import (BLOCK_IN, BLOCK_IN_PADDED, IN_ORDER, WARPED,
-                                         assembled_layout, block0_input, ifnet_apply,
+from drba_tpu_torch.models.ifnet import (BLOCK_IN, BLOCK_IN_PADDED, IN_ORDER, LASTCONV_PADDED,
+                                         WARPED, assembled_layout, block0_input, ifnet_apply,
                                          ifnet_block_at_scale, stage_input)
 from drba_tpu_torch.models.rife import RIFE
 from drba_tpu_torch.ops.block_input import assemble
+from drba_tpu_torch.ops.block_output import block_output
 from drba_tpu_torch.ops.planes import Pick, dense, first_channels, shared
 from drba_tpu_torch.ops.resize import resize_bilinear
 from drba_tpu_torch.ops.warp import backwarp2
@@ -144,6 +147,54 @@ def test_assemble_resizes_or_places_each_part_and_zeros_the_rest():
         assemble(out, [(a, 1.0), (_rand(rng, 2, 32, 64, 3), 1.0)], backend="torch")
     with pytest.raises(ValueError):
         assemble(out, [(a, 1.0)], backend="cuda")  # a CPU tensor
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_flow", [False, True])
+@pytest.mark.parametrize("scale", SCALES)
+def test_block_output_is_the_blocks_eager_tail(scale, with_flow, dtype):
+    """``block_output``'s plain version (what the kernel is held to) against
+    the block's tail written out with PyTorch's own layers: the lastconv's
+    output (LASTCONV_PADDED channels at half the block's resolution: two
+    stride-2 convs round it up to a multiple of 4, the stride-2 transposed
+    conv doubles it) pixel-shuffled, its first 13 channels resized to full
+    resolution (at scale 1 the shuffle gives it, and nothing is resized),
+    the flow times the scale plus the running flow (none at block 0), each
+    step in ``dtype``."""
+    rng = np.random.default_rng(int(scale * 10) + with_flow)
+    half = lambda n: -(-n // 2)  # noqa: E731
+    hl, wl = (2 * half(half(int(d / scale))) for d in (H, W))
+    assert scale != 1 or (2 * hl, 2 * wl) == (H, W)
+    lc = _rand(rng, T, hl, wl, LASTCONV_PADDED, lo=-1).to(dtype)
+    flow = _rand(rng, T, H, W, 4, lo=-6, hi=6).to(dtype) if with_flow else None
+    got = block_output(lc, scale, flow, (H, W), backend="torch")
+
+    shuffled = F.pixel_shuffle(lc.permute(0, 3, 1, 2)[:, :52], 2)
+    if tuple(shuffled.shape[2:]) != (H, W):
+        shuffled = F.interpolate(shuffled, size=(H, W), mode="bilinear", align_corners=False)
+    tail = shuffled.permute(0, 2, 3, 1)
+    want_flow = tail[..., :4] * scale if flow is None else flow + tail[..., :4] * scale
+    for g, w in zip(got, (want_flow, tail[..., 4:5], tail[..., 5:])):
+        assert g.dtype == dtype and torch.equal(g, w)
+    with pytest.raises(ValueError):
+        block_output(lc, scale, flow, (H, W), backend="cuda")  # a CPU tensor
+    with pytest.raises(ValueError):  # the flow at another resolution
+        block_output(lc, scale, _rand(rng, T, H // 2, W, 4).to(dtype), (H, W), backend="torch")
+
+
+def test_ifnet_counts_each_block_output(model):
+    """Each block's output, by the kernel or the plain version: five an IFNet
+    call, one a RIFE pass (block 0's flow)."""
+    o = _window_operands(2)
+    with profiling.tracer() as st:
+        ifnet_apply(model.params, o["img0"], o["img1"], o["timestep"], (16.0, 8.0, 4.0, 2.0, 1.0),
+                    f0=o["f0"], f1=o["f1"], warp_backend="torch", conv_backend="torch")
+    assert st.counters["ifnet.out_plain"] == 5 and st.counters["ifnet.out_fused"] == 0
+    assert "ifnet.out_fused" in st.report() and "ifnet.out_plain" in st.report()
+    frame = dense(o["img0"])[:1]
+    with profiling.tracer() as st:
+        model.reuse(frame, frame.flip(2))
+    assert st.counters["ifnet.out_plain"] == 1 and st.counters["ifnet.out_fused"] == 0
 
 
 @pytest.mark.parametrize("idx", range(5))

@@ -132,6 +132,31 @@ def test_ifnet_stages_match_jax(models):
     assert_close_but_flips(merged, jmerged, 1e-5, what="merged")
 
 
+def test_ifnet_apply_matches_jax_at_a_non_integer_scale(models):
+    """Every stage's flow and the merge of ifnet_apply's plain path at
+    ``-scale 0.75``'s pyramid (16 / 0.75 ... 1 / 0.75): each block's output
+    resized from a block resolution that divides no axis evenly, and at the
+    last block upsampled by 4 / 3 (the test above holds a ratio of 1)."""
+    from drba_tpu.models.ifnet import ifnet_apply as jax_apply
+    from drba_tpu_torch.models.ifnet import ifnet_apply
+
+    jm, m = models
+    rng = np.random.default_rng(3)
+    img0, img1 = (rng.uniform(0, 1, (2, H, W, 3)).astype(np.float32) for _ in range(2))
+    img1 = np.roll(img0, 3, axis=2) * 0.7 + img1 * 0.3
+    tmap = rng.uniform(0.2, 0.8, (2, H, W, 1)).astype(np.float32)
+    scales = tuple(s / 0.75 for s in (16.0, 8.0, 4.0, 2.0, 1.0))
+    merged, flows = ifnet_apply(m.params, *(torch.from_numpy(a) for a in (img0, img1, tmap)),
+                                scales, warp_backend="torch", conv_backend="torch")
+    jmerged, jflows = jax.jit(jax_apply, static_argnums=(4,), static_argnames=(
+        "warp_backend", "conv_backend"))(jm.params, *(jnp.asarray(a) for a in (
+            img0, img1, tmap)), scales, warp_backend="gather", conv_backend="xla")
+    for i, (g, w) in enumerate(zip(flows, jflows)):
+        assert g.shape == w.shape
+        assert_close_but_flips(g, w, 1e-4, what=f"stage {i} flow")
+    assert_close_but_flips(merged, jmerged, 1e-5, what="merged")
+
+
 # --------------------------------------------------------------------------------------- rife
 
 
